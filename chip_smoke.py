@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (matcha_tts_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py            # about a minute on an H100, build included
+    python3 chip_smoke.py            # a few minutes on an H100, build included
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
 1. card: name and power limit from nvidia-smi; fails without a CUDA card;
-2. build: nvcc builds every kernel of the port from `csrc/`, timed;
+2. build: nvcc builds every kernel of the port from `csrc/` (one process per
+   source, all started together), timed;
 3. kernels: each MRF kernel against its plain PyTorch version at the shapes
    the main path gives it for the 512-frame bucket (level 1: C=128,
    T=32768; level 2: 128 -> 64 upsampled to T=65536; level 3: 64 -> 32 to
@@ -28,7 +29,30 @@ Phases, each of which raises on failure (no phase catches and carries on):
    kernels' relative L2 error is at most 1.25x the stock bf16 composition's;
 6. profile: one main-path call broken down by stage (host clock) and, from
    torch.profiler, by kernel, with the device's busy share of its wall time;
-7. the kernel table as one JSON line, the card line, and the final
+7. MAS kernel vs plain at the training path's shape (B, T_x, T_y) =
+   (64, 256, 1024) with ragged lengths, and on a small ragged batch with
+   t_y < t_x items: the paths must be identical; timed with CUDA events
+   beside the plain version and the bound (bytes over 3.35 TB/s);
+8. Block1D / ResnetBlock1D kernels vs plain at the U-Net's shapes for B = 64,
+   T = 1024 (every resnet shape of one estimator pass, and `final_block`):
+   fp32 max |diff| <= 1e-4 of the output's max |value|; bf16 vs fp32 plain on
+   the same rounded operands, relative L2 <= 1e-2; the input and weight
+   gradients of one fp32 backward vs the plain composition's, relative L2
+   <= 1e-4; timed beside the plain version and the bound;
+9. training at full width (`MatchaConfig()`, `TrainConfig()` defaults: batch
+   64, bf16, lr 1e-4, clip 5) on a corpus synthesised from a seed (22050 Hz
+   harmonic tones plus noise, 2-10 s, texts from SENTENCES; every batch lands
+   in the (256, 1024) bucket): `fit` for a few steps in configuration (a),
+   the default decoder, and (b), `DecoderConfig(use_pallas=True)`, with the
+   launch counts zeroed before and read after each (one MAS per loss pass;
+   in (b) one resnet kernel per ResnetBlock1D and one Block1D kernel per
+   pass); a finite loss and grad norm at every step; the loss falling over
+   20 steps on one repeated batch in each configuration; one (a) and one (b)
+   step from the same weights and batch agree (loss 1e-2, grad norm 2e-2,
+   relative); ms per step, frames per second, MAS's share and the device's
+   busy share of one step; then (b) synthesises a sentence through the
+   kernels;
+10. the kernel table as one JSON line, the card line, and the final
    {"ok": true, ...} line.
 """
 
@@ -37,8 +61,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,6 +97,14 @@ BF16_REL_L2 = 1e-2
 E2E_REL_L2 = 1e-2
 E2E_MAX_ABS = 3e-2  # on a wav in [-1, 1]: about 8 bf16 ulps at full scale
 E2E_VS_BF16 = 1.25
+
+MAS_SHAPE = (64, 256, 1024)  # (B, T_x, T_y): the training path's bucket
+BLOCK_B, BLOCK_T = 64, 1024
+GRAD_REL_L2 = 1e-4
+TRAIN_STEPS = 3      # fit steps per configuration
+FIXED_STEPS = 20     # steps on one repeated batch
+N_TRAIN, N_VAL = 64, 8
+LOSS_REL, GNORM_REL = 1e-2, 2e-2
 
 
 def card_line() -> str:
@@ -330,6 +365,34 @@ def end_to_end(syn, result) -> None:
                                  f"{E2E_VS_BF16} x stock bf16's {rel_s}")
 
 
+def device_busy(prof):
+    """(busy ms, [(kernel name, ms, count)] by time) of a torch.profiler
+    trace: the union of its device-side intervals (kernels, copies, memsets),
+    so that overlapping work and the host ops that launched it are not
+    counted twice.  User annotations (`record_function` spans mirrored on the
+    device timeline, such as the optimizer step) are left out: they cover
+    gaps between kernels.  None when the trace holds no device activity."""
+    from torch.autograd import DeviceType
+
+    def device_side(e):
+        return e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if device_side(e))
+    if not spans:
+        return None
+    busy, lo, hi = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    kernels = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                      for e in prof.key_averages() if device_side(e)),
+                     key=lambda r: -r[1])
+    return busy / 1e3, kernels
+
+
 def profile_path(syn, text: str) -> None:
     """Where one main-path call spends its time: host-clock stages (each
     ending in a synchronize) and, from torch.profiler, device time by
@@ -372,19 +435,390 @@ def profile_path(syn, text: str) -> None:
         syn.synthesize(text, n_timesteps=10, temperature=0.667, length_scale=3.0).wav
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if e.device_type.name == "CUDA" or
-            getattr(e, "self_device_time_total", 0) > 0]
-    dev = sum(getattr(e, "self_device_time_total", 0) for e in rows) / 1e3  # ms
-    if dev <= 0:
-        print("[profile] device time: not measured (the profiler saw no device "
-              "activity)", flush=True)
-        return
-    print(f"[profile] one synthesize under the profiler: wall {wall * 1e3:.2f} ms, "
-          f"device busy {dev:.2f} ms ({dev / (wall * 1e3):.3f} of wall)", flush=True)
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    for e in rows[:12]:
-        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
-              f"{e.key[:90]}", flush=True)
+    print_busy("profile", "one synthesize", prof, wall)
+
+
+def print_busy(tag: str, what: str, prof, wall: float):
+    """Prints the device's busy share of `wall` seconds and the top kernels;
+    returns the share, or None when the profiler saw no device activity."""
+    got = device_busy(prof)
+    if got is None:
+        print(f"[{tag}] device time: not measured (the profiler saw no device "
+              f"activity)", flush=True)
+        return None
+    busy, kernels = got
+    print(f"[{tag}] {what} under the profiler: wall {wall * 1e3:.2f} ms, device busy "
+          f"{busy:.2f} ms ({busy / (wall * 1e3):.3f} of wall; idle share "
+          f"{1 - busy / (wall * 1e3):.3f}), {sum(k[2] for k in kernels)} device "
+          f"activities", flush=True)
+    for name, ms, count in kernels[:12]:
+        print(f"[{tag}]   {ms:9.3f} ms  {count:5d}x  {name[:90]}", flush=True)
+    return busy / (wall * 1e3)
+
+
+def check_mas(reps: int) -> dict:
+    """Phase 7: the MAS kernel against its plain version (identical paths)."""
+    import numpy as np
+    import torch
+
+    from matcha_tts_tpu_torch.ops import mas, mas_cuda
+
+    dev = torch.device("cuda")
+
+    def case(b, t_x, t_y, seed, short):
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        value = torch.randn(b, t_x, t_y, generator=g) * 4.0 - 100.0
+        tx = torch.randint(max(1, t_x // 4), t_x + 1, (b,), generator=g)
+        ty = torch.minimum(tx * 4 + torch.randint(0, t_y, (b,), generator=g),
+                           torch.tensor(t_y))
+        tx[0], ty[0] = t_x, t_y
+        ty[1:1 + short] = torch.clamp(tx[1:1 + short] - 3, min=1)  # t_y < t_x
+        mask = ((torch.arange(t_x)[None, :, None] < tx[:, None, None])
+                & (torch.arange(t_y)[None, None, :] < ty[:, None, None])).float()
+        return value.to(dev), mask.to(dev), tx, ty
+
+    # small ragged batch, against the host oracle as well
+    v, m, _, _ = case(6, 40, 90, 1, 2)
+    small = mas.maximum_path(v, m)
+    torch.cuda.synchronize()
+    oracle = mas.maximum_path_numpy(v.cpu().numpy(), m.cpu().numpy())
+    if not (torch.equal(small, mas.maximum_path_plain(v, m))
+            and np.array_equal(small.cpu().numpy(), oracle)):
+        raise AssertionError("MAS kernel: small ragged batch differs from the plain version")
+
+    b, t_x, t_y = MAS_SHAPE
+    v, m, tx, ty = case(b, t_x, t_y, 2, 4)
+    got = mas.maximum_path(v, m)
+    torch.cuda.synchronize()
+    ref = mas.maximum_path_plain(v, m)
+    n_diff = int((got != ref).sum())
+    max_abs = float((got.float() - ref.float()).abs().max())
+    ms = cuda_ms(lambda: mas.maximum_path(v, m), reps)
+    plain_ms = cuda_ms(lambda: mas.maximum_path_plain(v, m), 1)
+    cells = int((tx * ty).sum())
+    nbytes = 4 * (cells + b * (t_x + t_y) + b * t_x * t_y)  # valid values, lengths, path
+    row = dict(shape=list(MAS_SHAPE), differing_cells=n_diff, max_abs_err=max_abs, ms=ms,
+               plain_ms=plain_ms,
+               bound_ms=max(2 * cells / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3,
+               bound_by="bytes")
+    print(f"[mas] {json.dumps(row)}", flush=True)
+    if n_diff:
+        raise AssertionError(f"MAS kernel: {n_diff} cells differ from the plain version")
+    for k in mas_cuda.LAUNCHES:
+        mas_cuda.LAUNCHES[k] = 0
+    return row
+
+
+def block_shapes(cfg):
+    """(name, kind, C_in, C_out, T, launches per estimator pass) of every
+    fused block shape of the U-Net at T = BLOCK_T."""
+    ch = cfg.decoder.channels[0]
+    t, t2 = BLOCK_T, BLOCK_T // 2
+    return [("down0 resnet", "resnet", cfg.decoder_in_channels, ch, t, 1),
+            ("mid resnet", "resnet", ch, ch, t2, 1 + cfg.decoder.num_mid_blocks),
+            ("up0 resnet", "resnet", 2 * ch, ch, t2, 1),
+            ("up1 resnet", "resnet", 2 * ch, ch, t, 1),
+            ("final_block", "block", ch, ch, t, 1)]
+
+
+def check_blocks(cfg, reps: int) -> dict:
+    """Phase 8: the Block1D / ResnetBlock1D kernels against their plain
+    versions, forward (fp32, bf16) and gradients (fp32), with timings."""
+    import torch
+
+    from matcha_tts_tpu_torch.ops import unet_cuda as U
+
+    dev = torch.device("cuda")
+    b = BLOCK_B
+    rows = []
+    for idx, (name, kind, c_in, c_out, t, per_pass) in enumerate(block_shapes(cfg)):
+        g = torch.Generator(device=dev).manual_seed(100 + idx)
+        rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+        x = rnd(b, t, c_in)
+        lengths = torch.linspace(t // 2, t, b, device=dev).long()
+        mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).float()
+        p = [rnd(c_out, c_in, 3) / (3 * c_in) ** 0.5, rnd(c_out) * 0.1,
+             1 + 0.1 * rnd(c_out), 0.1 * rnd(c_out)]
+        if kind == "resnet":
+            p += [rnd(c_out, c_out, 3) / (3 * c_out) ** 0.5, rnd(c_out) * 0.1,
+                  1 + 0.1 * rnd(c_out), 0.1 * rnd(c_out),
+                  rnd(c_out, c_in, 1) / c_in ** 0.5, rnd(c_out) * 0.1]
+            temb = rnd(b, c_out)
+            kern = lambda xx, tt, *w: U.resnet1d(xx, mask, tt, *w)  # noqa: E731
+            plain = lambda xx, tt, *w: U.resnet1d_plain(xx, mask, tt, *w)  # noqa: E731
+            macs = t * (3 * c_in * c_out + 3 * c_out * c_out + c_in * c_out)
+            n_w = 3 * c_in * c_out + 3 * c_out * c_out + c_in * c_out + 7 * c_out
+        else:
+            temb = None
+            kern = lambda xx, tt, *w: U.block1d(xx, mask, *w)  # noqa: E731
+            plain = lambda xx, tt, *w: U.block1d_plain(xx, mask, *w)  # noqa: E731
+            macs = t * 3 * c_in * c_out
+            n_w = 3 * c_in * c_out + 3 * c_out
+
+        got = kern(x, temb, *p)
+        torch.cuda.synchronize()
+        ref = plain(x, temb, *p)
+        err32 = float((got - ref).abs().max())
+        scaled = err32 / float(ref.abs().max())
+
+        x16 = x.bfloat16()
+        t16 = None if temb is None else temb.bfloat16()
+        got16 = kern(x16, t16, *p)
+        ref16 = plain(x16.float(), None if t16 is None else t16.float(),
+                      *(w.bfloat16().float() for w in p))
+        rel16 = rel_l2(got16.float(), ref16)
+
+        # one fp32 backward: input, time row and every weight
+        gout = rnd(b, t, c_out)
+        leaves = [x] + ([] if temb is None else [temb]) + p
+
+        def grads(fn):
+            ins = [a.clone().requires_grad_() for a in leaves]
+            tt = None if temb is None else ins[1]
+            out = fn(ins[0], tt, *ins[1 + (temb is not None):])
+            return torch.autograd.grad(out, ins, gout)
+
+        grad_rel = max(rel_l2(a, r) for a, r in zip(grads(kern), grads(plain)))
+
+        ms = cuda_ms(lambda: kern(x16, t16, *p), reps)
+        plain_ms = cuda_ms(lambda: plain(x16, t16, *p), reps)
+        ops = 2 * b * macs
+        nbytes = 2 * (b * t * c_in + b * t * c_out + n_w) + 4 * b * t
+        bound = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+        row = dict(name=name, kind=kind, c_in=c_in, c_out=c_out, t=t, batch=b,
+                   per_pass=per_pass, fp32_max_abs_err=err32, fp32_scaled_err=scaled,
+                   bf16_rel_l2=rel16, grad_rel_l2=grad_rel, bf16_ms=ms, bf16_plain_ms=plain_ms,
+                   bf16_bound_ms=bound,
+                   bound_by="operations" if ops / PEAK_BF16 >= nbytes / PEAK_BYTES else "bytes")
+        print(f"[blocks] {json.dumps(row)}", flush=True)
+        if not scaled <= FP32_ATOL:
+            raise AssertionError(f"{name}: fp32 max |diff| {err32} is {scaled} of max |out|")
+        if not rel16 <= BF16_REL_L2:
+            raise AssertionError(f"{name}: bf16 rel L2 {rel16} > {BF16_REL_L2}")
+        if not grad_rel <= GRAD_REL_L2:
+            raise AssertionError(f"{name}: gradient rel L2 {grad_rel} > {GRAD_REL_L2}")
+        rows.append(row)
+        del x, x16, got, ref, got16, ref16
+        torch.cuda.empty_cache()
+    for k in U.LAUNCHES:
+        U.LAUNCHES[k] = 0
+    return rows
+
+
+def synth_corpus(root: Path, seed: int):
+    """N_TRAIN + N_VAL WAVs (22050 Hz int16) of harmonic tones plus noise with
+    texts cut from SENTENCES, about 4.3 frames per token (LJSpeech's rate),
+    2-10 s; the first item of each list is a whole sentence of 9.8 s, so every
+    batch lands in the 1024-frame bucket.  Returns (train, val) filelists."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from matcha_tts_tpu_torch.text.tokenizer import encode_text
+
+    sr = 22050
+    rng = np.random.default_rng(seed)
+    (root / "wavs").mkdir(parents=True, exist_ok=True)
+    lines = []
+    for i in range(N_TRAIN + N_VAL):
+        words = SENTENCES[i % len(SENTENCES)].split()
+        first = i in (0, N_TRAIN)
+        k = len(words) if first else int(rng.integers(3, len(words) + 1))
+        text = " ".join(words[:k])
+        secs = 9.8 if first else float(np.clip(
+            len(encode_text(text)) * 4.3 * 256 / sr * rng.uniform(0.9, 1.15), 2.0, 10.0))
+        t = np.arange(int(secs * sr)) / sr
+        f0 = rng.uniform(90.0, 250.0) * (1 + 0.05 * np.sin(2 * np.pi * 0.7 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        wav = sum(np.sin(h * phase) / h for h in range(1, 6))
+        wav *= 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 3.1 * t))  # syllable-rate envelope
+        wav = 0.2 * wav + 0.01 * rng.standard_normal(len(t))
+        path = root / "wavs" / f"utt{i:03d}.wav"
+        wavfile.write(path, sr, np.clip(wav * 32767, -32768, 32767).astype(np.int16))
+        lines.append(f"{path}|{text}\n")
+    train, val = root / "train.txt", root / "val.txt"
+    train.write_text("".join(lines[:N_TRAIN]))
+    val.write_text("".join(lines[N_TRAIN:]))
+    return str(train), str(val)
+
+
+def zero_counts():
+    from matcha_tts_tpu_torch.ops import mas_cuda, unet_cuda
+
+    for d in (mas_cuda.LAUNCHES, unet_cuda.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def read_counts() -> dict:
+    from matcha_tts_tpu_torch.ops import mas_cuda, unet_cuda
+
+    return {**mas_cuda.LAUNCHES, **unet_cuda.LAUNCHES}
+
+
+def fixed_batch_steps(cfg, tcfg, batch, seed: int):
+    """FIXED_STEPS optimizer steps on one batch from fresh weights: the losses
+    and each step's host-clock time (synchronized)."""
+    import torch
+
+    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tts_tpu_torch.train.train_state import create_train_state, train_step
+
+    state = create_train_state(MatchaTTS(cfg, seed=seed, device="cuda"), tcfg)
+    losses, times = [], []
+    for _ in range(FIXED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(state, batch, cfg, tcfg)
+        loss = float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+        if not (math.isfinite(loss) and math.isfinite(float(metrics["grad_norm"]))):
+            raise AssertionError(f"non-finite loss or grad norm at step {state.step}")
+        losses.append(loss)
+    return state, losses, times
+
+
+def training(syn) -> dict:
+    """Phase 9: the training path at full width, configurations (a) and (b)."""
+    import torch
+
+    from matcha_tts_tpu_torch.config import DecoderConfig, MatchaConfig, TrainConfig
+    from matcha_tts_tpu_torch.data.dataset import BucketBatcher, TextMelDataset
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tts_tpu_torch.ops import mas
+    from matcha_tts_tpu_torch.train.loop import featurize_batch, fit
+    from matcha_tts_tpu_torch.train.losses import log_gaussian_prior
+    from matcha_tts_tpu_torch.train.train_state import create_train_state, train_step
+
+    configs = {"a": MatchaConfig(), "b": MatchaConfig(decoder=DecoderConfig(use_pallas=True))}
+    tcfg = TrainConfig(log_every_n_steps=1, ckpt_every_n_steps=10 ** 6)
+    per_pass = {"resnet1d": 2 * len(configs["b"].decoder.channels)
+                + configs["b"].decoder.num_mid_blocks, "block1d": 1}
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        train_fl, val_fl = synth_corpus(work / "corpus", seed=0)
+        ds = TextMelDataset(train_fl, configs["a"].audio, seed=None)
+        raw = next(iter(BucketBatcher(ds, tcfg, shuffle=False)))
+        print(f"[train] batch: x {raw['x'].shape}, audio {raw['audio'].shape}, frames "
+              f"{int(raw['y_lengths'].min())}-{int(raw['y_lengths'].max())}", flush=True)
+        n_val_batches = math.ceil(N_VAL / tcfg.batch_size)
+        for name, cfg in configs.items():
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = fit(cfg, tcfg, train_fl, val_fl, work_dir=str(work / f"run_{name}"),
+                        max_steps=TRAIN_STEPS, resume=False, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            recs = [json.loads(line) for line in
+                    (work / f"run_{name}" / "metrics.jsonl").read_text().splitlines()]
+            steps = [r for r in recs if r["split"] == "train"]
+            print(f"[train] ({name}) fit {TRAIN_STEPS} steps + {n_val_batches} val batch in "
+                  f"{wall:.1f} s; launches {counts}; per step " + "; ".join(
+                      f"loss {r['loss']:.4f} grad_norm {r['grad_norm']:.4f}" for r in steps),
+                  flush=True)
+            if len(steps) != TRAIN_STEPS or not all(
+                    math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in steps):
+                raise AssertionError(f"({name}): expected {TRAIN_STEPS} finite steps, got {steps}")
+            passes = TRAIN_STEPS + n_val_batches
+            fused = cfg.decoder.use_pallas
+            want = {"mas": passes, "block1d": per_pass["block1d"] * passes if fused else 0,
+                    "resnet1d": per_pass["resnet1d"] * passes if fused else 0}
+            if counts != want:
+                raise AssertionError(f"({name}): launches {counts}, expected {want}")
+            out["launches"][name] = counts
+            out[f"fit_{name}"] = state
+            del state
+            torch.cuda.empty_cache()
+
+        batch = featurize_batch(raw, configs["a"], "cuda")
+        frames = int(raw["y_lengths"].sum())
+        padded = raw["audio"].shape[0] * batch["y"].shape[1]
+        for name, cfg in configs.items():
+            state, losses, times = fixed_batch_steps(cfg, tcfg, batch, seed=1)
+            step_ms = statistics.median(times[3:]) * 1e3
+            first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+            print(f"[train] ({name}) {FIXED_STEPS} steps on one batch: loss "
+                  f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of first 3 {first:.4f}, last 3 "
+                  f"{last:.4f}); step {step_ms:.2f} ms (median, host clock); "
+                  f"{frames / step_ms * 1e3:.0f} valid frames/s, {padded / step_ms * 1e3:.0f} "
+                  f"padded frames/s", flush=True)
+            if not last < first:
+                raise AssertionError(f"({name}): the loss did not fall on a repeated batch")
+            out[f"step_ms_{name}"] = step_ms
+            out[f"frames_per_s_{name}"] = frames / step_ms * 1e3
+            if name == "a":
+                with torch.no_grad():
+                    mu_x, _, x_mask = state.model.encoder(batch["x"], batch["x_lengths"])
+                    y_mask = (torch.arange(batch["y"].shape[1], device="cuda")[None]
+                              < batch["y_lengths"][:, None]).float()
+                    lp = log_gaussian_prior(mu_x.float(), batch["y"], cfg.encoder.n_feats)
+                    am = x_mask.float()[:, :, None] * y_mask[:, None, :]
+                mas_ms = cuda_ms(lambda: mas.maximum_path(lp, am), REPS)
+                out["mas_share"] = mas_ms / step_ms
+                print(f"[train] MAS at {tuple(lp.shape)}: {mas_ms:.3f} ms, "
+                      f"{mas_ms / step_ms:.4f} of a step", flush=True)
+                profile_step(state, batch, cfg, tcfg, out, step_ms)
+            del state
+            torch.cuda.empty_cache()
+
+        # (a) and (b) from the same weights and batch
+        model_a = MatchaTTS(configs["a"], seed=2, device="cuda")
+        model_b = MatchaTTS(configs["b"], seed=2, device="cuda")
+        model_b.load_state_dict(model_a.state_dict())
+        m_a = train_step(create_train_state(model_a, tcfg), batch, configs["a"], tcfg)
+        m_b = train_step(create_train_state(model_b, tcfg), batch, configs["b"], tcfg)
+        la, lb = float(m_a["loss"]), float(m_b["loss"])
+        ga, gb = float(m_a["grad_norm"]), float(m_b["grad_norm"])
+        print(f"[train] one step from the same weights: loss (a) {la:.6f} (b) {lb:.6f} "
+              f"(rel {abs(la - lb) / abs(la):.2e}); grad norm (a) {ga:.6f} (b) {gb:.6f} "
+              f"(rel {abs(ga - gb) / abs(ga):.2e})", flush=True)
+        if not (abs(la - lb) <= LOSS_REL * abs(la) and abs(ga - gb) <= GNORM_REL * abs(ga)):
+            raise AssertionError("configurations (a) and (b) disagree on one step")
+        del model_a
+
+        # (b) synthesises through the kernels
+        syn_b = Synthesizer(model_b, configs["b"], syn.vocoder, syn.hifi_cfg,
+                            compute_dtype="bfloat16", denoise_strength=0.00025, device="cuda")
+        zero_counts()
+        c0 = syn_b.stats["calls"]
+        r = syn_b.synthesize(SENTENCES[0], n_timesteps=10, temperature=0.667, length_scale=3.0)
+        wav = r.wav
+        calls = syn_b.stats["calls"] - c0
+        counts = read_counts()
+        want = {"mas": 0, "block1d": 10 * calls, "resnet1d": per_pass["resnet1d"] * 10 * calls}
+        print(f"[train] (b) synthesised {r.y_length} frames in {calls} device call(s); "
+              f"launches {counts}", flush=True)
+        import numpy as np
+
+        if counts != want or not np.isfinite(wav).all() or len(wav) != r.y_length * 256:
+            raise AssertionError(f"(b) synthesis: launches {counts}, expected {want}")
+    return out
+
+
+def profile_step(state, batch, cfg, tcfg, out, step_ms: float) -> None:
+    """The device's busy share of one train step under torch.profiler, of
+    its profiled wall time and of the unprofiled median `step_ms` (the
+    profiler's own host overhead stretches the profiled step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tts_tpu_torch.train.train_state import train_step
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(train_step(state, batch, cfg, tcfg)["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    share = print_busy("train", "one step", prof, wall)
+    if share is not None:
+        out["busy_share"] = share
+        out["busy_share_vs_step"] = share * wall * 1e3 / step_ms
+        print(f"[train] device busy over the unprofiled median step ({step_ms:.2f} ms): "
+              f"{out['busy_share_vs_step']:.3f}", flush=True)
 
 
 def main() -> int:
@@ -411,10 +845,15 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"[build] {name}: {line.strip()}")
 
+    from matcha_tts_tpu_torch.config import MatchaConfig
+
     table = check_kernels(T_Y, REPS)
+    mas_row = check_mas(REPS)
+    block_rows = check_blocks(MatchaConfig(), REPS)
     syn, last, launches = full_width()
     end_to_end(syn, last)
     profile_path(syn, SENTENCES[0])
+    train = training(syn)
 
     up = [table["level2"], table["level3"]]
     kernels = [
@@ -433,7 +872,29 @@ def main() -> int:
          "plain_ms": sum(r["bf16_plain_ms"] for r in up),
          "bound_ms": sum(r["bf16_bound_ms"] for r in up),
          "bound_by": up[0]["bound_by"], "library_ms": None},
+        {"name": "mas", "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/mas.cu",
+         "replaces": "matcha_tts_tpu/ops/pallas/mas.py:162",
+         "launches": sum(c["mas"] for c in train["launches"].values()),
+         "max_abs_err": mas_row["max_abs_err"],
+         "ms": mas_row["ms"], "plain_ms": mas_row["plain_ms"],
+         "bound_ms": mas_row["bound_ms"], "bound_by": mas_row["bound_by"],
+         "library_ms": None},
     ]
+    # the fused blocks: per estimator pass at B=64, T=1024 (each shape times
+    # its launches in one pass)
+    for kname, kind, src_line in (("block1d", "block", "block1d.py:102"),
+                                  ("resnet1d", "resnet", "resnet1d.py:75")):
+        rows = [r for r in block_rows if r["kind"] == kind]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "matcha_tts_tpu_torch/csrc/unet_blocks.cu",
+            "replaces": f"matcha_tts_tpu/ops/pallas/{src_line}",
+            "launches": train["launches"]["b"][kname],
+            "max_abs_err": max(r["fp32_max_abs_err"] for r in rows),
+            "ms": sum(r["bf16_ms"] * r["per_pass"] for r in rows),
+            "plain_ms": sum(r["bf16_plain_ms"] * r["per_pass"] for r in rows),
+            "bound_ms": sum(r["bf16_bound_ms"] * r["per_pass"] for r in rows),
+            "bound_by": rows[0]["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,11 @@
 `config_from_dict`, so a JSON file written by one serves both.  The default
 is the Matcha-TTS LJSpeech v1 preset with the HiFi-GAN V1 vocoder.
 
-Options that select a TPU kernel (`block1d_impl="pallas"`, `use_pallas`,
-`attention_impl="flash"` / `"vmem"`, `mrf_kernel="tap"` / `"int8"`) keep
-their values here, so configs round-trip; the port's modules raise
-`NotImplementedError` for the ones it has not ported yet.
+Options that select a TPU kernel keep their values here, so configs
+round-trip.  `block1d_impl="pallas"` / `use_pallas` select the port's fused
+U-Net block kernels; for the kernels not ported yet (`attention_impl="flash"`
+/ `"vmem"`, `mrf_kernel="tap"` / `"int8"`) the port's modules raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -68,10 +69,10 @@ class DecoderConfig:
     num_mid_blocks: int = 2
     num_heads: int = 2
     act_fn: str = "snakebeta"
-    # legacy switch: force the fused Block1D kernel (not ported yet)
+    # legacy switch: force the fused Block1D / ResnetBlock1D kernels
     use_pallas: bool = False
     # Block1D implementation: "xla" (plain ops), "pallas" (the fused
-    # kernels, not ported yet) or "auto" (plain ops)
+    # Block1D / ResnetBlock1D kernels) or "auto" (plain ops)
     block1d_impl: str = "auto"
     # decoder attention: "xla" (plain ops), "flash" / "vmem" (the kernels,
     # not ported yet) or "auto" (plain ops)
@@ -194,7 +195,7 @@ class MatchaConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training orchestration (the port does not train yet)."""
+    """Training orchestration (`train/loop.py::fit`)."""
 
     batch_size: int = 64
     learning_rate: float = 1e-4

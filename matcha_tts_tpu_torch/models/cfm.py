@@ -72,3 +72,30 @@ def sample(estimator: Callable, mu: torch.Tensor, mask: torch.Tensor,
     if z is None:
         z = draw_noise(mu.shape, mu.device, seed, noise_ids)
     return solve(estimator, z.float() * temperature, mask, mu, n_timesteps, solver)
+
+
+def compute_loss(estimator: Callable, x1: torch.Tensor, mask: torch.Tensor,
+                 mu: torch.Tensor, sigma_min: float = 1e-4,
+                 compute_dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None,
+                 t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None):
+    """OT-CFM loss.  x1 (B, T, C) target mel; mask (B, T); mu aligned
+    conditioning.  t ~ U(0, 1) per item (B, 1, 1) and z ~ N(0, I) like x1,
+    both fp32, drawn from `generator` unless given;
+    y_t = (1 - (1 - sigma) t) z + t x1; u_t = x1 - (1 - sigma) z; the
+    estimator runs in `compute_dtype`.  The loss sums the UNMASKED squared
+    error over sum(mask) * C, as the reference does (padded positions add a
+    gradient-free noise floor).  Returns (loss, y_t, pred, u_t)."""
+    b = mu.shape[0]
+    x1 = x1.float()
+    if t is None:
+        t = torch.rand((b, 1, 1), generator=generator, device=x1.device)
+    if z is None:
+        z = torch.randn(x1.shape, generator=generator, device=x1.device)
+    t, z = t.float().reshape(b, 1, 1), z.float()
+    y_t = (1.0 - (1.0 - sigma_min) * t) * z + t * x1
+    u_t = x1 - (1.0 - sigma_min) * z
+    cd = compute_dtype
+    pred = estimator(y_t.to(cd), mask.to(cd), mu.to(cd), t[:, 0, 0].to(cd)).float()
+    loss = torch.sum(torch.square(pred - u_t)) / (torch.sum(mask.float()) * u_t.shape[-1])
+    return loss, y_t, pred, u_t

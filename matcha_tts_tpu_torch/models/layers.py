@@ -3,7 +3,8 @@ duration predictor, multi-head attention with RoPE on half the head dims,
 the conv FFN and the post-norm transformer stack.
 
 Attribute names follow the JAX package's parameter tree, so a module's
-`state_dict` keys are the tree's paths.  Inference only: dropout is off.
+`state_dict` keys are the tree's paths.  Dropout draws from the
+`torch.Generator` passed to `forward` (training); with none it is off.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from matcha_tts_tpu_torch.models.nn import Conv1d, Norm, channel_layer_norm
+from matcha_tts_tpu_torch.models.nn import Conv1d, Norm, channel_layer_norm, dropout
 
 
 class ConvReluNorm(nn.Module):
@@ -33,14 +34,14 @@ class ConvReluNorm(nn.Module):
         self.norm_layers = nn.ModuleList(Norm(hidden_ch) for _ in range(n_layers))
         self.proj = Conv1d(hidden_ch, out_ch, 1, init="zero")
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, p_dropout=0.5, generator=None):
         m = x_mask[..., None]
         x_org = x
         pad = self.kernel_size // 2
         for conv, norm in zip(self.conv_layers, self.norm_layers):
             x = conv(x * m, padding=pad)
             x = channel_layer_norm(x, norm.gamma, norm.beta)
-            x = F.relu(x)
+            x = dropout(F.relu(x), p_dropout, generator)
         x = x_org + self.proj(x)
         return x * m
 
@@ -59,13 +60,15 @@ class DurationPredictor(nn.Module):
         self.norm_2 = Norm(filter_ch)
         self.proj = Conv1d(filter_ch, 1, 1, generator=generator)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, p_dropout=0.0, generator=None):
         m = x_mask[..., None]
         pad = self.kernel_size // 2
         x = F.relu(self.conv_1(x * m, padding=pad))
         x = channel_layer_norm(x, self.norm_1.gamma, self.norm_1.beta)
+        x = dropout(x, p_dropout, generator)
         x = F.relu(self.conv_2(x * m, padding=pad))
         x = channel_layer_norm(x, self.norm_2.gamma, self.norm_2.beta)
+        x = dropout(x, p_dropout, generator)
         x = self.proj(x * m)
         return x * m
 
@@ -103,7 +106,8 @@ class MultiHeadAttention(nn.Module):
         self.conv_v = Conv1d(channels, channels, 1, init="xavier", generator=generator)
         self.conv_o = Conv1d(channels, out_channels, 1, generator=generator)
 
-    def forward(self, x, attn_mask, rope_cache: Optional[Tuple] = None):
+    def forward(self, x, attn_mask, rope_cache: Optional[Tuple] = None,
+                p_dropout=0.0, generator=None):
         """x: (B, T, C); attn_mask: (B, T, T), 1 = attend."""
         b, t, c = x.shape
         head_dim = c // self.n_heads
@@ -125,7 +129,7 @@ class MultiHeadAttention(nn.Module):
         k = apply_rope(k, cos, sin, d_rope)
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim)
         scores = scores.masked_fill(attn_mask[:, None] == 0, -1e4)
-        p_attn = torch.softmax(scores, dim=-1)
+        p_attn = dropout(torch.softmax(scores, dim=-1), p_dropout, generator)
         out = torch.matmul(p_attn, v.to(p_attn.dtype))
         out = out.transpose(1, 2).reshape(b, t, c)
         return self.conv_o(out)
@@ -141,10 +145,10 @@ class FFN(nn.Module):
         self.conv_1 = Conv1d(in_ch, filter_ch, kernel_size, generator=generator)
         self.conv_2 = Conv1d(filter_ch, out_ch, kernel_size, generator=generator)
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, p_dropout=0.0, generator=None):
         m = x_mask[..., None]
         pad = self.kernel_size // 2
-        x = F.relu(self.conv_1(x * m, padding=pad))
+        x = dropout(F.relu(self.conv_1(x * m, padding=pad)), p_dropout, generator)
         x = self.conv_2(x * m, padding=pad)
         return x * m
 
@@ -171,7 +175,7 @@ class Encoder(nn.Module):
             EncoderLayer(hidden_ch, filter_ch, n_heads, kernel_size, generator)
             for _ in range(n_layers))
 
-    def forward(self, x, x_mask):
+    def forward(self, x, x_mask, p_dropout=0.0, generator=None):
         t = x.shape[1]
         attn_mask = x_mask[:, :, None] * x_mask[:, None, :]
         head_dim = x.shape[-1] // self.n_heads
@@ -180,8 +184,10 @@ class Encoder(nn.Module):
         m = x_mask[..., None]
         for layer in self.layers:
             x = x * m
-            y = layer.attn(x, attn_mask, rope_cache)
+            y = layer.attn(x, attn_mask, rope_cache, p_dropout, generator)
+            y = dropout(y, p_dropout, generator)
             x = channel_layer_norm(x + y, layer.norm_1.gamma, layer.norm_1.beta)
-            y = layer.ffn(x, x_mask)
+            y = layer.ffn(x, x_mask, p_dropout, generator)
+            y = dropout(y, p_dropout, generator)
             x = channel_layer_norm(x + y, layer.norm_2.gamma, layer.norm_2.beta)
         return x * m

@@ -100,6 +100,17 @@ def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(F.softplus(x))
 
 
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout whose keep mask is drawn from `generator` (on x's
+    device); with no generator, or p == 0, it is the identity (serving)."""
+    if generator is None or p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 def embedding(weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids, weight)
 

@@ -6,10 +6,15 @@ include padded frames (see `nn.group_norm`).  Attention fills masked keys
 with the dtype minimum (unlike the encoder's -1e4), so a padded query row
 attends uniformly to the valid keys.
 
-Only the plain-op paths exist here.  The fused TPU kernels that the JAX
-package can force (`block1d_impl="pallas"` / `use_pallas`, and
-`attention_impl="flash"` / `"vmem"`) are not ported yet and raise
+With `block1d_impl="pallas"` or `use_pallas`, every ResnetBlock1D runs as
+the fused resnet kernel and the final Block1D as the fused Block1D kernel
+(`ops/unet_cuda.py`; their plain versions on the CPU), forward and through
+autograd.  The attention kernels that the JAX package can force
+(`attention_impl="flash"` / `"vmem"`) are not ported yet and raise
 `NotImplementedError`; ROADMAP.md Queue 2 lists them.
+
+Dropout (attention output and feed-forward, at `cfg.dropout`) draws from the
+`generator` passed to `Decoder.forward`; without one it is off.
 """
 
 from __future__ import annotations
@@ -23,7 +28,9 @@ from torch import nn
 
 from matcha_tts_tpu_torch.config import DecoderConfig
 from matcha_tts_tpu_torch.models.nn import (Conv1d, ConvTranspose1d, Linear,
-                                            Norm, group_norm, layer_norm, mish)
+                                            Norm, dropout, group_norm, layer_norm,
+                                            mish)
+from matcha_tts_tpu_torch.ops import unet_cuda
 
 
 class SnakeBeta(nn.Module):
@@ -55,8 +62,8 @@ class FeedForward(nn.Module):
         self.act = SnakeBeta(dim, dim * mult, snake_impl, generator)
         self.out = Linear(dim * mult, dim, generator=generator)
 
-    def forward(self, x):
-        return self.out(self.act(x))
+    def forward(self, x, p_dropout=0.0, generator=None):
+        return self.out(dropout(self.act(x), p_dropout, generator))
 
 
 class Attention(nn.Module):
@@ -70,7 +77,7 @@ class Attention(nn.Module):
         self.to_v = Linear(query_dim, inner, bias=False, generator=generator)
         self.to_out = Linear(inner, query_dim, generator=generator)
 
-    def forward(self, x, key_mask):
+    def forward(self, x, key_mask, p_dropout=0.0, generator=None):
         """x: (B, T, C); key_mask: (B, T), 1 = keep."""
         b, t, _ = x.shape
         h, d = self.heads, self.dim_head
@@ -82,7 +89,7 @@ class Attention(nn.Module):
                               torch.finfo(sim.dtype).min)
         attn = torch.softmax(sim, dim=-1)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, h * d)
-        return self.to_out(out)
+        return dropout(self.to_out(out), p_dropout, generator)
 
 
 class TransformerBlock(nn.Module):
@@ -96,11 +103,11 @@ class TransformerBlock(nn.Module):
         self.norm3 = Norm(dim)
         self.ff = FeedForward(dim, snake_impl=snake_impl, generator=generator)
 
-    def forward(self, x, key_mask):
+    def forward(self, x, key_mask, p_dropout=0.0, generator=None):
         h = layer_norm(x, self.norm1.gamma, self.norm1.beta)
-        x = x + self.attn1(h, key_mask)
+        x = x + self.attn1(h, key_mask, p_dropout, generator)
         h = layer_norm(x, self.norm3.gamma, self.norm3.beta)
-        return x + self.ff(h)
+        return x + self.ff(h, p_dropout, generator)
 
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int, scale: float = 1000.0):
@@ -125,14 +132,20 @@ class TimestepEmbedding(nn.Module):
 
 
 class Block1D(nn.Module):
-    """Conv(k=3) -> GroupNorm(8) -> Mish, masked in and out."""
+    """Conv(k=3) -> GroupNorm(8) -> Mish, masked in and out; `fused` runs it
+    as the Block1D kernel."""
 
-    def __init__(self, dim, dim_out, generator: Optional[torch.Generator] = None):
+    def __init__(self, dim, dim_out, generator: Optional[torch.Generator] = None,
+                 fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.conv = Conv1d(dim, dim_out, 3, generator=generator)
         self.norm = Norm(dim_out)
 
     def forward(self, x, mask, groups=8):
+        if self.fused:
+            return unet_cuda.block1d(x, mask, self.conv.weight, self.conv.bias,
+                                     self.norm.gamma, self.norm.beta)
         m = mask[..., None]
         h = self.conv(x * m, padding=1)
         h = group_norm(h, self.norm.gamma, self.norm.beta, groups)
@@ -140,17 +153,26 @@ class Block1D(nn.Module):
 
 
 class ResnetBlock1D(nn.Module):
-    """block1 -> (+ time-MLP row) -> block2 -> + 1x1 residual."""
+    """block1 -> (+ time-MLP row) -> block2 -> + 1x1 residual; `fused` runs
+    the whole block as the resnet kernel."""
 
     def __init__(self, dim, dim_out, time_emb_dim,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.mlp = Linear(time_emb_dim, dim_out, generator=generator)
         self.block1 = Block1D(dim, dim_out, generator)
         self.block2 = Block1D(dim_out, dim_out, generator)
         self.res_conv = Conv1d(dim, dim_out, 1, generator=generator)
 
     def forward(self, x, mask, t_emb):
+        if self.fused:
+            b1, b2 = self.block1, self.block2
+            return unet_cuda.resnet1d(
+                x, mask, self.mlp(mish(t_emb)),
+                b1.conv.weight, b1.conv.bias, b1.norm.gamma, b1.norm.beta,
+                b2.conv.weight, b2.conv.bias, b2.norm.gamma, b2.norm.beta,
+                self.res_conv.weight, self.res_conv.bias)
         h = self.block1(x, mask)
         h = h + self.mlp(mish(t_emb))[:, None, :]
         h = self.block2(h, mask)
@@ -158,11 +180,6 @@ class ResnetBlock1D(nn.Module):
 
 
 def _check_impls(cfg: DecoderConfig) -> None:
-    if cfg.use_pallas or cfg.block1d_impl == "pallas":
-        raise NotImplementedError(
-            "block1d_impl='pallas' / use_pallas: the fused Block1D and "
-            "ResnetBlock1D kernels are not ported yet (ROADMAP.md Queue 2, "
-            "items 5 and 6)")
     if cfg.attention_impl == "vmem":
         raise NotImplementedError(
             "attention_impl='vmem': the whole-row attention kernel is not "
@@ -195,6 +212,7 @@ class Decoder(nn.Module):
         _check_impls(cfg)
         self.cfg = cfg
         g = generator
+        fused = cfg.use_pallas or cfg.block1d_impl == "pallas"
         channels = tuple(cfg.channels)
         time_dim = channels[0] * 4
         self.time_mlp = TimestepEmbedding(in_channels, time_dim, g)
@@ -206,11 +224,11 @@ class Decoder(nn.Module):
             # the last level's "downsample" is a plain k=3 conv; the stride is
             # decided by position in forward()
             self.down_blocks.append(_level(
-                ResnetBlock1D(in_ch, out_ch, time_dim, g), cfg.n_blocks,
+                ResnetBlock1D(in_ch, out_ch, time_dim, g, fused), cfg.n_blocks,
                 out_ch, cfg, g, downsample=Conv1d(out_ch, out_ch, 3, generator=g)))
 
         self.mid_blocks = nn.ModuleList(
-            _level(ResnetBlock1D(channels[-1], channels[-1], time_dim, g),
+            _level(ResnetBlock1D(channels[-1], channels[-1], time_dim, g, fused),
                    cfg.n_blocks, channels[-1], cfg, g)
             for _ in range(cfg.num_mid_blocks))
 
@@ -223,15 +241,17 @@ class Decoder(nn.Module):
                   else ConvTranspose1d(out_ch2, out_ch2, 4, generator=g))
             # 2x input channels: skip concatenation
             self.up_blocks.append(_level(
-                ResnetBlock1D(2 * in_ch, out_ch2, time_dim, g), cfg.n_blocks,
+                ResnetBlock1D(2 * in_ch, out_ch2, time_dim, g, fused), cfg.n_blocks,
                 out_ch2, cfg, g, upsample=up))
 
-        self.final_block = Block1D(channels[-1], channels[-1], g)
+        self.final_block = Block1D(channels[-1], channels[-1], g, fused)
         self.final_proj = Conv1d(channels[-1], out_channels, 1, generator=g)
 
-    def forward(self, x, mask, mu, t, spk_emb: Optional[torch.Tensor] = None):
+    def forward(self, x, mask, mu, t, spk_emb: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """x, mu: (B, T, n_feats); mask: (B, T); t: (B,) flow time in [0, 1].
-        T must be a multiple of 2**len(channels)."""
+        T must be a multiple of 2**len(channels).  `generator` turns dropout
+        on."""
         in_channels = x.shape[-1] + mu.shape[-1] + (
             spk_emb.shape[-1] if spk_emb is not None else 0)
         t_emb = self.time_mlp(sinusoidal_pos_emb(t, in_channels))
@@ -241,10 +261,12 @@ class Decoder(nn.Module):
             s = spk_emb[:, None, :].expand(h.shape[0], h.shape[1], spk_emb.shape[-1])
             h = torch.cat([h, s.to(h.dtype)], dim=-1)
 
+        p_drop = self.cfg.dropout if generator is not None else 0.0
+
         def blocks(level, h, m):
             h = level["resnet"](h, m, t_emb)
             for tb in level["transformer_blocks"]:
-                h = tb(h, m)
+                h = tb(h, m, p_drop, generator)
             return h
 
         n_levels = len(self.down_blocks)

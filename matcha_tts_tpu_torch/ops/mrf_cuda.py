@@ -46,7 +46,6 @@ N_CONVS = 2 * len(DILATIONS) * len(KERNEL_SIZES)  # 18
 SLOPE = 0.1
 POST_SLOPE = 0.01
 POST_K = 7
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 TILES = (256, 128, 64, 32, 16)
 
 # Kernel launches, counted where each wrapper launches its kernel.
@@ -165,7 +164,7 @@ def smem_bytes(c: int, up: bool, post: bool, tile: int, dtype) -> int:
 def pick_tile(c: int, up: bool, post: bool, dtype, t_out: int) -> int:
     """Largest tile whose block fits in shared memory and, where possible,
     not longer than the sequence."""
-    fits = [t for t in TILES if smem_bytes(c, up, post, t, dtype) <= SMEM_LIMIT]
+    fits = [t for t in TILES if smem_bytes(c, up, post, t, dtype) <= cuda_build.SMEM_LIMIT]
     if not fits:
         raise ValueError(f"no MRF tile fits shared memory at C={c}, {dtype}")
     short = [t for t in fits if t <= t_out]

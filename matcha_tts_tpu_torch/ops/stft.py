@@ -5,9 +5,10 @@ numerics (no `torch.stft` / `torch.istft`, whose defaults differ):
 * magnitude sqrt(re^2 + im^2) (optionally + eps inside the root) and phase
   atan2(im, re), returned as (..., n_freqs, n_frames);
 * `istft`: irfft, window, overlap-add, division by the summed squared window
-  floored at 1e-11, and the n_fft // 2 trim of the centring.
-
-The log-mel path waits for the training slice.
+  floored at 1e-11, and the n_fft // 2 trim of the centring;
+* `log_mel_spectrogram` (training features): reflect pad by
+  (n_fft - hop) / 2, center=False, magnitude sqrt(re^2 + im^2 + 1e-9), an
+  fp32 Slaney filterbank product, log(clamp(., 1e-5)).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from matcha_tts_tpu_torch.ops.mel import mel_filterbank
 
 
 @functools.lru_cache(maxsize=8)
@@ -66,6 +69,20 @@ def stft_magnitude_and_phase(y: torch.Tensor, n_fft: int = 1024,
         mag = torch.sqrt(re * re + im * im)
     phase = torch.atan2(im, re)
     return mag.transpose(-1, -2), phase.transpose(-1, -2)
+
+
+def log_mel_spectrogram(y: torch.Tensor, sample_rate: int = 22050, n_fft: int = 1024,
+                        n_mels: int = 80, hop_length: int = 256, win_length: int = 1024,
+                        f_min: float = 0.0, f_max: float = 8000.0) -> torch.Tensor:
+    """(B, L) audio -> (B, n_mels, n_frames) log-mel, n_frames = L // hop for
+    hop | n_fft; fp32 throughout."""
+    pad = int((n_fft - hop_length) / 2)
+    y = reflect_pad(y.float(), pad)
+    mag, _ = stft_magnitude_and_phase(y, n_fft, hop_length, win_length, center=False,
+                                      magnitude_eps=1e-9)
+    fb = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels, f_min, f_max))
+    mel = torch.matmul(fb.to(mag.device), mag)  # (n_mels, F) @ (B, F, T)
+    return torch.log(torch.clamp(mel, min=1e-5))
 
 
 def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int = 1024,

@@ -13,7 +13,9 @@ module that owns it:
   as it is.
 
 `read_npz` reads a tree saved flat with "/"-joined keys (list indices as
-digits), the JAX package's `.npz` convention.
+digits), the JAX package's `.npz` convention.  `to_jax_tree` is the inverse
+of `copy_jax_tree`: a module's parameters (or their gradients) as a JAX tree
+of numpy arrays, which the JAX package can load.
 """
 
 from __future__ import annotations
@@ -93,18 +95,27 @@ def load_jax_tree(tree: dict, cfg: MatchaConfig,
     return model, vocoder
 
 
-def read_npz(path) -> dict:
-    """A tree saved flat with "/"-joined keys -> nested dicts and lists."""
+def to_jax_layout(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
+    """Inverse of `to_torch_layout`."""
+    if name == "weight" and isinstance(owner, Conv1d):
+        return value.transpose(2, 1, 0)
+    if name == "weight" and isinstance(owner, ConvTranspose1d):
+        return value.transpose(2, 0, 1)[::-1]
+    if name == "weight" and isinstance(owner, Linear):
+        return value.T
+    return value
+
+
+def _nest(flat: Dict[str, np.ndarray]) -> dict:
+    """{"a.b.0.c": array} -> nested dicts, with lists where every key of a
+    level is a digit."""
     root: dict = {}
-    with np.load(path) as data:
-        for key in data.files:
-            if key.startswith("__"):
-                continue
-            parts = key.split("/")
-            node = root
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = data[key]
+    for path, value in flat.items():
+        *parents, leaf = path.split(".")
+        node = root
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
 
     def finalize(node):
         if not isinstance(node, dict):
@@ -114,3 +125,30 @@ def read_npz(path) -> dict:
         return {k: finalize(v) for k, v in node.items()}
 
     return finalize(root)
+
+
+@torch.no_grad()
+def to_jax_tree(module: nn.Module, grads: bool = False) -> dict:
+    """The module's parameters and buffers as a JAX tree of fp32 numpy arrays
+    in the JAX package's layouts; with `grads`, each parameter's `.grad`
+    instead (zeros where there is none, and for buffers)."""
+    flat = {}
+    tensors = dict(module.named_parameters())
+    tensors.update(dict(module.named_buffers()))
+    params = dict(module.named_parameters())
+    for path, t in tensors.items():
+        if grads:
+            g = params[path].grad if path in params else None
+            t = torch.zeros_like(t) if g is None else g
+        owner_path, _, name = path.rpartition(".")
+        owner = module.get_submodule(owner_path) if owner_path else module
+        value = t.detach().float().cpu().numpy()
+        flat[path] = np.array(to_jax_layout(owner, name, value), dtype=np.float32)
+    return _nest(flat)
+
+
+def read_npz(path) -> dict:
+    """A tree saved flat with "/"-joined keys -> nested dicts and lists."""
+    with np.load(path) as data:
+        return _nest({key.replace("/", "."): data[key] for key in data.files
+                      if not key.startswith("__")})

@@ -1,14 +1,16 @@
-"""The MRF kernels against their plain versions on a CUDA card (marker
-`gpu`; they skip where there is no card).  Run on a machine with one
-(`--noconftest`: tests/conftest.py imports JAX, which the port does not
-need):
+"""The port's kernels against their plain versions on a CUDA card (marker
+`gpu`; they skip where there is no card): the MRF levels, MAS (identical
+paths) and the fused Block1D / ResnetBlock1D (forward and gradients).  Run
+on a machine with one (`--noconftest`: tests/conftest.py imports JAX, which
+the port does not need):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Small shapes with ragged tiles and sequence ends inside a tile; fp32 kernel
-vs fp32 plain (TF32 off) atol 1e-4, bf16 kernel vs fp32 plain on the same
-rounded operands, relative L2 <= 1e-2.  chip_smoke.py runs the same checks
-at the main path's shapes.
+vs fp32 plain (TF32 off) max |diff| <= 1e-4 (of the output's scale for the
+U-Net blocks), bf16 kernel vs fp32 plain on the same rounded operands,
+relative L2 <= 1e-2, block gradients relative L2 <= 1e-4.  chip_smoke.py
+runs the same checks at the paths' shapes.
 """
 
 import pytest
@@ -74,3 +76,148 @@ def test_wrapper_rejects_bad_operands(cuda):
         mrf_cuda.mrf(a["x"], a["w"].bfloat16(), a["b"])
     with pytest.raises(ValueError):
         mrf_cuda.mrf(a["x"], a["w"][:-1], a["b"])
+
+
+# ---------------------------------------------------------------------------
+# MAS: the kernel's paths equal the plain version's bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _mas_case(b, t_x, t_y, seed, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    value = torch.randn(b, t_x, t_y, generator=g) * 3.0
+    tx = torch.randint(1, t_x + 1, (b,), generator=g)
+    ty = torch.randint(1, t_y + 1, (b,), generator=g)
+    tx[0], ty[0] = t_x, t_y          # a full item
+    if b > 2:
+        tx[1], ty[1] = t_x, max(1, t_x // 2)  # t_y < t_x
+        tx[2], ty[2] = 1, 1
+    mask = ((torch.arange(t_x)[None, :, None] < tx[:, None, None])
+            & (torch.arange(t_y)[None, None, :] < ty[:, None, None])).float()
+    return value.to(dev), mask.to(dev)
+
+
+@pytest.mark.parametrize("b,t_x,t_y", [(5, 7, 19), (6, 33, 70), (4, 64, 256), (3, 130, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mas_kernel_equals_plain(cuda, b, t_x, t_y, dtype):
+    from matcha_tts_tpu_torch.ops import mas, mas_cuda
+
+    value, mask = _mas_case(b, t_x, t_y, t_x * 1000 + t_y, cuda)
+    value = value.to(dtype)
+    n0 = mas_cuda.LAUNCHES["mas"]
+    got = mas.maximum_path(value, mask)
+    torch.cuda.synchronize()
+    assert mas_cuda.LAUNCHES["mas"] == n0 + 1
+    ref = mas.maximum_path_plain(value, mask)
+    assert got.dtype == dtype
+    assert torch.equal(got, ref)
+    oracle = mas.maximum_path_numpy(value.float().cpu().numpy(), mask.cpu().numpy())
+    assert (got.float().cpu().numpy() == oracle).all()
+
+
+def test_mas_kernel_rejects_cpu_and_bad_shapes(cuda):
+    from matcha_tts_tpu_torch.ops import mas_cuda
+
+    value, mask = _mas_case(2, 8, 16, 0, cuda)
+    with pytest.raises(ValueError):
+        mas_cuda.maximum_path_cuda(value.cpu(), mask.cpu())
+    with pytest.raises(ValueError):
+        mas_cuda.maximum_path_cuda(value, mask[:, :, :-1])
+
+
+# ---------------------------------------------------------------------------
+# fused Block1D / ResnetBlock1D: kernel vs plain, forward and gradients
+# ---------------------------------------------------------------------------
+
+
+def _block_params(c_in, c_out, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    p = {"w1": rnd(c_out, c_in, 3) / (3 * c_in) ** 0.5, "b1": rnd(c_out) * 0.1,
+         "g1": 1 + 0.1 * rnd(c_out), "be1": 0.1 * rnd(c_out),
+         "w2": rnd(c_out, c_out, 3) / (3 * c_out) ** 0.5, "b2": rnd(c_out) * 0.1,
+         "g2": 1 + 0.1 * rnd(c_out), "be2": 0.1 * rnd(c_out),
+         "wr": rnd(c_out, c_in, 1) / c_in ** 0.5, "br": rnd(c_out) * 0.1}
+    return {k: v.to(dev) for k, v in p.items()}
+
+
+def _x_mask(b, t, c_in, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(b, t, c_in, generator=g)
+    lengths = torch.linspace(t // 2, t, b).long()
+    mask = (torch.arange(t)[None] < lengths[:, None]).float()
+    return x.to(dev), mask.to(dev)
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("b,t,c_in,c_out", [(2, 77, 160, 256), (3, 200, 64, 64),
+                                            (2, 33, 512, 256), (2, 50, 24, 16)])
+def test_block1d_kernel_matches_plain(cuda, b, t, c_in, c_out):
+    from matcha_tts_tpu_torch.ops import unet_cuda as U
+
+    p = _block_params(c_in, c_out, cuda, t)
+    x, mask = _x_mask(b, t, c_in, cuda, t + 1)
+    args = (p["w1"], p["b1"], p["g1"], p["be1"])
+    n0 = U.LAUNCHES["block1d"]
+    got = U.block1d(x, mask, *args)
+    torch.cuda.synchronize()
+    assert U.LAUNCHES["block1d"] == n0 + 1
+    ref = U.block1d_plain(x, mask, *args)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    x16 = x.bfloat16()
+    got16 = U.block1d(x16, mask, *args)
+    ref16 = U.block1d_plain(x16.float(), mask, *(a.bfloat16().float() for a in args))
+    assert got16.dtype == torch.bfloat16 and _rel(got16.float(), ref16) <= 1e-2
+
+
+@pytest.mark.parametrize("b,t,c_in,c_out", [(2, 77, 160, 256), (2, 45, 512, 256),
+                                            (3, 130, 64, 64)])
+def test_resnet1d_kernel_matches_plain(cuda, b, t, c_in, c_out):
+    from matcha_tts_tpu_torch.ops import unet_cuda as U
+
+    p = _block_params(c_in, c_out, cuda, t)
+    x, mask = _x_mask(b, t, c_in, cuda, t + 1)
+    temb = torch.randn(b, c_out, device=cuda)
+    names = ("w1", "b1", "g1", "be1", "w2", "b2", "g2", "be2", "wr", "br")
+    args = [p[k] for k in names]
+    n0 = U.LAUNCHES["resnet1d"]
+    got = U.resnet1d(x, mask, temb, *args)
+    torch.cuda.synchronize()
+    assert U.LAUNCHES["resnet1d"] == n0 + 1
+    ref = U.resnet1d_plain(x, mask, temb, *args)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    x16 = x.bfloat16()
+    got16 = U.resnet1d(x16, mask, temb.bfloat16(), *args)
+    ref16 = U.resnet1d_plain(x16.float(), mask, temb.bfloat16().float(),
+                             *(a.bfloat16().float() for a in args))
+    assert _rel(got16.float(), ref16) <= 1e-2
+
+
+def test_fused_block_gradients_match_plain(cuda):
+    from matcha_tts_tpu_torch.ops import unet_cuda as U
+
+    b, t, c_in, c_out = 2, 61, 160, 256
+    p = _block_params(c_in, c_out, cuda, 5)
+    x, mask = _x_mask(b, t, c_in, cuda, 6)
+    temb = torch.randn(b, c_out, device=cuda)
+    gout = torch.randn(b, t, c_out, device=cuda)
+    names = ("w1", "b1", "g1", "be1", "w2", "b2", "g2", "be2", "wr", "br")
+
+    def grads(fn, blk):
+        leaves = [x.clone().requires_grad_(), temb.clone().requires_grad_()] + [
+            p[k].clone().requires_grad_() for k in names]
+        if blk:
+            out = fn(leaves[0], mask, *leaves[2:6])
+            used = [leaves[0]] + leaves[2:6]
+        else:
+            out = fn(leaves[0], mask, leaves[1], *leaves[2:])
+            used = leaves
+        return torch.autograd.grad(out, used, gout)
+
+    for blk, kern, plain in ((True, U.block1d, U.block1d_plain),
+                             (False, U.resnet1d, U.resnet1d_plain)):
+        for gk, gp in zip(grads(kern, blk), grads(plain, blk)):
+            assert _rel(gk, gp) <= 1e-4

@@ -36,7 +36,11 @@ def test_port_imports_no_jax_and_no_jax_package():
     expected = {m.name for m in pkgutil.walk_packages(matcha_tts_tpu_torch.__path__,
                                                       "matcha_tts_tpu_torch.")}
     assert set(res["modules"]) == expected
-    assert "matcha_tts_tpu_torch.ops.mrf_cuda" in expected
+    assert {"matcha_tts_tpu_torch.ops.mrf_cuda", "matcha_tts_tpu_torch.ops.mas_cuda",
+            "matcha_tts_tpu_torch.ops.unet_cuda", "matcha_tts_tpu_torch.ops.mel",
+            "matcha_tts_tpu_torch.train.loop", "matcha_tts_tpu_torch.train.cli",
+            "matcha_tts_tpu_torch.data.dataset",
+            "matcha_tts_tpu_torch.data.statistics"} <= expected
     assert res["bad"] == []
 
 
@@ -47,5 +51,12 @@ def test_entry_points_default_to_cuda():
     from matcha_tts_tpu_torch.models.vocoder import init_vocoder
     from matcha_tts_tpu_torch.params.from_jax import load_jax_tree
 
-    for fn in (MatchaTTS, HiFiGANGenerator, init_vocoder, load_jax_tree, Synthesizer):
+    from matcha_tts_tpu_torch.data.statistics import compute_mel_statistics
+    from matcha_tts_tpu_torch.train import cli
+    from matcha_tts_tpu_torch.train.loop import fit
+
+    for fn in (MatchaTTS, HiFiGANGenerator, init_vocoder, load_jax_tree, Synthesizer, fit,
+               compute_mel_statistics):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    parser_default = cli.main.__code__.co_consts
+    assert "cuda" in parser_default  # --device defaults to cuda

@@ -144,11 +144,42 @@ def test_cfm_solve_with_injected_noise_matches(solver):
 
 
 def test_forced_kernel_modes_raise():
+    """Only the attention kernels are still to port; the fused-block modes
+    build (see the next test)."""
     from matcha_tts_tpu_torch.models.matcha import MatchaTTS
 
-    for dec in [dict(block1d_impl="pallas"), dict(use_pallas=True),
-                dict(attention_impl="flash"), dict(attention_impl="vmem")]:
+    for dec in [dict(attention_impl="flash"), dict(attention_impl="vmem")]:
         cfg = dataclasses.replace(port_config(small_config()),
                                   decoder=tcfg.DecoderConfig(channels=(64, 64), **dec))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MatchaTTS(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("dec", [dict(use_pallas=True), dict(block1d_impl="pallas")])
+def test_fused_block_modes_match_default_decoder(dec):
+    """With the fused Block1D / ResnetBlock1D modes the decoder builds, and
+    on the CPU (the kernels' plain versions) it matches the default decoder
+    on the same weights: forward atol 1e-5; a weight gradient of order 10,
+    relative L2 <= 1e-5 (fp32 sums in another order)."""
+    cfg, params, model = models()
+    fused_cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, **dec))
+    fused, _ = load_jax_tree({"matcha": params}, port_config(fused_cfg), device="cpu")
+    est = fused.decoder.estimator
+    assert est.final_block.fused and all(lv["resnet"].fused for lv in est.down_blocks)
+    rng = np.random.default_rng(3)
+    b, t, c = 2, 32, cfg.encoder.n_feats
+    x, mu = (torch.from_numpy(rng.standard_normal((b, t, c)).astype(np.float32))
+             for _ in range(2))
+    mask = torch.ones(b, t)
+    mask[1, 19:] = 0.0
+    tt = torch.tensor([0.2, 0.9])
+    outs = []
+    for m in (model, fused):
+        m.zero_grad()
+        out = m.decoder.estimator(x, mask, mu, tt)
+        out.square().sum().backward()
+        outs.append((out.detach(), m.decoder.estimator.down_blocks[0]["resnet"]
+                     .block1.conv.weight.grad.clone()))
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-5, rtol=0)
+    g_fused, g_plain = outs[1][1].double(), outs[0][1].double()
+    assert float((g_fused - g_plain).norm() / g_plain.norm()) <= 1e-5
