@@ -52,8 +52,33 @@ Phases, each of which raises on failure (no phase catches and carries on):
    relative); ms per step, frames per second, MAS's share and the device's
    busy share of one step; then (b) synthesises a sentence through the
    kernels;
-10. the kernel table as one JSON line, the card line, and the final
-   {"ok": true, ...} line.
+10. int8 MRF kernels against their int8 plain versions at the windows the
+   kernel uses, at the levels' shapes for the 512-frame bucket (C=128 at
+   T=32768 and 128 -> 64 at 65536 in bf16, 64 -> 32 with the tail at 131072
+   in fp32, C=256 at 4096 by a direct call), unit-gain weights: relative L2
+   <= 1e-5 and max |diff| <= 1e-3 of the output's max |value| (the same
+   codes), and SNR >= 35 dB against the exact kernel; timed beside the plain
+   version and the bound;
+11. the attention kernels (whole-row "vmem" at B in {1, 8}, T up to 4096;
+   "flash" up to 2048; H=2, D=64, ragged key masks) against their plain
+   versions: fp32 max |diff| <= 1e-5 of the output's scale at every row,
+   bf16 relative L2 <= 1e-2; timed beside the plain version, the bound and
+   `scaled_dot_product_attention` with the same additive mask;
+12. the fp32 level kernel of the tap mode at (1, 65536, 64) and (1, 131072,
+   32) against its plain version, max |diff| <= 1e-4, timed;
+13. serving at full width in the four forced modes (int8, tap, vmem, flash),
+   three sentences each, launch counts asserted per call and each held to
+   the default configuration on the same weights and noise (see
+   `forced_modes`);
+14. the inference CLI as subprocesses on the card (int8, denoiser; random
+   full-width weights and the trained checkpoint in the repository) and
+   `quantization_report` with the audible generator;
+15. the kernel table as one JSON line (every TPU kernel's port: rows for the
+   exact, int8 and tap MRF levels, MAS, the fused blocks and both attention
+   kernels), the card line, and the final {"ok": true, ...} line.
+
+Phases 10-12 run right after phase 3, and 13-14 after phase 6; the numbers
+follow the order in which the phases were added.
 """
 
 from __future__ import annotations
@@ -97,6 +122,18 @@ BF16_REL_L2 = 1e-2
 E2E_REL_L2 = 1e-2
 E2E_MAX_ABS = 3e-2  # on a wav in [-1, 1]: about 8 bf16 ulps at full scale
 E2E_VS_BF16 = 1.25
+
+PEAK_INT8 = 1979e12
+INT8_REL_L2 = 1e-5      # int8 kernel vs its plain version: the same codes, so that
+INT8_MAX_REL = 1e-3     # only a rare flip at a rounding boundary may show
+INT8_SNR_DB = 35.0      # int8 against the exact kernel on one level
+INT8_E2E_SNR_DB = 25.0  # int8 serving against the default, audible generator
+ATTN_FP32 = 1e-5        # attention kernels vs plain, fp32: of the output's scale
+ATTN_VMEM_T = (256, 512, 1024, 2048, 4096)
+ATTN_FLASH_T = (256, 512, 1024, 2048)
+TAP_ATOL = 1e-4
+FORCED_SENTENCES = 3  # sentences per forced mode in phase 13
+FORCED_MEL_REL_L2 = 1e-2
 
 MAS_SHAPE = (64, 256, 1024)  # (B, T_x, T_y): the training path's bucket
 BLOCK_B, BLOCK_T = 64, 1024
@@ -271,7 +308,8 @@ def full_width():
     calls = syn.stats["calls"] - calls0
     print(f"[full] device calls {calls} (bucket retries "
           f"{syn.stats['bucket_retries']}), launches {launches}", flush=True)
-    if launches != {"mrf": calls, "mrf_up": 2 * calls}:
+    if launches != {"mrf": calls, "mrf_up": 2 * calls, "mrf_int8": 0, "mrf_up_int8": 0,
+                    "mrf_tap": 0}:
         raise AssertionError(f"expected one mrf and two mrf_up launches per "
                              f"call over {calls} calls, got {launches}")
     return syn, last, launches
@@ -316,8 +354,18 @@ def plain_levels():
     versions on the card (same rounding points, no kernel launch)."""
     from matcha_tts_tpu_torch.ops import mrf_cuda
 
+    def mrf(x, w, b, ws=None):
+        if ws is not None:
+            raise ValueError("plain_levels stands in for the exact levels only")
+        return mrf_cuda.mrf_plain(x, w, b)
+
+    def mrf_up(x, wup, bup, w, b, wpost=None, bpost=None, ws=None):
+        if ws is not None:
+            raise ValueError("plain_levels stands in for the exact levels only")
+        return mrf_cuda.mrf_up_plain(x, wup, bup, w, b, wpost, bpost)
+
     saved = mrf_cuda.mrf, mrf_cuda.mrf_up
-    mrf_cuda.mrf, mrf_cuda.mrf_up = mrf_cuda.mrf_plain, mrf_cuda.mrf_up_plain
+    mrf_cuda.mrf, mrf_cuda.mrf_up = mrf, mrf_up
     try:
         yield
     finally:
@@ -330,13 +378,17 @@ def end_to_end(syn, result) -> None:
     for audible ones.  Bounds: max |diff| <= E2E_MAX_ABS and relative L2 <=
     E2E_REL_L2.  Against the fp32 plain composition (mrf_kernel="xla"), the
     kernels' relative L2 error may be at most E2E_VS_BF16 times that of the
-    bf16 plain composition: the kernels cost no accuracy over stock bf16."""
+    bf16 plain composition: the kernels cost no accuracy over stock bf16.
+    The mel is cut to whole 64-frame blocks, as a frame bucket is, so that
+    every level passes the MRF kernels' gate; the launches are counted."""
     import torch
 
     from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from matcha_tts_tpu_torch.ops import mrf_cuda
 
     hcfg = syn.hifi_cfg
-    mel = torch.from_numpy(result.mel.T.copy())[None].to("cuda")
+    n64 = result.y_length // 64 * 64
+    mel = torch.from_numpy(result.mel[:, :n64].T.copy())[None].to("cuda")
     mel16 = mel.to(torch.bfloat16)
     for label, gen in (("path weights", syn.vocoder),
                        ("audible weights", audible_copy(syn.vocoder, hcfg, mel, 7))):
@@ -344,7 +396,10 @@ def end_to_end(syn, result) -> None:
                                  device="cuda")
         stock.load_state_dict(gen.state_dict())
         with torch.no_grad():
+            n0 = mrf_cuda.LAUNCHES["mrf"] + mrf_cuda.LAUNCHES["mrf_up"]
             wav_k = gen(mel16).float()
+            if mrf_cuda.LAUNCHES["mrf"] + mrf_cuda.LAUNCHES["mrf_up"] != n0 + 3:
+                raise AssertionError(f"end to end ({label}): the MRF kernels did not run")
             with plain_levels():
                 wav_p = gen(mel16).float()
             wav_ref = stock(mel).float()
@@ -821,6 +876,399 @@ def profile_step(state, batch, cfg, tcfg, out, step_ms: float) -> None:
               f"{out['busy_share_vs_step']:.3f}", flush=True)
 
 
+def convs_from_taps(w, b):
+    """The 18 (weight (C, C, k), bias) pairs of a per-tap level (126, C, C)
+    [tap][c_out][c_in], for the int8 packer."""
+    from matcha_tts_tpu_torch.ops import mrf_cuda
+
+    convs, tap, conv = [], 0, 0
+    for k in mrf_cuda.KERNEL_SIZES:
+        for _ in range(6):
+            convs.append((w[tap:tap + k].permute(1, 2, 0), b[conv]))
+            tap += k
+            conv += 1
+    return convs
+
+
+def snr_db(got, ref) -> float:
+    import torch
+
+    got, ref = got.double(), ref.double()
+    return float(10 * torch.log10(ref.square().mean()
+                                  / (got - ref).square().mean().clamp_min(1e-30)))
+
+
+def check_int8_kernels(t_y: int, reps: int) -> dict:
+    """Phase 10: the int8 MRF kernels against their int8 plain versions at
+    the levels' shapes for the 512-frame bucket (bf16 levels 1-2, fp32 level
+    3 with the tail, and C=256 by a direct call), unit-gain weights:
+    relative L2 <= 1e-5 and max |diff| <= 1e-3 of the output's max |value|;
+    and against the exact kernel (C=256: the exact plain version), SNR >= 35
+    dB.  Timed beside the plain version and the bound (the chain's int8
+    operations at 1,979 TOPS, the upsample and tail at the working type's
+    rate, against the bytes)."""
+    import torch
+
+    from matcha_tts_tpu_torch.ops import mrf_cuda
+
+    dev = torch.device("cuda")
+    levels = [  # (name, c_in, t_in, c, up, post, dtype)
+        ("level1", 128, 64 * t_y, 128, False, False, torch.bfloat16),
+        ("level2", 128, 64 * t_y, 64, True, False, torch.bfloat16),
+        ("level3", 64, 128 * t_y, 32, True, True, torch.float32),
+        ("c256", 256, 4096, 256, False, False, torch.bfloat16),
+    ]
+    table = {}
+    for idx, (name, c_in, t_in, c, up, post, dtype) in enumerate(levels):
+        a = level_inputs(c_in, t_in, c, up, post, dev, seed=20 + idx)
+        codes, b8, ws = mrf_cuda.pack_level_int8(convs_from_taps(a["w"], a["b"]))
+        x = a["x"].to(dtype)
+        extra = {k: a[k].to(dtype) for k in ("wup", "bup", "wpost", "bpost") if k in a}
+        tile, halo = mrf_cuda.int8_window(c)
+
+        def kern():
+            if up:
+                return mrf_cuda.mrf_up(x, extra["wup"], extra["bup"], codes, b8,
+                                       extra.get("wpost"), extra.get("bpost"), ws=ws)
+            return mrf_cuda.mrf(x, codes, b8, ws)
+
+        def plain():
+            if up:
+                return mrf_cuda.mrf_up_int8_plain(x, extra["wup"], extra["bup"], codes, b8, ws,
+                                                  extra.get("wpost"), extra.get("bpost"),
+                                                  tile=tile, halo=halo)
+            return mrf_cuda.mrf_int8_plain(x, codes, b8, ws, tile, halo)
+
+        def exact():
+            w, b = a["w"].to(dtype), a["b"].to(dtype)
+            if up:
+                return mrf_cuda.mrf_up(x, extra["wup"], extra["bup"], w, b, extra.get("wpost"),
+                                       extra.get("bpost"))
+            if c == 256:
+                return mrf_cuda.mrf_plain(x.float(), a["w"], a["b"])
+            return mrf_cuda.mrf(x, w, b)
+
+        got = kern().float()
+        torch.cuda.synchronize()
+        ref = plain().float()
+        rel = rel_l2(got, ref)
+        max_rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        snr = snr_db(got, exact().float())
+        ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, 1)
+        exact_ms = cuda_ms(exact, reps)
+        t_out = 2 * t_in if up else t_in
+        elem = 2 if dtype == torch.bfloat16 else 4
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+        chain_ops = 2 * 126 * c * c * t_out
+        other_ops = (2 * t_out * c_in * c if up else 0) + (2 * 7 * c * t_out if post else 0)
+        nbytes = (elem * (t_in * c_in + (t_out if post else t_out * c)) + 126 * c * c
+                  + 2 * 4 * 18 * c + (elem * (4 * c_in * c + c) if up else 0)
+                  + (elem * (7 * c + 1) if post else 0))
+        ops_ms = (chain_ops / PEAK_INT8 + other_ops / peak) * 1e3
+        bound = max(ops_ms, nbytes / PEAK_BYTES * 1e3)
+        row = dict(level=name, kernel="mrf_up" if up else "mrf", c_in=c_in, t_in=t_in, c=c,
+                   dtype=str(dtype).split(".")[-1], tile=tile, halo=halo, rel_l2=rel,
+                   max_rel_diff=max_rel, max_abs_err=float((got - ref).abs().max()),
+                   snr_db_vs_exact=snr, ms=ms, plain_ms=plain_ms, exact_kernel_ms=exact_ms,
+                   bound_ms=bound,
+                   bound_by="operations" if ops_ms >= nbytes / PEAK_BYTES * 1e3 else "bytes")
+        print(f"[int8] {json.dumps(row)}", flush=True)
+        if not (rel <= INT8_REL_L2 and max_rel <= INT8_MAX_REL):
+            raise AssertionError(f"{name}: int8 kernel vs plain rel L2 {rel}, max diff {max_rel}"
+                                 f" of max |out|")
+        if not snr >= INT8_SNR_DB:
+            raise AssertionError(f"{name}: int8 SNR {snr} dB against the exact kernel")
+        table[name] = row
+        del a, x, got, ref
+        torch.cuda.empty_cache()
+    return table
+
+
+def attention_inputs(b, t, dtype, dev, seed):
+    """q, k, v (B, T, 2 * 64) and a ragged key mask (lengths from 0.6 T to T - 1)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, t, 128, generator=g, device=dev).to(dtype) for _ in range(3))
+    lengths = torch.linspace(int(0.6 * t), t - 1, b, device=dev).long()
+    mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).float()
+    return q, k, v, mask
+
+
+def check_attention(reps: int) -> dict:
+    """Phase 11: the attention kernels against their plain versions, H = 2,
+    D = 64, ragged key masks; fp32 max |diff| <= 1e-5 of the output's scale
+    at every row (vmem: padded rows included; flash: padded rows finite and
+    equal to the plain segment-id rows), bf16 relative L2 <= 1e-2.  Timed in
+    bf16 beside the plain version, the bound (4 B H T^2 D operations at 989
+    TFLOP/s against q, k, v, the mask and the output moved once) and
+    `scaled_dot_product_attention` with the same additive mask (a yardstick
+    the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    dev = torch.device("cuda")
+    heads, d = 2, 64
+    scale = d ** -0.5
+    rows = {}
+    for impl, ts in (("vmem", ATTN_VMEM_T), ("flash", ATTN_FLASH_T)):
+        kern = getattr(attn_cuda, f"{impl}_mha")
+        plain = getattr(attn_cuda, f"{impl}_mha_plain")
+        for b in (1, 8):
+            for t in ts:
+                q, k, v, mask = attention_inputs(b, t, torch.float32, dev, b * 10000 + t)
+                got = kern(q, k, v, mask, heads, scale)
+                torch.cuda.synchronize()
+                ref = plain(q, k, v, mask, heads, scale)
+                abs_err = float((got - ref).abs().max())
+                err = abs_err / float(ref.abs().max())
+                finite = bool(torch.isfinite(got).all())
+                q16, k16, v16 = (z.bfloat16() for z in (q, k, v))
+                got16 = kern(q16, k16, v16, mask, heads, scale)
+                rel16 = rel_l2(got16.float(), plain(q16, k16, v16, mask, heads, scale).float())
+                del q, k, v, got, ref
+                # the library yardstick: SDPA on (B, H, T, D) views with the additive mask
+                qh, kh, vh = (z.view(b, t, heads, d).transpose(1, 2) for z in (q16, k16, v16))
+                if impl == "vmem":
+                    bias = torch.where(mask == 0, attn_cuda.VMEM_NEG, 0.0)[:, None, None, :]
+                else:
+                    seg = mask == 0
+                    bias = torch.where(seg[:, :, None] == seg[:, None, :], 0.0,
+                                       attn_cuda.FLASH_MASK)[:, None]
+                bias = bias.bfloat16()
+                n = max(reps, 20)
+                ms = cuda_ms(lambda: kern(q16, k16, v16, mask, heads, scale), n)
+                plain_ms = cuda_ms(lambda: plain(q16, k16, v16, mask, heads, scale), reps)
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=bias, scale=scale), n)
+                ops = 4 * b * heads * t * t * d
+                nbytes = 2 * 4 * b * t * heads * d + 4 * b * t
+                row = dict(impl=impl, batch=b, t=t, heads=heads, dim_head=d,
+                           fp32_max_abs_err=abs_err, fp32_max_rel_err=err, bf16_rel_l2=rel16, finite=finite, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3,
+                           bound_by="operations" if ops / PEAK_BF16 >= nbytes / PEAK_BYTES
+                           else "bytes")
+                print(f"[attn] {json.dumps(row)}", flush=True)
+                if not (finite and err <= ATTN_FP32 and rel16 <= BF16_REL_L2):
+                    raise AssertionError(f"{impl} B={b} T={t}: fp32 err {err} of scale, bf16 rel"
+                                         f" L2 {rel16}, finite {finite}")
+                rows[(impl, b, t)] = row
+                del q16, k16, v16, qh, kh, vh, bias
+                torch.cuda.empty_cache()
+    return rows
+
+
+def check_tap(reps: int) -> dict:
+    """Phase 12: the fp32 level kernel under `mrf_tap` at the tap levels'
+    shapes for the 512-frame bucket, against its plain version (max |diff| <=
+    1e-4), timed beside it and the bound (fp32 FMAs at 67 TFLOP/s)."""
+    import torch
+
+    from matcha_tts_tpu_torch.ops import mrf_cuda
+
+    dev = torch.device("cuda")
+    rows = []
+    for t, c in ((128 * T_Y, 64), (256 * T_Y, 32)):
+        a = level_inputs(c, t, c, False, False, dev, seed=t + c)
+        got = mrf_cuda.mrf_tap(a["x"], a["w"], a["b"])
+        torch.cuda.synchronize()
+        err = float((got - mrf_cuda.mrf_plain(a["x"], a["w"], a["b"])).abs().max())
+        ops, nbytes = level_work(c, t, c, False, False, torch.float32)
+        row = dict(t=t, c=c, max_abs_err=err,
+                   ms=cuda_ms(lambda: mrf_cuda.mrf_tap(a["x"], a["w"], a["b"]), reps),
+                   plain_ms=cuda_ms(lambda: mrf_cuda.mrf_plain(a["x"], a["w"], a["b"]), 1),
+                   bound_ms=max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3,
+                   bound_by="operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES else "bytes")
+        print(f"[tap] {json.dumps(row)}", flush=True)
+        if not err <= TAP_ATOL:
+            raise AssertionError(f"tap C={c} T={t}: max |diff| {err} > {TAP_ATOL}")
+        rows.append(row)
+        del a, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zero_forced_counts():
+    from matcha_tts_tpu_torch.ops import attn_cuda, mrf_cuda
+
+    for dct in (mrf_cuda.LAUNCHES, attn_cuda.LAUNCHES):
+        for k in dct:
+            dct[k] = 0
+
+
+def forced_counts() -> dict:
+    from matcha_tts_tpu_torch.ops import attn_cuda, mrf_cuda
+
+    return {**mrf_cuda.LAUNCHES, **attn_cuda.LAUNCHES}
+
+
+def forced_modes(syn, audible) -> dict:
+    """Phase 13: serving at full width in the forced kernel modes (bf16, NFE
+    10, temperature 0.667, length scale 3, denoiser 0.00025), three sentences
+    each, the launch counts zeroed before each call and asserted after; each
+    against the default configuration on the same weights and noise: int8
+    with the audible generator (wav SNR >= 25 dB), tap (its levels within
+    1e-4 of the fp32 plain generator, on that mel), vmem and flash (mel
+    relative L2 <= 1e-2 over the valid frames; frame buckets that are
+    multiples of 256 in both, so that the T and T/2 blocks pass the flash
+    gate); ms per call, and the device's busy share of one profiled call."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+
+    cfg, hcfg = syn.matcha_cfg, syn.hifi_cfg
+    kw = dict(compute_dtype="bfloat16", denoise_strength=0.00025, device="cuda")
+    gen = dict(n_timesteps=10, temperature=0.667, length_scale=3.0)
+    buckets256 = (256, 512, 768, 1024, 1280, 1536, 2048)
+    zero = {k: 0 for k in forced_counts()}
+
+    def model_with(impl):
+        m = MatchaTTS(dataclasses.replace(cfg, decoder=dataclasses.replace(
+            cfg.decoder, attention_impl=impl)), seed=0, device="cuda")
+        m.load_state_dict(syn.model.state_dict())
+        return m
+
+    modes = {
+        "int8": (Synthesizer(syn.model, cfg, audible, dataclasses.replace(hcfg, mrf_kernel="int8"),
+                             **kw),
+                 Synthesizer(syn.model, cfg, audible, hcfg, **kw),
+                 lambda n: {**zero, "mrf_int8": n, "mrf_up_int8": n, "mrf_up": n}),
+        "tap": (Synthesizer(syn.model, cfg, audible, dataclasses.replace(hcfg, mrf_kernel="tap"),
+                            **kw), None, lambda n: {**zero, "mrf_tap": 2 * n}),
+        "vmem": (Synthesizer(model_with("vmem"), cfg, syn.vocoder, hcfg,
+                             frame_buckets=buckets256, **kw),
+                 Synthesizer(syn.model, cfg, syn.vocoder, hcfg, frame_buckets=buckets256, **kw),
+                 lambda n: {**zero, "mrf": n, "mrf_up": 2 * n, "vmem_mha": 60 * n}),
+        "flash": (Synthesizer(model_with("flash"), cfg, syn.vocoder, hcfg,
+                              frame_buckets=buckets256, **kw),
+                  Synthesizer(syn.model, cfg, syn.vocoder, hcfg, frame_buckets=buckets256, **kw),
+                  lambda n: {**zero, "mrf": n, "mrf_up": 2 * n, "flash_mha": 60 * n}),
+    }
+    out = {"launches": {}, "ms_per_call": {}}
+    for name, (forced, default, want) in modes.items():
+        # the exact frame bucket (the encoder first), so that the forced and
+        # the default run draw the same noise for a sentence
+        def run(sy, text):
+            return sy.synthesize_tokens(sy.tokenize(text), exact_bucket=True, **gen)
+
+        run(forced, SENTENCES[0]).wav  # warm-up (the int8 weights are packed)
+        total = {k: 0 for k in zero}
+        times, checks = [], []
+        for s in SENTENCES[:FORCED_SENTENCES]:
+            zero_forced_counts()
+            c0 = forced.stats["calls"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = run(forced, s)
+            wav = r.wav
+            times.append(time.perf_counter() - t0)
+            calls = forced.stats["calls"] - c0
+            counts = forced_counts()
+            if counts != want(calls):
+                raise AssertionError(f"{name}: launches {counts}, expected {want(calls)}")
+            for k, v in counts.items():
+                total[k] += v
+            if not np.isfinite(wav).all() or len(wav) != 256 * r.y_length:
+                raise AssertionError(f"{name}: bad wav for {s!r}")
+            if name == "int8":
+                ref = run(default, s).wav
+                checks.append(snr_db(torch.from_numpy(wav), torch.from_numpy(ref)))
+            elif name == "tap":
+                # whole 64-frame blocks, so that the tap levels pass their gate
+                # (T % 2048 == 0) as they do at the serving call's bucket
+                n64 = r.y_length // 64 * 64
+                mel = torch.from_numpy(r.mel[:, :n64].T.copy())[None].cuda()
+                zero_forced_counts()
+                with torch.no_grad():
+                    w_tap = audible(mel, dataclasses.replace(hcfg, mrf_kernel="tap"))
+                    w_ref = audible(mel, dataclasses.replace(hcfg, mrf_kernel="xla"))
+                if forced_counts()["mrf_tap"] != 2:
+                    raise AssertionError("tap check: the fp32 mel did not take the tap levels")
+                checks.append(float((w_tap - w_ref).abs().max()))
+            else:
+                ref = run(default, s)
+                if ref.y_length != r.y_length:
+                    raise AssertionError(f"{name}: {r.y_length} frames vs default {ref.y_length}")
+                checks.append(rel_l2(torch.from_numpy(r.mel), torch.from_numpy(ref.mel)))
+        ms = [t * 1e3 for t in times]
+        print(f"[forced] {name}: ms per call {[round(m, 2) for m in ms]} (host clock, "
+              f"synchronized); launches over {FORCED_SENTENCES} sentences {total}; "
+              f"{'wav SNR dB' if name == 'int8' else 'max |diff| vs fp32 plain' if name == 'tap' else 'mel rel L2'}"
+              f" {checks}", flush=True)
+        if name == "int8" and not min(checks) >= INT8_E2E_SNR_DB:
+            raise AssertionError(f"int8 serving: wav SNR {checks} dB < {INT8_E2E_SNR_DB}")
+        if name == "tap" and not max(checks) <= TAP_ATOL:
+            raise AssertionError(f"tap serving: max |diff| {checks} > {TAP_ATOL}")
+        if name in ("vmem", "flash") and not max(checks) <= FORCED_MEL_REL_L2:
+            raise AssertionError(f"{name} serving: mel rel L2 {checks} > {FORCED_MEL_REL_L2}")
+        out["launches"][name] = total
+        out["ms_per_call"][name] = ms
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(forced, SENTENCES[0]).wav
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out.setdefault("busy_share", {})[name] = print_busy("forced", f"{name}: one synthesize",
+                                                            prof, wall)
+    return out
+
+
+def cli_on_card(audible, mel) -> None:
+    """Phase 14: the inference CLI as subprocesses on the card (int8 MRF,
+    denoiser 0.00025): at full width with random weights, and from the
+    trained checkpoint in the repository; each wav exists and holds 256
+    samples per mel frame, and the RTF line prints.  Then
+    `quantization_report` with the audible weights: snr_db > 25 and a finite
+    mel_l1."""
+    import os
+    import re
+
+    import numpy as np
+
+    from matcha_tts_tpu_torch.models.hifigan import quantization_report
+    from matcha_tts_tpu_torch.utils.wav import read_wav
+
+    ckpt = REPO / "tests" / "golden" / "trained" / "matcha_tone.ckpt"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, extra in (("full width, random weights", []),
+                             ("trained checkpoint", ["--checkpoint", str(ckpt)])):
+            out = Path(tmp) / f"{len(extra)}.wav"
+            cmd = [sys.executable, "-m", "matcha_tts_tpu_torch.inference.cli", "--mrf-kernel",
+                   "int8", "--denoise", "0.00025", "--output", str(out), *extra]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                                  timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"CLI ({label}) failed:\n{proc.stderr[-3000:]}")
+            frames = int(re.search(r"Mel Shape: \(80, (\d+)\)", proc.stdout).group(1))
+            wav, sr = read_wav(out)
+            rtf = [ln for ln in proc.stdout.splitlines() if "RTF" in ln]
+            print(f"[cli] {label}: {frames} frames, {len(wav)} samples at {sr} Hz, process "
+                  f"{wall:.1f} s; {rtf[0] if rtf else 'no RTF line'}", flush=True)
+            if not (len(wav) == 256 * frames and rtf and np.isfinite(wav).all()):
+                raise AssertionError(f"CLI ({label}): {len(wav)} samples for {frames} frames")
+    # whole 64-frame blocks, as a frame bucket is, so that every level passes
+    # the int8 gate
+    n64 = mel.shape[1] // 64 * 64
+    rep = quantization_report(audible, mel[:, :n64])
+    print(f"[cli] quantization_report (audible weights, {n64} frames, fp32): "
+          f"{json.dumps(rep)}", flush=True)
+    if not (rep["snr_db"] > INT8_E2E_SNR_DB and math.isfinite(rep["mel_l1"])
+            and rep["max_abs_err"] > 0):  # > 0: the int8 levels did run
+        raise AssertionError(f"quantization_report: {rep}")
+
+
+
 def main() -> int:
     import torch
 
@@ -848,11 +1296,18 @@ def main() -> int:
     from matcha_tts_tpu_torch.config import MatchaConfig
 
     table = check_kernels(T_Y, REPS)
+    int8_table = check_int8_kernels(T_Y, REPS)
+    attn_rows = check_attention(REPS)
+    tap_rows = check_tap(REPS)
     mas_row = check_mas(REPS)
     block_rows = check_blocks(MatchaConfig(), REPS)
     syn, last, launches = full_width()
     end_to_end(syn, last)
     profile_path(syn, SENTENCES[0])
+    mel = torch.from_numpy(last.mel.T.copy())[None].to("cuda")
+    audible = audible_copy(syn.vocoder, syn.hifi_cfg, mel, 7)
+    forced = forced_modes(syn, audible)
+    cli_on_card(audible, mel)
     train = training(syn)
 
     up = [table["level2"], table["level3"]]
@@ -895,6 +1350,55 @@ def main() -> int:
             "plain_ms": sum(r["bf16_plain_ms"] * r["per_pass"] for r in rows),
             "bound_ms": sum(r["bf16_bound_ms"] * r["per_pass"] for r in rows),
             "bound_by": rows[0]["bound_by"], "library_ms": None})
+    int8_up = [int8_table["level2"], int8_table["level3"]]
+    for kname, rows, line in (("mrf_int8", [int8_table["level1"]], "mrf_packed.py:525"),
+                              ("mrf_up_int8", int8_up, "mrf_packed.py:648")):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/mrf.cu",
+            "replaces": f"matcha_tts_tpu/ops/pallas/{line}",
+            "launches": forced["launches"]["int8"][kname],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": rows[0]["bound_by"],
+            "library_ms": None})
+    kernels.append({
+        "name": "mrf_tap", "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/mrf.cu",
+        "replaces": "matcha_tts_tpu/ops/pallas/mrf.py:170",
+        "launches": forced["launches"]["tap"]["mrf_tap"],
+        "max_abs_err": max(r["max_abs_err"] for r in tap_rows),
+        "ms": sum(r["ms"] for r in tap_rows), "plain_ms": sum(r["plain_ms"] for r in tap_rows),
+        "bound_ms": sum(r["bound_ms"] for r in tap_rows), "bound_by": tap_rows[0]["bound_by"],
+        "library_ms": None})
+    # attention: one estimator pass at the 512-frame bucket, batch 1 (2 blocks
+    # at T = 512, 4 at T = 256)
+    for impl, line in (("vmem", "attn_vmem.py:85"), ("flash", "attention.py:44")):
+        per_pass = [(2, attn_rows[(impl, 1, T_Y)]), (4, attn_rows[(impl, 1, T_Y // 2)])]
+        kernels.append({
+            "name": f"{impl}_mha", "route": "cuda",
+            "source": "matcha_tts_tpu_torch/csrc/attention.cu",
+            "replaces": f"matcha_tts_tpu/ops/pallas/{line}",
+            "launches": forced["launches"][impl][f"{impl}_mha"],
+            "max_abs_err": max(r["fp32_max_abs_err"] for (i, _, _), r in attn_rows.items()
+                               if i == impl),
+            "ms": sum(n * r["ms"] for n, r in per_pass),
+            "plain_ms": sum(n * r["plain_ms"] for n, r in per_pass),
+            "bound_ms": sum(n * r["bound_ms"] for n, r in per_pass),
+            "bound_by": per_pass[0][1]["bound_by"],
+            "library_ms": sum(n * r["library_ms"] for n, r in per_pass)})
+    shapes = {
+        "mrf": f"(1, {64 * T_Y}, 128) bf16",
+        "mrf_up": f"128 -> 64 at {128 * T_Y}; 64 -> 32 + tail at {256 * T_Y}; bf16",
+        "mas": f"{MAS_SHAPE} fp32",
+        "block1d": f"({BLOCK_B}, {BLOCK_T}, 256 -> 256) bf16",
+        "resnet1d": f"one estimator pass at B={BLOCK_B}, T={BLOCK_T}, bf16",
+        "mrf_int8": f"(1, {64 * T_Y}, 128) bf16",
+        "mrf_up_int8": f"128 -> 64 at {128 * T_Y} bf16; 64 -> 32 + tail at {256 * T_Y} fp32",
+        "mrf_tap": f"(1, {128 * T_Y}, 64) and (1, {256 * T_Y}, 32) fp32",
+        "vmem_mha": f"2 x (1, {T_Y}, 2 x 64) + 4 x (1, {T_Y // 2}, 2 x 64) bf16",
+        "flash_mha": f"2 x (1, {T_Y}, 2 x 64) + 4 x (1, {T_Y // 2}, 2 x 64) bf16",
+    }
+    for k in kernels:
+        k["shapes"] = shapes[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,10 @@
 is the Matcha-TTS LJSpeech v1 preset with the HiFi-GAN V1 vocoder.
 
 Options that select a TPU kernel keep their values here, so configs
-round-trip.  `block1d_impl="pallas"` / `use_pallas` select the port's fused
-U-Net block kernels; for the kernels not ported yet (`attention_impl="flash"`
-/ `"vmem"`, `mrf_kernel="tap"` / `"int8"`) the port's modules raise
-`NotImplementedError`.
+round-trip, and select the port's Hopper kernel in its place:
+`block1d_impl="pallas"` / `use_pallas` the fused U-Net blocks,
+`attention_impl="vmem"` / `"flash"` the attention kernels, `mrf_kernel` the
+MRF kernels (exact, int8 or the fp32 "tap" levels).
 """
 
 from __future__ import annotations
@@ -74,8 +74,8 @@ class DecoderConfig:
     # Block1D implementation: "xla" (plain ops), "pallas" (the fused
     # Block1D / ResnetBlock1D kernels) or "auto" (plain ops)
     block1d_impl: str = "auto"
-    # decoder attention: "xla" (plain ops), "flash" / "vmem" (the kernels,
-    # not ported yet) or "auto" (plain ops)
+    # decoder attention: "xla" (plain ops), "flash" / "vmem" (the attention
+    # kernels where the block's shape passes their gate) or "auto" (plain ops)
     attention_impl: str = "xla"
     # SnakeBeta: "xla" (x + sin^2(ax)/b) or "fused_vjp" (the identity
     # sin^2(u/2) = (1 - cos u)/2; a training-time variant)
@@ -115,11 +115,11 @@ class HiFiGANConfig:
     )
     num_mels: int = 80
     sampling_rate: int = 22050
-    # legacy switch: with mrf_kernel="xla" it means "tap" (not ported yet)
+    # legacy switch: with mrf_kernel="xla" it means "tap"
     use_pallas: bool = False
     # MRF implementation: "xla" (plain composition), "auto" / "packed" (the
     # fused MRF kernels where the level's shape allows, plain otherwise),
-    # "tap" / "int8" (not ported yet)
+    # "int8" (the quantised chain, opt-in) or "tap" (unfused fp32 levels)
     mrf_kernel: str = "auto"
     # mrf_kernel="int8" only: the upsample levels to quantise
     int8_levels: Optional[Tuple[int, ...]] = None

@@ -39,6 +39,39 @@
 // way, one product per output parity; conv_post (7 C MACs per frame) stays
 // on the CUDA cores.  The halo is recomputed per tile; PERF.md writes down
 // what that and the tile size cost.
+//
+// The fp32 level entry also replaces matcha_tts_tpu/ops/pallas/mrf.py::
+// mrf_fused (the tap-unrolled fp32 level of mrf_kernel="tap"): the same
+// function at C in {32, 64}.
+//
+// int8 mode (mrf_level_int8; replaces the `ws` mode of both TPU kernels,
+// pack_packed_weights_int8 and quantize_act in mrf_packed.py).  The chain's
+// 18 convs run int8 x int8 -> int32 with per-output-channel weight scales
+// and one dynamic absmax activation scale per (conv, window).  That scale
+// makes the function depend on the window, so the window is part of it: a
+// block owns a window of tile + 2 * halo frames (halo >= the chain's reach
+// of 60, plus 3 for the tail), runs every conv over the WHOLE window as an
+// isolated sequence (zero padding at the window's edges, frames outside
+// [0, T) zeroed before each conv, as the TPU kernel does over its extended
+// tile), and keeps the centre tile.  The wrapper hands the same tile and
+// halo to the plain version.  Per conv: block absmax of the masked
+// LeakyReLU input, q = clip(rint(a * (127 / m)), +-127) into shared memory,
+// mma.sync m16n8k32 s8 x s8 -> s32 over the shifted rows (exact), then
+// fp32(acc) * (ws * m / 127) + b rounded once (the JAX kernel's XLA
+// contracts it into an FMA; here in float64, where the product is exact,
+// then one rounding to fp32, as the plain version does).  Every other
+// rounding step is an explicit _rn intrinsic, so that nvcc's contraction
+// cannot move a code across a rounding boundary and the kernel's codes
+// equal the plain version's.  The fp32 chain
+// state (residual, conv output, branch sum) of a window does not fit shared
+// memory at C >= 128, so it lives in a per-block fp32 scratch in device
+// memory (mostly L2); only the int8 conv input is in shared memory.  The
+// upsample prologue (its input rounded to bf16, as the TPU kernel's staging
+// buffer does in this mode) runs once per window in float64 FMAs and is
+// rounded once, so that its sums' order cannot move a code; it and the
+// conv_post tail stay exact.  Bound:
+// 126 C^2 int8 MACs per window frame at 1,979 TOPS against the level's bytes;
+// the halo recompute is (tile + 128) / tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -635,6 +668,382 @@ cudaError_t dispatch(int c, int up, int post, const void* x, int batch, int t_in
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// int8 mode
+// ---------------------------------------------------------------------------
+
+constexpr int kI8Pad = 25;  // zero rows on each side of the window: the widest conv's half-width
+constexpr int kI8Threads = 256;
+constexpr int kI8MTiles = 4;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// c (16 x 8, s32) += a (16 x 32, s8, row-major) * b (32 x 8, s8, k-major)
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared memory of one int8 block (bytes): the int8 conv input (window rows
+// plus kI8Pad zero rows on each side, rows of C + 16 bytes), the staging
+// buffer of the upsample input or of the tail, and a reduction scratch.
+struct I8Layout {
+  int act, stage, red, total;
+};
+
+__host__ __device__ inline I8Layout i8_layout(int c, bool up, bool post, int tile, int halo,
+                                              int elem) {
+  const int w = tile + 2 * halo;
+  const int pad = elem == 2 ? 8 : 2;
+  int stage = 0;
+  if (up) stage = (w / 2 + 4) * (2 * c + pad) * elem;
+  if (post) {
+    const int s = (tile + 2 * kPostPad) * (c + pad) * elem;
+    if (s > stage) stage = s;
+  }
+  I8Layout l;
+  l.act = 0;
+  l.stage = align16((w + 2 * kI8Pad) * (c + 16));
+  l.red = l.stage + align16(stage);
+  l.total = l.red + 64;
+  return l;
+}
+
+// fp32 scratch per block: the residual xb and conv output xt (window rows x
+// C each), the branch sum (tile + 2P rows x C) and, with the upsample, its
+// output (window rows x C).
+__host__ __device__ inline size_t i8_scratch_floats(int c, bool up, bool post, int tile,
+                                                    int halo) {
+  const int p = post ? kPostPad : 0;
+  return (size_t)((up ? 3 : 2) * (tile + 2 * halo) + tile + 2 * p) * c;
+}
+
+// xup[r, co] = bup[co] + sum over the two taps of output frame g0 + r of
+// stage[input row, ci] * w[tap, co, ci] (the flipped transpose-conv weights,
+// as in upsample_rows), in float64 and rounded once to fp32.  The lanes of a
+// warp take neighbouring rows of one channel, so that they share each
+// weight load.
+template <typename T, int C>
+__device__ __forceinline__ void upsample_rows_f64(const T* stage, int ss_in, int n, int g0,
+                                                  int in0, const T* __restrict__ w,
+                                                  const T* __restrict__ bias, float* xup) {
+  constexpr int CIN = 2 * C;
+  for (int i = threadIdx.x; i < n * C; i += kI8Threads) {
+    const int co = i / n, r = i % n;
+    const int t = g0 + r;
+    const int par = t & 1;
+    const int s0 = floor_div2(t + par - 2) - in0;
+    double acc = (double)to_f(bias[co]);
+#pragma unroll
+    for (int step = 0; step < 2; ++step) {
+      const T* src = stage + (s0 + step) * ss_in;
+      const T* wt = w + (size_t)(par + 2 * step) * C * CIN + (size_t)co * CIN;
+      for (int ci = 0; ci < CIN; ++ci)
+        acc = __fma_rn((double)to_f(src[ci]), (double)to_f(__ldg(wt + ci)), acc);
+    }
+    xup[(size_t)r * C + co] = __double2float_rn(acc);
+  }
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    v = threadIdx.x < kI8Threads / 32 ? red[threadIdx.x] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (threadIdx.x == 0) red[kI8Threads / 32] = v;
+  }
+  __syncthreads();
+  return red[kI8Threads / 32];
+}
+
+// act <- clip(rint(a * 127 / m)) for a = lrelu(src) on window rows whose
+// frame lies in [0, t_len) and 0 elsewhere, m = max |a| over the window;
+// returns the activation scale m / 127 (1 when m == 0).  `src` is this
+// block's fp32 scratch (written in this launch: plain loads).
+template <int C>
+__device__ __forceinline__ float quantize_window(const float* src, int w, int g0, int t_len,
+                                                 int8_t* act, float* red) {
+  float m = 0.f;
+  for (int i = threadIdx.x; i < w * C; i += kI8Threads) {
+    const int t = g0 + i / C;
+    if (t >= 0 && t < t_len) m = fmaxf(m, fabsf(lrelu(src[i], kSlope)));
+  }
+  m = block_max(m, red);
+  const float inv = m > 0.f ? __fdiv_rn(127.f, m) : 0.f;
+  for (int i = threadIdx.x; i < w * C; i += kI8Threads) {
+    const int r = i / C, c = i % C;
+    const int t = g0 + r;
+    float q = 0.f;
+    if (t >= 0 && t < t_len) q = fminf(fmaxf(rintf(__fmul_rn(lrelu(src[i], kSlope), inv)), -127.f), 127.f);
+    act[(kI8Pad + r) * (C + 16) + c] = static_cast<int8_t>(q);
+  }
+  __syncthreads();
+  return m > 0.f ? __fdiv_rn(m, 127.f) : 1.f;
+}
+
+// fp32(acc) * scale + bias with one rounding: the float64 product of two
+// fp32 values is exact, then one float64 add and one rounding to fp32.
+__device__ __forceinline__ float dequant(int acc, float scale, float bias) {
+  return __double2float_rn(
+      __dadd_rn(__dmul_rn((double)__int2float_rn(acc), (double)scale), (double)bias));
+}
+
+// dst[r, co] (=, or += when ADD) acc * (ws[co] * s_act) + bias[co], where
+// acc = sum_{tap, ci} act[r + tap * d - half, ci] * w[tap, co, ci] (int32,
+// exact) for every window row r in [0, w_rows).  Warps split C into slices
+// of 32 channels and the rows into interleaved 16-row m-tiles.
+template <int C, bool ADD>
+__device__ __forceinline__ void conv_i8(const int8_t* act, int w_rows, int k, int d,
+                                        const int8_t* __restrict__ w,
+                                        const float* __restrict__ bias,
+                                        const float* __restrict__ ws, float s_act, float* dst) {
+  constexpr int SA = C + 16;
+  constexpr int WN = C / 32;
+  constexpr int WM = kI8Threads / 32 / WN;
+  static_assert(WN >= 1 && WM >= 1 && WN * WM * 32 == kI8Threads, "warp grid");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int n0 = (warp % WN) * 32;
+  const int half = (k - 1) / 2 * d;
+  const int n_mt = w_rows / 16;
+  float sc[4][2], bv[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int co = n0 + nt * 8 + 2 * qd + e;
+      sc[nt][e] = __fmul_rn(ws[co], s_act);
+      bv[nt][e] = bias[co];
+    }
+  for (int mt0 = warp / WN; mt0 < n_mt; mt0 += WM * kI8MTiles) {
+    int acc[kI8MTiles][4][4];
+    unsigned a_row[kI8MTiles];
+#pragma unroll
+    for (int m = 0; m < kI8MTiles; ++m) {
+      const int mt = mt0 + m * WM;
+      const int r = (mt < n_mt ? mt : 0) * 16 + (lane & 15);
+      a_row[m] = smem_addr(act + (kI8Pad + r - half) * SA + (lane >> 4) * 16);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0;
+    }
+    for (int tap = 0; tap < k; ++tap) {
+      const unsigned a_tap = tap * d * SA;
+      const int8_t* wt = w + (size_t)tap * C * C + (size_t)(n0 + g) * C + 4 * qd;
+#pragma unroll 2
+      for (int kk = 0; kk < C; kk += 32) {
+        unsigned b[4][2];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const unsigned* p = reinterpret_cast<const unsigned*>(wt + nt * 8 * C + kk);
+          b[nt][0] = __ldg(p);
+          b[nt][1] = __ldg(p + 4);
+        }
+#pragma unroll
+        for (int m = 0; m < kI8MTiles; ++m) {
+          if (mt0 + m * WM >= n_mt) break;
+          unsigned a[4];
+          ldmatrix_x4(a_row[m] + a_tap + kk, a);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_s8(acc[m][nt], a, b[nt][0], b[nt][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kI8MTiles; ++m) {
+      if (mt0 + m * WM >= n_mt) break;
+      const int rbase = (mt0 + m * WM) * 16 + g;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + nt * 8 + 2 * qd;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* o = dst + (size_t)(rbase + 8 * h) * C + col;
+          const float v0 = dequant(acc[m][nt][2 * h], sc[nt][0], bv[nt][0]);
+          const float v1 = dequant(acc[m][nt][2 * h + 1], sc[nt][1], bv[nt][1]);
+          if (ADD) {
+            o[0] = __fadd_rn(o[0], v0);
+            o[1] = __fadd_rn(o[1], v1);
+          } else {
+            o[0] = v0;
+            o[1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+// x: (B, t_in, C_in) in T, C_in = 2C when UP; w: (126, C, C) int8 codes
+// [tap][co][ci] in chain order; b, ws: (18, C) fp32; wup, bup, wpost, bpost
+// in T as for mrf_level_kernel; scratch: i8_scratch_floats per block.
+// grid (ceil(t_out / tile), B).
+template <typename T, int C, bool UP, bool POST>
+__global__ void __launch_bounds__(kI8Threads) mrf_int8_kernel(
+    const T* __restrict__ x, int t_in, int t_out, int tile, int halo,
+    const T* __restrict__ wup, const T* __restrict__ bup, const int8_t* __restrict__ w,
+    const float* __restrict__ b, const float* __restrict__ ws,
+    const T* __restrict__ wpost, const T* __restrict__ bpost, float* scratch,
+    T* __restrict__ out, T* __restrict__ wav) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const I8Layout L = i8_layout(C, UP, POST, tile, halo, sizeof(T));
+  int8_t* act = reinterpret_cast<int8_t*>(smem + L.act);
+  T* stage = reinterpret_cast<T*>(smem + L.stage);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  constexpr int CIN = UP ? 2 * C : C;
+  constexpr int P = POST ? kPostPad : 0;
+  constexpr int SA = C + 16;
+  const int pad = sizeof(T) == 2 ? 8 : 2;
+  const int wr = tile + 2 * halo;  // window rows
+  const int bi = blockIdx.y;
+  const int t0 = blockIdx.x * tile;
+  const int g0 = t0 - halo;  // frame of window row 0
+  const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  float* xb = scratch + blk * i8_scratch_floats(C, UP, POST, tile, halo);
+  float* xt = xb + (size_t)wr * C;
+  float* accb = xt + (size_t)wr * C;
+  float* xup = accb + (size_t)(tile + 2 * P) * C;  // UP only
+  const int n_acc = (tile + 2 * P) * C;
+  const T* xrow = x + (size_t)bi * t_in * CIN;
+
+  for (int i = threadIdx.x; i < (wr + 2 * kI8Pad) * SA; i += kI8Threads) act[i] = 0;
+  for (int i = threadIdx.x; i < n_acc; i += kI8Threads) accb[i] = 0.f;
+  if (UP) {
+    const int in0 = floor_div2(g0 - 2);
+    const int n_in = floor_div2(g0 + wr + 1) - in0 + 1;
+    const int ss_in = CIN + pad;
+    for (int i = threadIdx.x; i < n_in * CIN; i += kI8Threads) {
+      const int s = i / CIN, c = i % CIN;
+      const int t = in0 + s;
+      float v = 0.f;
+      if (t >= 0 && t < t_in) v = round_bf16(lrelu(to_f(xrow[(size_t)t * CIN + c]), kSlope));
+      stage[s * ss_in + c] = from_f<T>(v);
+    }
+    __syncthreads();
+    upsample_rows_f64<T, C>(stage, ss_in, wr, g0, in0, wup, bup, xup);
+  }
+
+  size_t w_off = 0;
+  int n_conv = 0;
+#pragma unroll 1
+  for (int br = 0; br < 3; ++br) {
+    const int k = 3 + 4 * br;
+    __syncthreads();
+    if (UP) {
+      for (int i = threadIdx.x; i < wr * C; i += kI8Threads) xb[i] = xup[i];
+    } else {
+      for (int i = threadIdx.x; i < wr * C; i += kI8Threads) {
+        const int t = g0 + i / C;
+        xb[i] = (t >= 0 && t < t_out) ? to_f(xrow[(size_t)t * C + i % C]) : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int m = 0; m < 3; ++m) {
+      const int d = 2 * m + 1;
+      float s_act = quantize_window<C>(xb, wr, g0, t_out, act, red);
+      conv_i8<C, false>(act, wr, k, d, w + w_off, b + n_conv * C, ws + n_conv * C, s_act, xt);
+      w_off += (size_t)k * C * C;
+      ++n_conv;
+      __syncthreads();
+      s_act = quantize_window<C>(xt, wr, g0, t_out, act, red);
+      conv_i8<C, true>(act, wr, k, 1, w + w_off, b + n_conv * C, ws + n_conv * C, s_act, xb);
+      w_off += (size_t)k * C * C;
+      ++n_conv;
+      __syncthreads();
+    }
+    // window rows [halo - P, halo + tile + P) are the branch's output
+    for (int i = threadIdx.x; i < n_acc; i += kI8Threads)
+      accb[i] = __fadd_rn(accb[i], xb[(size_t)(halo - P) * C + i]);
+  }
+  __syncthreads();
+
+  if (!POST) {
+    T* orow = out + (size_t)bi * t_out * C;
+    for (int i = threadIdx.x; i < tile * C; i += kI8Threads) {
+      const int t = t0 + i / C;
+      if (t < t_out) orow[(size_t)t0 * C + i] = from_f<T>(__fdiv_rn(accb[i], 3.f));
+    }
+    return;
+  }
+
+  // tail: LeakyReLU(0.01) -> conv_post (k=7, C -> 1, padding 3) -> tanh
+  const int ss = C + pad;
+  for (int i = threadIdx.x; i < n_acc; i += kI8Threads) {
+    const int r = i / C, c = i % C;
+    const int t = t0 - P + r;
+    const float v = (t >= 0 && t < t_out) ? lrelu(__fdiv_rn(accb[i], 3.f), kPostSlope) : 0.f;
+    stage[r * ss + c] = from_f<T>(v);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const float bias_post = to_f(bpost[0]);
+  for (int r = warp; r < tile; r += kI8Threads / 32) {
+    float s = 0.f;
+    for (int tap = 0; tap < kPostK; ++tap)
+      for (int c = lane; c < C; c += 32)
+        s = fmaf(to_f(stage[(r + tap) * ss + c]), to_f(wpost[tap * C + c]), s);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const int t = t0 + r;
+    if (lane == 0 && t < t_out) wav[(size_t)bi * t_out + t] = from_f<T>(tanhf(bias_post + s));
+  }
+}
+
+template <typename T, int C, bool UP, bool POST>
+cudaError_t launch_int8(const void* x, int batch, int t_in, int t_out, int tile, int halo,
+                        const void* wup, const void* bup, const void* w, const float* b,
+                        const float* ws, const void* wpost, const void* bpost, float* scratch,
+                        void* out, void* wav, cudaStream_t stream) {
+  const int smem = i8_layout(C, UP, POST, tile, halo, sizeof(T)).total;
+  auto kernel = mrf_int8_kernel<T, C, UP, POST>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_out + tile - 1) / tile, batch);
+  kernel<<<grid, kI8Threads, smem, stream>>>(
+      static_cast<const T*>(x), t_in, t_out, tile, halo, static_cast<const T*>(wup),
+      static_cast<const T*>(bup), static_cast<const int8_t*>(w), b, ws,
+      static_cast<const T*>(wpost), static_cast<const T*>(bpost), scratch,
+      static_cast<T*>(out), static_cast<T*>(wav));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_int8(int c, int up, int post, const void* x, int batch, int t_in,
+                          int t_out, int tile, int halo, const void* wup, const void* bup,
+                          const void* w, const float* b, const float* ws, const void* wpost,
+                          const void* bpost, float* scratch, void* out, void* wav,
+                          cudaStream_t s) {
+#define I8_ARGS x, batch, t_in, t_out, tile, halo, wup, bup, w, b, ws, wpost, bpost, scratch, out, wav, s
+  if (!up && !post) {
+    if (c == 256) return launch_int8<T, 256, false, false>(I8_ARGS);
+    if (c == 128) return launch_int8<T, 128, false, false>(I8_ARGS);
+    if (c == 64) return launch_int8<T, 64, false, false>(I8_ARGS);
+    if (c == 32) return launch_int8<T, 32, false, false>(I8_ARGS);
+  } else if (up && !post) {
+    if (c == 64) return launch_int8<T, 64, true, false>(I8_ARGS);
+    if (c == 32) return launch_int8<T, 32, true, false>(I8_ARGS);
+  } else if (up && post) {
+    if (c == 64) return launch_int8<T, 64, true, true>(I8_ARGS);
+    if (c == 32) return launch_int8<T, 32, true, true>(I8_ARGS);
+  }
+#undef I8_ARGS
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -656,6 +1065,32 @@ int mrf_level(const void* x, int batch, int t_in, int t_out, int c, int up, int 
                           wpost, bpost, out, wav, s);
   return dispatch<float>(c, up, post, x, batch, t_in, t_out, tile, wup, bup, w, b,
                          wpost, bpost, out, wav, s);
+}
+
+// Shared memory (bytes) and fp32 scratch (floats per block) of the int8 level
+// kernel at this tile and halo.
+int mrf_int8_smem_bytes(int c, int up, int post, int tile, int halo, int elem_size) {
+  return i8_layout(c, up != 0, post != 0, tile, halo, elem_size).total;
+}
+
+long long mrf_int8_scratch_floats(int c, int up, int post, int tile, int halo) {
+  return static_cast<long long>(i8_scratch_floats(c, up != 0, post != 0, tile, halo));
+}
+
+// Launches one int8 MRF level on `stream` (see mrf_int8_kernel).  Returns a
+// cudaError_t (0 = success).
+int mrf_level_int8(const void* x, int batch, int t_in, int t_out, int c, int up, int post,
+                   int is_bf16, int tile, int halo, const void* wup, const void* bup,
+                   const void* w, const float* b, const float* ws, const void* wpost,
+                   const void* bpost, float* scratch, void* out, void* wav, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile <= 0 || (tile + 2 * halo) % 16 != 0 || halo < kMaxReach + (post ? kPostPad : 0))
+    return cudaErrorInvalidValue;
+  if (is_bf16)
+    return dispatch_int8<bf16>(c, up, post, x, batch, t_in, t_out, tile, halo, wup, bup, w, b,
+                               ws, wpost, bpost, scratch, out, wav, s);
+  return dispatch_int8<float>(c, up, post, x, batch, t_in, t_out, tile, halo, wup, bup, w, b,
+                              ws, wpost, bpost, scratch, out, wav, s);
 }
 
 const char* mrf_error_string(int err) {

@@ -1,1 +1,1 @@
-"""Inference: the bucketed synthesis engine."""
+"""Inference: the bucketed synthesis engine and the CLI."""

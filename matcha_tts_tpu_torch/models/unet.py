@@ -9,9 +9,10 @@ attends uniformly to the valid keys.
 With `block1d_impl="pallas"` or `use_pallas`, every ResnetBlock1D runs as
 the fused resnet kernel and the final Block1D as the fused Block1D kernel
 (`ops/unet_cuda.py`; their plain versions on the CPU), forward and through
-autograd.  The attention kernels that the JAX package can force
-(`attention_impl="flash"` / `"vmem"`) are not ported yet and raise
-`NotImplementedError`; ROADMAP.md Queue 2 lists them.
+autograd.  With `attention_impl="vmem"` or `"flash"`, each transformer
+block whose (T, dim_head) passes the kernel's gate runs that attention
+kernel (`ops/attn_cuda.py`) on the projections as they are; a block that
+fails the gate runs the plain attention, the JAX package's own rule.
 
 Dropout (attention output and feed-forward, at `cfg.dropout`) draws from the
 `generator` passed to `Decoder.forward`; without one it is off.
@@ -30,7 +31,7 @@ from matcha_tts_tpu_torch.config import DecoderConfig
 from matcha_tts_tpu_torch.models.nn import (Conv1d, ConvTranspose1d, Linear,
                                             Norm, dropout, group_norm, layer_norm,
                                             mish)
-from matcha_tts_tpu_torch.ops import unet_cuda
+from matcha_tts_tpu_torch.ops import attn_cuda, unet_cuda
 
 
 class SnakeBeta(nn.Module):
@@ -77,18 +78,26 @@ class Attention(nn.Module):
         self.to_v = Linear(query_dim, inner, bias=False, generator=generator)
         self.to_out = Linear(inner, query_dim, generator=generator)
 
-    def forward(self, x, key_mask, p_dropout=0.0, generator=None):
-        """x: (B, T, C); key_mask: (B, T), 1 = keep."""
+    def forward(self, x, key_mask, p_dropout=0.0, generator=None, impl="xla"):
+        """x: (B, T, C); key_mask: (B, T), 1 = keep; `impl` is the decoder's
+        `attention_impl`, resolved here for this block's T."""
         b, t, _ = x.shape
         h, d = self.heads, self.dim_head
-        q = self.to_q(x).reshape(b, t, h, d).transpose(1, 2)
-        k = self.to_k(x).reshape(b, t, h, d).transpose(1, 2)
-        v = self.to_v(x).reshape(b, t, h, d).transpose(1, 2)
-        sim = torch.matmul(q, k.transpose(-1, -2)) * d ** -0.5
-        sim = sim.masked_fill(key_mask[:, None, None, :] == 0,
-                              torch.finfo(sim.dtype).min)
-        attn = torch.softmax(sim, dim=-1)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, h * d)
+        qf, kf, vf = self.to_q(x), self.to_k(x), self.to_v(x)  # (B, T, H * D)
+        resolved = attn_cuda.resolve_attention_impl(impl, t, d)
+        if resolved == "vmem":
+            out = attn_cuda.vmem_mha(qf, kf, vf, key_mask, h, d ** -0.5)
+        elif resolved == "flash":
+            out = attn_cuda.flash_mha(qf, kf, vf, key_mask, h, d ** -0.5)
+        else:
+            q = qf.reshape(b, t, h, d).transpose(1, 2)
+            k = kf.reshape(b, t, h, d).transpose(1, 2)
+            v = vf.reshape(b, t, h, d).transpose(1, 2)
+            sim = torch.matmul(q, k.transpose(-1, -2)) * d ** -0.5
+            sim = sim.masked_fill(key_mask[:, None, None, :] == 0,
+                                  torch.finfo(sim.dtype).min)
+            attn = torch.softmax(sim, dim=-1)
+            out = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, h * d)
         return dropout(self.to_out(out), p_dropout, generator)
 
 
@@ -103,9 +112,9 @@ class TransformerBlock(nn.Module):
         self.norm3 = Norm(dim)
         self.ff = FeedForward(dim, snake_impl=snake_impl, generator=generator)
 
-    def forward(self, x, key_mask, p_dropout=0.0, generator=None):
+    def forward(self, x, key_mask, p_dropout=0.0, generator=None, attn_impl="xla"):
         h = layer_norm(x, self.norm1.gamma, self.norm1.beta)
-        x = x + self.attn1(h, key_mask, p_dropout, generator)
+        x = x + self.attn1(h, key_mask, p_dropout, generator, attn_impl)
         h = layer_norm(x, self.norm3.gamma, self.norm3.beta)
         return x + self.ff(h, p_dropout, generator)
 
@@ -179,17 +188,6 @@ class ResnetBlock1D(nn.Module):
         return h + self.res_conv(x * mask[..., None])
 
 
-def _check_impls(cfg: DecoderConfig) -> None:
-    if cfg.attention_impl == "vmem":
-        raise NotImplementedError(
-            "attention_impl='vmem': the whole-row attention kernel is not "
-            "ported yet (ROADMAP.md Queue 2, item 7)")
-    if cfg.attention_impl == "flash":
-        raise NotImplementedError(
-            "attention_impl='flash': the flash attention kernel is not "
-            "ported yet (ROADMAP.md Queue 2, item 9)")
-
-
 def _level(resnet, n_blocks, dim, cfg, generator, **conv):
     d = nn.ModuleDict({
         "resnet": resnet,
@@ -209,7 +207,6 @@ class Decoder(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, cfg: DecoderConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_impls(cfg)
         self.cfg = cfg
         g = generator
         fused = cfg.use_pallas or cfg.block1d_impl == "pallas"
@@ -266,7 +263,7 @@ class Decoder(nn.Module):
         def blocks(level, h, m):
             h = level["resnet"](h, m, t_emb)
             for tb in level["transformer_blocks"]:
-                h = tb(h, m, p_drop, generator)
+                h = tb(h, m, p_drop, generator, self.cfg.attention_impl)
             return h
 
         n_levels = len(self.down_blocks)

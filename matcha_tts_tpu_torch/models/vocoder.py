@@ -22,6 +22,7 @@ def init_vocoder(cfg, *, seed: int = 1, device="cuda") -> HiFiGANGenerator:
 
 
 def generate(vocoder: HiFiGANGenerator, mel: torch.Tensor, cfg) -> torch.Tensor:
-    """(B, T, num_mels) -> (B, T * cfg.total_upsample) audio."""
+    """(B, T, num_mels) -> (B, T * cfg.total_upsample) audio, with `cfg`'s
+    kernel options."""
     _no_vocos(cfg)
-    return vocoder(mel)
+    return vocoder(mel, cfg)

@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("mrf", "mas", "unet_blocks")
+SOURCES = ("mrf", "mas", "unet_blocks", "attention")
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -27,6 +27,27 @@ fp32, conv inputs are rounded to the working dtype, and the output is cast
 once.  The plain versions below compute the same function with the same
 rounding points from `F.conv1d`; a wrapper uses them only for tensors on the
 CPU.  For a CUDA tensor it launches the kernel or raises.
+
+`mrf_tap` is the fp32 `mrf` kernel under the name of the TPU kernel it also
+replaces, `matcha_tts_tpu/ops/pallas/mrf.py::mrf_fused` (the unfused fp32
+levels of `mrf_kernel="tap"`), with its own launch count.
+
+int8 mode (`ws=` on `mrf` and `mrf_up`) replaces the TPU kernels' quantised
+chain: weights `pack_level_int8` (int8 codes (126, C, C) [tap][c_out][c_in],
+per-output-channel scales `ws` (18, C), fp32 biases), one dynamic absmax
+activation scale per (conv, window).  That scale depends on the window, so
+the window is an argument of the function: the plain versions take
+`tile` and `halo` (frames), and the wrappers hand the kernel's own
+(`int8_window`) to both, so that the CPU and the card compute one function.
+A window of tile + 2 halo frames is run as an isolated sequence (zero
+padding at its edges, frames outside [0, T) zeroed before every conv, as
+the TPU kernel does over its extended tile) and its centre tile is kept.
+Each conv's dequantisation fp32(acc) * scale + bias rounds once, as the
+FMA that XLA makes of it in the JAX kernel does.
+The upsample prologue (input rounded to bf16, as the TPU kernel's staging
+buffer does in this mode; summed in float64 and rounded once, so that the
+kernel and the plain version hand the chain the same values) and the
+conv_post tail stay exact.
 """
 
 from __future__ import annotations
@@ -48,8 +69,11 @@ POST_SLOPE = 0.01
 POST_K = 7
 TILES = (256, 128, 64, 32, 16)
 
+INT8_HALO = 64  # frames on each side of an int8 window: the chain's reach of 60, + 3 for the tail
+INT8_TILES = {32: 512, 64: 256, 128: 128, 256: 128}  # the int8 kernel's tile (frames) by C
+
 # Kernel launches, counted where each wrapper launches its kernel.
-LAUNCHES = {"mrf": 0, "mrf_up": 0}
+LAUNCHES = {"mrf": 0, "mrf_up": 0, "mrf_int8": 0, "mrf_up_int8": 0, "mrf_tap": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +103,30 @@ def pack_post(weight: torch.Tensor, bias: torch.Tensor,
     """conv_post weight (1, C, 7) -> (7, C)."""
     return (weight.detach()[0].t().to(dtype).contiguous(),
             bias.detach().reshape(1).to(dtype).contiguous())
+
+
+def pack_level_int8(convs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """18 (weight (C, C, k), bias (C,)) pairs in chain order -> (codes (126,
+    C, C) int8 [tap][c_out][c_in], b (18, C) fp32, ws (18, C) fp32), as
+    `pack_packed_weights_int8` quantises: per conv and output channel
+    s_w = max|w| / 127 (1 where that is 0), codes clip(round(w / s_w), +-127)."""
+    assert len(convs) == N_CONVS, len(convs)
+    codes, scales = [], []
+    for wt, _ in convs:
+        w = wt.detach().float()
+        s_w = w.abs().amax(dim=(1, 2)) / 127.0
+        s_w = torch.where(s_w > 0, s_w, torch.ones_like(s_w))
+        q = torch.clamp(torch.round(w / s_w[:, None, None]), -127, 127)
+        codes.append(q.permute(2, 0, 1).to(torch.int8))
+        scales.append(s_w)
+    b = torch.stack([bs.detach().float() for _, bs in convs])
+    return torch.cat(codes).contiguous(), b.contiguous(), torch.stack(scales).contiguous()
+
+
+def int8_window(c: int) -> Tuple[int, int]:
+    """(tile, halo) in frames of the int8 kernel's windows at C channels."""
+    return INT8_TILES[c], INT8_HALO
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +184,107 @@ def mrf_up_plain(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
     return torch.tanh(y[:, 0]).to(dtype)
 
 
+def _windows(h: torch.Tensor, tile: int, halo: int):
+    """h (B, T, C) -> windows (B * n, tile + 2 halo, C) starting at frames
+    j * tile - halo, zero outside [0, T), and their in-sequence mask."""
+    bsz, t, c = h.shape
+    n = -(-t // tile)
+    width = tile + 2 * halo
+    hp = F.pad(h, (0, 0, halo, n * tile + halo - t))
+    win = hp.unfold(1, width, tile).permute(0, 1, 3, 2).reshape(bsz * n, width, c)
+    pos = (torch.arange(n, device=h.device)[:, None] * tile - halo
+           + torch.arange(width, device=h.device)[None])
+    mask = ((pos >= 0) & (pos < t)).float().repeat(bsz, 1)
+    return win, mask
+
+
+def _conv_int8(a: torch.Tensor, codes: torch.Tensor, bias: torch.Tensor,
+               ws: torch.Tensor, d: int) -> torch.Tensor:
+    """One quantised conv over windows a (N, W, C) (masked conv inputs):
+    per-window absmax scale, codes clip(round(a * 127 / m)), an exact integer
+    conv (float64: |sum| <= 127^2 * 11 * 256, far inside 2^53) with zero
+    padding at the window's edges, then fp32(acc) * (ws * m / 127) + bias
+    rounded once: XLA contracts that multiply-add into an FMA in the JAX
+    kernel, and the product of two fp32 values is exact in float64."""
+    k = codes.shape[0]
+    m = a.abs().amax(dim=(1, 2))
+    c127 = torch.full_like(m, 127.0)  # tensor / tensor: one rounding (a python scalar
+    # divisor or dividend goes through its reciprocal, a second rounding)
+    inv = torch.where(m > 0, c127 / m, torch.zeros_like(m))
+    q = torch.clamp(torch.round(a * inv[:, None, None]), -127, 127)
+    s_act = torch.where(m > 0, m / c127, torch.ones_like(m))
+    acc = F.conv1d(q.double().transpose(1, 2), codes.double().permute(1, 2, 0),
+                   padding=(k - 1) // 2 * d, dilation=d)
+    scale = ws.float()[None, None, :] * s_act[:, None, None]
+    y = acc.float().double().transpose(1, 2) * scale.double() + bias.double()
+    return y.float()
+
+
+def _level_int8(win: torch.Tensor, mask: torch.Tensor, codes: torch.Tensor,
+                b: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """The quantised 18-conv chain over windows (N, W, C) fp32 -> the
+    windows' branch mean (N, W, C) fp32."""
+    m = mask[:, :, None]
+    acc = None
+    tap = conv = 0
+    for k in KERNEL_SIZES:
+        xb = win
+        for d in DILATIONS:
+            xt = xb
+            for dd in (d, 1):
+                xt = _conv_int8(F.leaky_relu(xt, SLOPE) * m, codes[tap:tap + k], b[conv],
+                                ws[conv], dd)
+                tap += k
+                conv += 1
+            xb = xb + xt
+        acc = xb if acc is None else acc + xb
+    return acc / torch.full_like(acc, len(KERNEL_SIZES))
+
+
+def _centre(lvl: torch.Tensor, bsz: int, t: int, tile: int, halo: int) -> torch.Tensor:
+    """The windows' centre tiles (B * n, W, ...) -> (B, T, ...)."""
+    n = lvl.shape[0] // bsz
+    mid = lvl[:, halo:halo + tile]
+    return mid.reshape(bsz, n * tile, *mid.shape[2:])[:, :t]
+
+
+def mrf_int8_plain(x: torch.Tensor, codes: torch.Tensor, b: torch.Tensor,
+                   ws: torch.Tensor, tile: int, halo: int) -> torch.Tensor:
+    """Plain version of `mrf(..., ws=)`: x (B, T, C) -> (B, T, C) in x.dtype,
+    in windows of `tile` + 2 `halo` frames."""
+    bsz, t, _ = x.shape
+    win, mask = _windows(x.float(), tile, halo)
+    lvl = _level_int8(win, mask, codes, b, ws)
+    return _centre(lvl, bsz, t, tile, halo).to(x.dtype)
+
+
+def mrf_up_int8_plain(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
+                      codes: torch.Tensor, b: torch.Tensor, ws: torch.Tensor,
+                      wpost: Optional[torch.Tensor] = None,
+                      bpost: Optional[torch.Tensor] = None, *, tile: int,
+                      halo: int) -> torch.Tensor:
+    """Plain version of `mrf_up(..., ws=)`: x (B, T_in, 2C) -> (B, 2 T_in, C),
+    or the wav (B, 2 T_in) with `wpost`; the tail is computed per window from
+    that window's level output."""
+    dtype = x.dtype
+    bsz, t_in, _ = x.shape
+    t = 2 * t_in
+    a = _lrelu_round(x.float(), SLOPE, torch.bfloat16).transpose(1, 2)
+    wt = wup.double().flip(0).permute(2, 1, 0)  # (2C, C, 4) torch layout
+    # in float64 and rounded once, so that the sum's order cannot move a code
+    h = F.conv_transpose1d(a.double(), wt, bup.double(), stride=2, padding=1)
+    win, mask = _windows(h.float().transpose(1, 2), tile, halo)
+    lvl = _level_int8(win, mask, codes, b, ws)
+    if wpost is None:
+        return _centre(lvl, bsz, t, tile, halo).to(dtype)
+    p = (POST_K - 1) // 2
+    rows = slice(halo - p, halo + tile + p)
+    a = _lrelu_round(lvl[:, rows] * mask[:, rows, None], POST_SLOPE, dtype)
+    y = F.conv1d(a.transpose(1, 2), wpost.float().t().unsqueeze(0), bpost.float())
+    wav = torch.tanh(y[:, 0])  # (B * n, tile)
+    return wav.reshape(bsz, -1)[:, :t].to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -152,6 +301,10 @@ def _lib() -> ctypes.CDLL:
         lib.mrf_smem_bytes.restype = i32
         lib.mrf_error_string.argtypes = [i32]
         lib.mrf_error_string.restype = ctypes.c_char_p
+        lib.mrf_level_int8.argtypes = [ptr] + [i32] * 9 + [ptr] * 11
+        lib.mrf_level_int8.restype = i32
+        lib.mrf_int8_scratch_floats.argtypes = [i32] * 5
+        lib.mrf_int8_scratch_floats.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -203,13 +356,56 @@ def _check_level(x: torch.Tensor, c: int, w: torch.Tensor, b: torch.Tensor):
     _check("b", b, (N_CONVS, c), x.dtype, x.device)
 
 
-def mrf(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One MRF level, x (B, T, C) -> (B, T, C), C in {32, 64, 128}."""
+def _check_int8(x: torch.Tensor, c: int, codes, b, ws):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"mrf kernels take float32 or bfloat16, got {x.dtype}")
+    _check("w", codes, (N_TAPS, c, c), torch.int8, x.device)
+    _check("b", b, (N_CONVS, c), torch.float32, x.device)
+    _check("ws", ws, (N_CONVS, c), torch.float32, x.device)
+
+
+def _launch_int8(x, t_out, c, up, post, wup, bup, codes, b, ws, wpost, bpost, out, wav):
+    lib = _lib()
+    tile, halo = int8_window(c)
+    n_blocks = -(-t_out // tile) * x.shape[0]
+    scratch = torch.empty(n_blocks * lib.mrf_int8_scratch_floats(c, int(up), int(post), tile, halo),
+                          dtype=torch.float32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = lib.mrf_level_int8(
+        ptr(x), x.shape[0], x.shape[1], t_out, c, int(up), int(post),
+        int(x.dtype == torch.bfloat16), tile, halo, ptr(wup), ptr(bup), ptr(codes),
+        ptr(b), ptr(ws), ptr(wpost), ptr(bpost), ptr(scratch), ptr(out), ptr(wav),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mrf int8 kernel launch failed: "
+                           f"{lib.mrf_error_string(err).decode()}")
+
+
+def _device(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+
+
+def mrf(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+        ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One MRF level, x (B, T, C) -> (B, T, C), C in {32, 64, 128}; with `ws`
+    (and `w`, `b` from `pack_level_int8`) the int8 level, C up to 256."""
+    bsz, t, c = x.shape
+    if ws is not None:
+        if x.device.type == "cpu":
+            return mrf_int8_plain(x, w, b, ws, *int8_window(c))
+        _device(x, "mrf")
+        if c not in INT8_TILES:
+            raise ValueError(f"int8 mrf kernel takes C in {tuple(INT8_TILES)}, got {c}")
+        _check("x", x, x.shape, x.dtype, x.device)
+        _check_int8(x, c, w, b, ws)
+        out = torch.empty_like(x)
+        _launch_int8(x, t, c, False, False, None, None, w, b, ws, None, None, out, None)
+        LAUNCHES["mrf_int8"] += 1
+        return out
     if x.device.type == "cpu":
         return mrf_plain(x, w, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"mrf runs on cuda or cpu, not {x.device}")
-    bsz, t, c = x.shape
+    _device(x, "mrf")
     if c not in (32, 64, 128):
         raise ValueError(f"mrf kernel takes C in (32, 64, 128), got {c}")
     _check("x", x, x.shape, x.dtype, x.device)
@@ -220,24 +416,47 @@ def mrf(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def mrf_tap(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The fp32 MRF level at C in {32, 64}, for `mrf_kernel="tap"`."""
+    if x.device.type == "cpu":
+        return mrf_plain(x, w, b)
+    _device(x, "mrf_tap")
+    c = x.shape[2]
+    if x.dtype != torch.float32 or c not in (32, 64):
+        raise ValueError(f"mrf_tap takes float32 at C in (32, 64), got {x.dtype}, C={c}")
+    _check("x", x, x.shape, x.dtype, x.device)
+    _check_level(x, c, w, b)
+    out = torch.empty_like(x)
+    _launch(x, x.shape[1], c, False, False, None, None, w, b, None, None, out, None)
+    LAUNCHES["mrf_tap"] += 1
+    return out
+
+
 def mrf_up(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
            w: torch.Tensor, b: torch.Tensor,
            wpost: Optional[torch.Tensor] = None,
-           bpost: Optional[torch.Tensor] = None) -> torch.Tensor:
+           bpost: Optional[torch.Tensor] = None,
+           ws: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Upsample + MRF level, x (B, T_in, 2C) -> (B, 2 T_in, C), C in {32, 64};
-    with `wpost`/`bpost`, the wav (B, 2 T_in) of the generator tail."""
+    with `wpost`/`bpost`, the wav (B, 2 T_in) of the generator tail; with
+    `ws` (and `w`, `b` from `pack_level_int8`) the level's chain in int8."""
     if (wpost is None) != (bpost is None):
         raise ValueError("wpost and bpost go together")
-    if x.device.type == "cpu":
-        return mrf_up_plain(x, wup, bup, w, b, wpost, bpost)
-    if x.device.type != "cuda":
-        raise ValueError(f"mrf_up runs on cuda or cpu, not {x.device}")
     bsz, t_in, c_in = x.shape
     c = c_in // 2
+    if x.device.type == "cpu":
+        if ws is not None:
+            tile, halo = int8_window(c)
+            return mrf_up_int8_plain(x, wup, bup, w, b, ws, wpost, bpost, tile=tile, halo=halo)
+        return mrf_up_plain(x, wup, bup, w, b, wpost, bpost)
+    _device(x, "mrf_up")
     if c not in (32, 64) or c_in != 2 * c:
         raise ValueError(f"mrf_up kernel takes C_in in (64, 128), got {c_in}")
     _check("x", x, x.shape, x.dtype, x.device)
-    _check_level(x, c, w, b)
+    if ws is None:
+        _check_level(x, c, w, b)
+    else:
+        _check_int8(x, c, w, b, ws)
     _check("wup", wup, (4, c, c_in), x.dtype, x.device)
     _check("bup", bup, (c,), x.dtype, x.device)
     t_out = 2 * t_in
@@ -249,8 +468,12 @@ def mrf_up(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
         wav = torch.empty((bsz, t_out), dtype=x.dtype, device=x.device)
     else:
         out = torch.empty((bsz, t_out, c), dtype=x.dtype, device=x.device)
-    _launch(x, t_out, c, True, post, wup, bup, w, b, wpost, bpost, out, wav)
-    LAUNCHES["mrf_up"] += 1
+    if ws is None:
+        _launch(x, t_out, c, True, post, wup, bup, w, b, wpost, bpost, out, wav)
+        LAUNCHES["mrf_up"] += 1
+    else:
+        _launch_int8(x, t_out, c, True, post, wup, bup, w, b, ws, wpost, bpost, out, wav)
+        LAUNCHES["mrf_up_int8"] += 1
     return wav if post else out
 
 

@@ -7,8 +7,8 @@ numerics (no `torch.stft` / `torch.istft`, whose defaults differ):
 * `istft`: irfft, window, overlap-add, division by the summed squared window
   floored at 1e-11, and the n_fft // 2 trim of the centring;
 * `log_mel_spectrogram` (training features): reflect pad by
-  (n_fft - hop) / 2, center=False, magnitude sqrt(re^2 + im^2 + 1e-9), an
-  fp32 Slaney filterbank product, log(clamp(., 1e-5)).
+  (n_fft - hop) / 2, center=False, magnitude sqrt(re^2 + im^2 + 1e-9), the
+  Slaney filterbank product, log(clamp(., 1e-5)).
 """
 
 from __future__ import annotations
@@ -75,13 +75,19 @@ def log_mel_spectrogram(y: torch.Tensor, sample_rate: int = 22050, n_fft: int = 
                         n_mels: int = 80, hop_length: int = 256, win_length: int = 1024,
                         f_min: float = 0.0, f_max: float = 8000.0) -> torch.Tensor:
     """(B, L) audio -> (B, n_mels, n_frames) log-mel, n_frames = L // hop for
-    hop | n_fft; fp32 throughout."""
+    hop | n_fft; fp32 throughout.
+
+    The filterbank product runs in float64 and is rounded to fp32 once, so
+    that no fp32 matmul setting of the process (TF32 on the card, reduced
+    precision through oneDNN on the CPU, `set_float32_matmul_precision`)
+    can lower its precision below the JAX package's HIGHEST fp32 product."""
     pad = int((n_fft - hop_length) / 2)
     y = reflect_pad(y.float(), pad)
     mag, _ = stft_magnitude_and_phase(y, n_fft, hop_length, win_length, center=False,
                                       magnitude_eps=1e-9)
     fb = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels, f_min, f_max))
-    mel = torch.matmul(fb.to(mag.device), mag)  # (n_mels, F) @ (B, F, T)
+    # (n_mels, F) @ (B, F, T)
+    mel = torch.matmul(fb.to(mag.device, torch.float64), mag.double()).float()
     return torch.log(torch.clamp(mel, min=1e-5))
 
 

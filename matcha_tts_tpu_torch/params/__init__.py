@@ -1,1 +1,2 @@
-"""Parameter interop: the JAX package's trees into the port's modules."""
+"""Parameter interop: reference checkpoints into the JAX package's trees,
+and those trees into the port's modules."""

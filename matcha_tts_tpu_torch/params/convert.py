@@ -1,0 +1,324 @@
+"""Lightning / PyTorch checkpoints of the reference Matcha-TTS and HiFi-GAN
+-> the JAX package's parameter trees (nested dicts of numpy arrays), which
+`params/from_jax.py::load_jax_tree` then loads into the port's modules, so
+that there is one loader.  A copy of `matcha_tts_tpu/params/convert.py`'s
+import side (the port imports nothing of the JAX package).
+
+The reference's Lightning checkpoints keep their state dict under `model.`
+(stripped at load) with the module tree `encoder.*` / `decoder.estimator.*`
+/ `mel_mean` / `mel_std`, and their `hyper_parameters` may carry the whole
+`MatchaConfig`; HiFi-GAN checkpoints store `{"generator": ...}` with weight
+norm split into `weight_g` / `weight_v` pairs, folded here.  The layouts:
+
+* Conv1d           (O, I, W)  ->  (W, I, O)
+* ConvTranspose1d  (I, O, W)  ->  (W, I, O), kernel flipped
+* Linear           (O, I)     ->  (I, O)
+* Embedding / norms: unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig
+
+Array = np.ndarray
+StateDict = Dict[str, Array]
+
+
+# ---------------------------------------------------------------------------
+# loading / preprocessing
+# ---------------------------------------------------------------------------
+
+
+def load_torch_state_dict(path) -> StateDict:
+    """Load a torch checkpoint to numpy, stripping the Lightning `model.`
+    prefix (main.py:94-111).
+
+    ``path`` may also be an ``http(s)://`` URL, downloaded once into the
+    local cache — the reference's vocoder auto-download surface
+    (main.py:139-142), generalized to every checkpoint argument.
+    """
+    return load_torch_checkpoint(path)[0]
+
+
+def load_torch_checkpoint(path):
+    """Like `load_torch_state_dict` but also returns the checkpoint's
+    `hyper_parameters` dict (Lightning's save_hyperparameters() payload,
+    train_standalone.py:595) when present, else None — so self-describing
+    checkpoints can reconstruct their model config without the caller
+    knowing it."""
+    import torch
+
+    from matcha_tts_tpu_torch.utils.fetch import resolve_checkpoint
+
+    ckpt = torch.load(resolve_checkpoint(path), map_location="cpu",
+                      weights_only=False)
+    hyper = ckpt.get("hyper_parameters") if isinstance(ckpt, dict) else None
+    sd = ckpt.get("state_dict", ckpt)
+    if "generator" in sd and isinstance(sd["generator"], dict):
+        sd = sd["generator"]
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("model."):
+            k = k[6:]
+        out[k] = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+    return out, hyper
+
+
+def fold_weight_norm(sd: StateDict) -> StateDict:
+    """Fold `weight_g`/`weight_v` pairs into plain weights:
+    w = g * v / ||v|| with the norm over all dims except dim 0 (torch
+    weight_norm default), matching remove_weight_norm()."""
+    out = dict(sd)
+    for k in list(sd.keys()):
+        if k.endswith("weight_v"):
+            base = k[: -len("weight_v")]
+            v = sd[k]
+            g = sd[base + "weight_g"]
+            axes = tuple(range(1, v.ndim))
+            norm = np.sqrt(np.sum(v * v, axis=axes, keepdims=True))
+            out[base + "weight"] = (g * v / norm).astype(v.dtype)
+            del out[k], out[base + "weight_g"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# leaf converters
+# ---------------------------------------------------------------------------
+
+
+def conv_w(w: Array) -> Array:
+    return np.ascontiguousarray(np.transpose(w, (2, 1, 0)))  # (O,I,W)->(W,I,O)
+
+
+def convT_w(w: Array) -> Array:
+    # torch (I, O, W) -> flipped (W, I, O)
+    return np.ascontiguousarray(np.transpose(w, (2, 0, 1))[::-1])
+
+
+def lin_w(w: Array) -> Array:
+    return np.ascontiguousarray(w.T)
+
+
+def _conv(sd, prefix) -> dict:
+    p = {"weight": conv_w(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = sd[f"{prefix}.bias"]
+    return p
+
+
+def _convT(sd, prefix) -> dict:
+    p = {"weight": convT_w(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = sd[f"{prefix}.bias"]
+    return p
+
+
+def _lin(sd, prefix) -> dict:
+    p = {"weight": lin_w(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = sd[f"{prefix}.bias"]
+    return p
+
+
+def _norm_gb(sd, prefix) -> dict:
+    """Reference custom LayerNorm stores gamma/beta (model.py:154-155)."""
+    return {"gamma": sd[f"{prefix}.gamma"], "beta": sd[f"{prefix}.beta"]}
+
+
+def _norm_wb(sd, prefix) -> dict:
+    """torch LayerNorm/GroupNorm store weight/bias."""
+    return {"gamma": sd[f"{prefix}.weight"], "beta": sd[f"{prefix}.bias"]}
+
+
+# ---------------------------------------------------------------------------
+# Matcha-TTS tree
+# ---------------------------------------------------------------------------
+
+
+def _convert_transformer_block(sd, p) -> dict:
+    return {
+        "norm1": _norm_wb(sd, f"{p}.norm1"),
+        "attn1": {
+            "to_q": _lin(sd, f"{p}.attn1.to_q"),
+            "to_k": _lin(sd, f"{p}.attn1.to_k"),
+            "to_v": _lin(sd, f"{p}.attn1.to_v"),
+            "to_out": _lin(sd, f"{p}.attn1.to_out.0"),
+        },
+        "norm3": _norm_wb(sd, f"{p}.norm3"),
+        "ff": {
+            # FeedForward.net = [SnakeBeta, Dropout, Linear] (model.py:632-637)
+            "act": {
+                "proj": _lin(sd, f"{p}.ff.net.0.proj"),
+                "alpha": sd[f"{p}.ff.net.0.alpha"],
+                "beta": sd[f"{p}.ff.net.0.beta"],
+            },
+            "out": _lin(sd, f"{p}.ff.net.2"),
+        },
+    }
+
+
+def _convert_resnet_block(sd, p) -> dict:
+    return {
+        # ResnetBlock1D.mlp = Sequential(Mish, Linear) (model.py:780)
+        "mlp": _lin(sd, f"{p}.mlp.1"),
+        "block1": {
+            "conv": _conv(sd, f"{p}.block1.block.0"),
+            "norm": _norm_wb(sd, f"{p}.block1.block.1"),
+        },
+        "block2": {
+            "conv": _conv(sd, f"{p}.block2.block.0"),
+            "norm": _norm_wb(sd, f"{p}.block2.block.1"),
+        },
+        "res_conv": _conv(sd, f"{p}.res_conv"),
+    }
+
+
+def convert_matcha(sd: StateDict, cfg: MatchaConfig) -> dict:
+    """Reference state dict -> our parameter tree (inverse of the init
+    layout in models/matcha.py)."""
+    enc = "encoder"
+    n_layers = cfg.encoder.n_layers
+    params: dict = {
+        "encoder": {
+            "emb": {"weight": sd[f"{enc}.emb.weight"]},
+            "encoder": {
+                "layers": [
+                    {
+                        "attn": {
+                            "conv_q": _conv(sd, f"{enc}.encoder.attn_layers.{i}.conv_q"),
+                            "conv_k": _conv(sd, f"{enc}.encoder.attn_layers.{i}.conv_k"),
+                            "conv_v": _conv(sd, f"{enc}.encoder.attn_layers.{i}.conv_v"),
+                            "conv_o": _conv(sd, f"{enc}.encoder.attn_layers.{i}.conv_o"),
+                        },
+                        "norm_1": _norm_gb(sd, f"{enc}.encoder.norm_layers_1.{i}"),
+                        "ffn": {
+                            "conv_1": _conv(sd, f"{enc}.encoder.ffn_layers.{i}.conv_1"),
+                            "conv_2": _conv(sd, f"{enc}.encoder.ffn_layers.{i}.conv_2"),
+                        },
+                        "norm_2": _norm_gb(sd, f"{enc}.encoder.norm_layers_2.{i}"),
+                    }
+                    for i in range(n_layers)
+                ]
+            },
+            "proj_m": _conv(sd, f"{enc}.proj_m"),
+            "proj_w": {
+                "conv_1": _conv(sd, f"{enc}.proj_w.conv_1"),
+                "norm_1": _norm_gb(sd, f"{enc}.proj_w.norm_1"),
+                "conv_2": _conv(sd, f"{enc}.proj_w.conv_2"),
+                "norm_2": _norm_gb(sd, f"{enc}.proj_w.norm_2"),
+                "proj": _conv(sd, f"{enc}.proj_w.proj"),
+            },
+        },
+        "mel_mean": np.asarray(sd["mel_mean"], np.float32),
+        "mel_std": np.asarray(sd["mel_std"], np.float32),
+    }
+    if cfg.encoder.prenet:
+        params["encoder"]["prenet"] = {
+            "conv_layers": [
+                _conv(sd, f"{enc}.prenet.conv_layers.{i}") for i in range(3)
+            ],
+            "norm_layers": [
+                _norm_gb(sd, f"{enc}.prenet.norm_layers.{i}") for i in range(3)
+            ],
+            "proj": _conv(sd, f"{enc}.prenet.proj"),
+        }
+    if cfg.n_spks > 1 and "spk_emb.weight" in sd:
+        params["spk_emb"] = {"weight": sd["spk_emb.weight"]}
+
+    # --- U-Net estimator (decoder.estimator.*, model.py:1226-1232) ----------
+    d = "decoder.estimator"
+    n_levels = len(cfg.decoder.channels)
+    est: dict = {
+        "time_mlp": {
+            "linear_1": _lin(sd, f"{d}.time_mlp.linear_1"),
+            "linear_2": _lin(sd, f"{d}.time_mlp.linear_2"),
+        },
+        "down_blocks": [],
+        "mid_blocks": [],
+        "up_blocks": [],
+        "final_block": {
+            "conv": _conv(sd, f"{d}.final_block.block.0"),
+            "norm": _norm_wb(sd, f"{d}.final_block.block.1"),
+        },
+        "final_proj": _conv(sd, f"{d}.final_proj"),
+    }
+    for i in range(n_levels):
+        p = f"{d}.down_blocks.{i}"
+        level = {
+            "resnet": _convert_resnet_block(sd, f"{p}.0"),
+            "transformer_blocks": [
+                _convert_transformer_block(sd, f"{p}.1.{j}")
+                for j in range(cfg.decoder.n_blocks)
+            ],
+        }
+        # Downsample1D wraps its conv (model.py:792-798); the last level is a
+        # bare Conv1d (model.py:895-897)
+        if i < n_levels - 1:
+            level["downsample"] = _conv(sd, f"{p}.2.conv")
+        else:
+            level["downsample"] = _conv(sd, f"{p}.2")
+        est["down_blocks"].append(level)
+
+    for i in range(cfg.decoder.num_mid_blocks):
+        p = f"{d}.mid_blocks.{i}"
+        est["mid_blocks"].append({
+            "resnet": _convert_resnet_block(sd, f"{p}.0"),
+            "transformer_blocks": [
+                _convert_transformer_block(sd, f"{p}.1.{j}")
+                for j in range(cfg.decoder.n_blocks)
+            ],
+        })
+
+    for i in range(n_levels):
+        p = f"{d}.up_blocks.{i}"
+        level = {
+            "resnet": _convert_resnet_block(sd, f"{p}.0"),
+            "transformer_blocks": [
+                _convert_transformer_block(sd, f"{p}.1.{j}")
+                for j in range(cfg.decoder.n_blocks)
+            ],
+        }
+        # Upsample1D wraps a ConvTranspose1d (model.py:800-817); last level
+        # is a bare Conv1d (model.py:953-957)
+        if i < n_levels - 1:
+            level["upsample"] = _convT(sd, f"{p}.2.conv")
+        else:
+            level["upsample"] = _conv(sd, f"{p}.2")
+        est["up_blocks"].append(level)
+
+    params["decoder"] = {"estimator": est}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# HiFi-GAN tree
+# ---------------------------------------------------------------------------
+
+
+def convert_hifigan(sd: StateDict, cfg: HiFiGANConfig) -> dict:
+    """Generator state dict (weight-norm folded) -> our tree."""
+    sd = fold_weight_norm(sd)
+    n_kernels = len(cfg.resblock_kernel_sizes)
+    params = {
+        "conv_pre": _conv(sd, "conv_pre"),
+        "ups": [_convT(sd, f"ups.{i}") for i in range(len(cfg.upsample_rates))],
+        "resblocks": [],
+        "conv_post": _conv(sd, "conv_post"),
+    }
+    for i in range(len(cfg.upsample_rates) * n_kernels):
+        if cfg.resblock == "1":
+            n_d = len(cfg.resblock_dilation_sizes[i % n_kernels])
+            params["resblocks"].append({
+                "convs1": [_conv(sd, f"resblocks.{i}.convs1.{j}") for j in range(n_d)],
+                "convs2": [_conv(sd, f"resblocks.{i}.convs2.{j}") for j in range(n_d)],
+            })
+        else:
+            n_d = len(cfg.resblock_dilation_sizes[i % n_kernels])
+            params["resblocks"].append({
+                "convs": [_conv(sd, f"resblocks.{i}.convs.{j}") for j in range(n_d)],
+            })
+    return params

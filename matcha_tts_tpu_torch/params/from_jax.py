@@ -73,6 +73,8 @@ def copy_jax_tree(module: nn.Module, tree) -> nn.Module:
         owner = module.get_submodule(owner_path) if owner_path else module
         value = np.array(to_torch_layout(owner, name, value), dtype=np.float32)
         target = targets[path]
+        if value.size == 1 == target.numel():
+            value = value.reshape(target.shape)  # scalars stored as (1,) by converted checkpoints
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"{path}: tree shape {value.shape} vs module "
                              f"shape {tuple(target.shape)}")

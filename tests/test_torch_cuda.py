@@ -221,3 +221,125 @@ def test_fused_block_gradients_match_plain(cuda):
                              (False, U.resnet1d, U.resnet1d_plain)):
         for gk, gp in zip(grads(kern, blk), grads(plain, blk)):
             assert _rel(gk, gp) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# int8 MRF levels: kernel vs plain version at the kernel's own window
+# ---------------------------------------------------------------------------
+
+
+def _int8_operands(c_in, t_in, c, up, post, dtype, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    convs = [(rnd(c, c, k) * (0.5 / (k * c) ** 0.5), rnd(c) * 0.1)
+             for k in mrf_cuda.KERNEL_SIZES for _ in range(6)]
+    codes, b, ws = (t.to(dev) for t in mrf_cuda.pack_level_int8(convs))
+    a = {"x": rnd(2, t_in, c_in).to(dev, dtype), "w": codes, "b": b, "ws": ws}
+    if up:
+        a["wup"] = (rnd(4, c, c_in) / (2 * c_in) ** 0.5).to(dev, dtype)
+        a["bup"] = (rnd(c) * 0.1).to(dev, dtype)
+    if post:
+        a["wpost"] = (rnd(7, c) / (7 * c) ** 0.5).to(dev, dtype)
+        a["bpost"] = (rnd(1) * 0.1).to(dev, dtype)
+    return a
+
+
+def _run_int8(a, up, plain):
+    c = a["w"].shape[1]
+    if up:
+        args = (a["x"], a["wup"], a["bup"], a["w"], a["b"], a["ws"], a.get("wpost"), a.get("bpost"))
+        if plain:
+            tile, halo = mrf_cuda.int8_window(c)
+            return mrf_cuda.mrf_up_int8_plain(*args, tile=tile, halo=halo)
+        return mrf_cuda.mrf_up(*args[:5], args[6], args[7], ws=args[5])
+    if plain:
+        return mrf_cuda.mrf_int8_plain(a["x"], a["w"], a["b"], a["ws"], *mrf_cuda.int8_window(c))
+    return mrf_cuda.mrf(a["x"], a["w"], a["b"], a["ws"])
+
+
+@pytest.mark.parametrize("c_in,t_in,c,up,post", [
+    (128, 333, 128, False, False), (64, 200, 64, False, False), (32, 77, 32, False, False),
+    (256, 150, 256, False, False), (128, 150, 64, True, False), (64, 301, 32, True, False),
+    (64, 99, 32, True, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_kernel_matches_plain(cuda, c_in, t_in, c, up, post, dtype):
+    """The same codes: relative L2 <= 1e-5 and max |diff| <= 1e-3 of the
+    output's max |value| (room for a rare flip at a rounding boundary)."""
+    a = _int8_operands(c_in, t_in, c, up, post, dtype, cuda, c_in * 7 + t_in)
+    key = "mrf_up_int8" if up else "mrf_int8"
+    n0 = mrf_cuda.LAUNCHES[key]
+    got = _run_int8(a, up, plain=False)
+    torch.cuda.synchronize()
+    assert mrf_cuda.LAUNCHES[key] == n0 + 1 and got.dtype == dtype
+    ref = _run_int8(a, up, plain=True)
+    assert _rel(got.float(), ref.float()) <= 1e-5
+    assert float((got.float() - ref.float()).abs().max()) <= 1e-3 * float(ref.float().abs().max())
+
+
+def test_int8_wrapper_rejects_bad_operands(cuda):
+    a = _int8_operands(64, 64, 64, False, False, torch.float32, cuda, 1)
+    with pytest.raises(ValueError):
+        mrf_cuda.mrf(a["x"], a["w"].float(), a["b"], a["ws"])
+    with pytest.raises(ValueError):
+        mrf_cuda.mrf(a["x"], a["w"], a["b"], a["ws"][:-1])
+
+
+@pytest.mark.parametrize("t,c", [(333, 32), (4096, 64)])
+def test_tap_kernel_matches_plain(cuda, t, c):
+    a = _operands(c, t, c, False, False, cuda)
+    n0 = mrf_cuda.LAUNCHES["mrf_tap"]
+    got = mrf_cuda.mrf_tap(a["x"], a["w"], a["b"])
+    torch.cuda.synchronize()
+    assert mrf_cuda.LAUNCHES["mrf_tap"] == n0 + 1
+    assert float((got - mrf_cuda.mrf_plain(a["x"], a["w"], a["b"])).abs().max()) <= 1e-4
+    with pytest.raises(ValueError):
+        mrf_cuda.mrf_tap(a["x"].bfloat16(), a["w"].bfloat16(), a["b"].bfloat16())
+
+
+# ---------------------------------------------------------------------------
+# attention: kernels vs plain versions, padded rows included
+# ---------------------------------------------------------------------------
+
+
+def _attn_operands(b, t, heads, d, dtype, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(b, t, heads * d, generator=g).to(dev, dtype) for _ in range(3))
+    lengths = torch.linspace(max(1, t // 3), t, b).long()
+    mask = (torch.arange(t)[None] < lengths[:, None]).float().to(dev)
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("impl,b,t,d", [("vmem", 2, 64, 64), ("vmem", 3, 200, 64),
+                                        ("vmem", 2, 512, 128), ("flash", 2, 128, 64),
+                                        ("flash", 3, 256, 128)])
+def test_attention_kernel_matches_plain(cuda, impl, b, t, d):
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    kern = getattr(attn_cuda, f"{impl}_mha")
+    plain = getattr(attn_cuda, f"{impl}_mha_plain")
+    heads, scale = 2, d ** -0.5
+    q, k, v, mask = _attn_operands(b, t, heads, d, torch.float32, cuda, t + d)
+    n0 = attn_cuda.LAUNCHES[f"{impl}_mha"]
+    got = kern(q, k, v, mask, heads, scale)
+    torch.cuda.synchronize()
+    assert attn_cuda.LAUNCHES[f"{impl}_mha"] == n0 + 1
+    ref = plain(q, k, v, mask, heads, scale)
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())  # every row
+    q16, k16, v16, _ = _attn_operands(b, t, heads, d, torch.bfloat16, cuda, t + d)
+    got16 = kern(q16, k16, v16, mask, heads, scale)
+    ref16 = plain(q16.float(), k16.float(), v16.float(), mask, heads, scale)
+    assert got16.dtype == torch.bfloat16 and _rel(got16.float(), ref16) <= 1e-2
+    qq = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kern(qq, k, v, mask, heads, scale).sum().backward()
+
+
+def test_attention_wrapper_rejects_bad_operands(cuda):
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    q, k, v, mask = _attn_operands(1, 64, 2, 64, torch.float32, cuda, 0)
+    with pytest.raises(ValueError):
+        attn_cuda.vmem_mha(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, mask, 2, 0.125)
+    with pytest.raises(ValueError):
+        attn_cuda.flash_mha(q, k, v, mask, 4, 0.125)  # head dim 32

@@ -144,15 +144,32 @@ def test_cfm_solve_with_injected_noise_matches(solver):
 
 
 def test_forced_kernel_modes_raise():
-    """Only the attention kernels are still to port; the fused-block modes
-    build (see the next test)."""
-    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
-
-    for dec in [dict(attention_impl="flash"), dict(attention_impl="vmem")]:
-        cfg = dataclasses.replace(port_config(small_config()),
-                                  decoder=tcfg.DecoderConfig(channels=(64, 64), **dec))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MatchaTTS(cfg, device="cpu")
+    """The forced attention modes build since their kernels were ported, and
+    on the same weights the decoder matches the default one: "vmem" at every
+    frame, "flash" on the valid frames (its padded query rows attend over
+    the padded keys).  At T = 128 the half-resolution blocks (T = 64) fail
+    the flash gate and run plain.  (tests/test_torch_attention.py holds both
+    to the JAX package.)"""
+    jc = dataclasses.replace(small_config(), decoder=jcfg.DecoderConfig(
+        channels=(64, 64), attention_head_dim=64, num_heads=2, num_mid_blocks=1))
+    params = numpy_tree(lambda key: init_matcha(key, jc), 5,
+                        fixed={"mel_mean": jc.audio.mel_mean, "mel_std": jc.audio.mel_std})
+    rng = np.random.default_rng(5)
+    x, mu = (torch.from_numpy(rng.standard_normal((2, 128, 80)).astype(np.float32))
+             for _ in range(2))
+    mask = torch.ones(2, 128)
+    mask[0, 90:] = 0.0
+    tt = torch.tensor([0.1, 0.6])
+    outs = {}
+    for impl in ("xla", "vmem", "flash"):
+        pc = port_config(dataclasses.replace(
+            jc, decoder=dataclasses.replace(jc.decoder, attention_impl=impl)))
+        model, _ = load_jax_tree({"matcha": params}, pc, device="cpu")
+        with torch.no_grad():
+            outs[impl] = model.decoder.estimator(x, mask, mu, tt)
+    torch.testing.assert_close(outs["vmem"], outs["xla"], atol=1e-5, rtol=0)
+    valid = mask.bool()
+    torch.testing.assert_close(outs["flash"][valid], outs["xla"][valid], atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("dec", [dict(use_pallas=True), dict(block1d_impl="pallas")])

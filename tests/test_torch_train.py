@@ -98,6 +98,24 @@ def test_log_mel_and_filterbank_match_jax():
     np.testing.assert_allclose(got, ref, atol=ATOL_MEL)
 
 
+def test_log_mel_ignores_fp32_matmul_precision():
+    """The filterbank product cannot be lowered by a process-wide fp32
+    matmul setting: bf16 through oneDNN on the CPU (`medium`) would move the
+    log-mel by up to 5e-3."""
+    from matcha_tts_tpu_torch.ops.stft import log_mel_spectrogram
+
+    audio = torch.from_numpy((0.3 * np.random.default_rng(2).standard_normal((2, 256 * 20)))
+                             .astype(np.float32))
+    want = log_mel_spectrogram(audio)
+    before = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("medium")
+        got = log_mel_spectrogram(audio)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # losses and gradients
 # ---------------------------------------------------------------------------

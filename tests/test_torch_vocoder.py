@@ -85,11 +85,24 @@ def test_denoiser_matches_jax():
 
 
 def test_unported_vocoder_modes_raise():
+    """The forced MRF modes build since the int8 and tap kernels were
+    ported: on a 12-frame mel the tap levels fail the tap gate (T >= 4096)
+    and run plain, as in the JAX package, so "tap" and the legacy
+    `use_pallas` equal "xla"; "int8" with no level quantised equals the
+    exact kernels bit for bit, and quantising changes the wav.  Only the
+    Vocos family still raises.  (tests/test_torch_mrf_int8.py holds the
+    modes to the JAX package.)"""
+    jc = jcfg.HiFiGANConfig()
+    params, voc = _pair(jc, 2)
+    mel = torch.from_numpy(np.random.default_rng(2).standard_normal((1, 12, 80)).astype(np.float32))
+    run = lambda **kw: voc(mel, dataclasses.replace(voc.cfg, **kw)).numpy()  # noqa: E731
+    plain, exact = run(mrf_kernel="xla"), run(mrf_kernel="packed")
+    np.testing.assert_array_equal(run(mrf_kernel="tap"), plain)
+    np.testing.assert_array_equal(run(mrf_kernel="xla", use_pallas=True), plain)
+    np.testing.assert_array_equal(run(mrf_kernel="int8", int8_levels=()), exact)
+    assert np.abs(run(mrf_kernel="int8") - exact).max() > 1e-4
     for mode in ("tap", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            HiFiGANGenerator(tcfg.HiFiGANConfig(mrf_kernel=mode), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HiFiGANGenerator(tcfg.HiFiGANConfig(mrf_kernel="xla", use_pallas=True), device="cpu")
+        HiFiGANGenerator(tcfg.HiFiGANConfig(mrf_kernel=mode), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_vocoder(tcfg.VocosConfig(), device="cpu")
 
