@@ -74,11 +74,30 @@ Phases, each of which raises on failure (no phase catches and carries on):
    full-width weights and the trained checkpoint in the repository) and
    `quantization_report` with the audible generator;
 15. the kernel table as one JSON line (every TPU kernel's port: rows for the
-   exact, int8 and tap MRF levels, MAS, the fused blocks and both attention
-   kernels), the card line, and the final {"ok": true, ...} line.
+   exact, int8 and tap MRF levels, MAS, the fused blocks, both attention
+   kernels and the two flash backward kernels), the card line, and the
+   final {"ok": true, ...} line;
+16. the flash backward kernels (dq with di, dk/dv) against the plain
+   backward at training (c)'s bf16 shapes (64, 1024) and (64, 512),
+   distillation's fp32 (16, 512) and (16, 256), and D = 128, H = 2, ragged
+   masks and an output gradient that is not zero at padded rows: fp32 max
+   |diff| <= 1e-5 of each gradient's max |value|, bf16 relative L2 <= 1e-2,
+   bitwise repeatable; timed beside the plain version, the bound and the
+   backward of `scaled_dot_product_attention` (see `check_flash_bwd`);
+17. training in configuration (c), `DecoderConfig(attention_impl="flash")`,
+   inside phase 9's function: six flash forwards per loss pass and six
+   flash backwards per step, finite, the loss falling over 20 steps on one
+   batch, one (a) and one (c) step from the same weights agreeing as (a) and
+   (b) do; ms per step, frames per second and the device's busy share;
+18. few-step distillation at full width (see `distillation`): both losses
+   with the plain and the flash attention through `distill_fit`, launch
+   counts, xla against flash on one step, reflow from the trained teacher
+   until the student's NFE-2 endpoint error is below the teacher's, the
+   distillation CLI and `student_tone.ckpt` through the inference CLI.
 
-Phases 10-12 run right after phase 3, and 13-14 after phase 6; the numbers
-follow the order in which the phases were added.
+Phases 10-12 and 16 run right after phase 3, 13-14 after phase 6, 17 with
+phase 9 and 18 after it; the numbers follow the order in which the phases
+were added, and the kernel table and the last two lines come last.
 """
 
 from __future__ import annotations
@@ -142,6 +161,10 @@ TRAIN_STEPS = 3      # fit steps per configuration
 FIXED_STEPS = 20     # steps on one repeated batch
 N_TRAIN, N_VAL = 64, 8
 LOSS_REL, GNORM_REL = 1e-2, 2e-2
+DISTILL_STEPS = 4          # distill_fit steps per (loss, attention impl) at full width
+DISTILL_TRAINED_STEPS = 200  # at most, reflow from the trained teacher,
+DISTILL_TRAINED_BATCH = 64   # at lr 1e-3 (at batch 16 the student ended at 1.08x the
+                             # teacher's NFE-2 error after 200 steps: gradient noise)
 
 
 def card_line() -> str:
@@ -697,17 +720,17 @@ def synth_corpus(root: Path, seed: int):
 
 
 def zero_counts():
-    from matcha_tts_tpu_torch.ops import mas_cuda, unet_cuda
+    from matcha_tts_tpu_torch.ops import attn_cuda, mas_cuda, unet_cuda
 
-    for d in (mas_cuda.LAUNCHES, unet_cuda.LAUNCHES):
+    for d in (mas_cuda.LAUNCHES, unet_cuda.LAUNCHES, attn_cuda.LAUNCHES):
         for k in d:
             d[k] = 0
 
 
 def read_counts() -> dict:
-    from matcha_tts_tpu_torch.ops import mas_cuda, unet_cuda
+    from matcha_tts_tpu_torch.ops import attn_cuda, mas_cuda, unet_cuda
 
-    return {**mas_cuda.LAUNCHES, **unet_cuda.LAUNCHES}
+    return {**mas_cuda.LAUNCHES, **unet_cuda.LAUNCHES, **attn_cuda.LAUNCHES}
 
 
 def fixed_batch_steps(cfg, tcfg, batch, seed: int):
@@ -733,7 +756,10 @@ def fixed_batch_steps(cfg, tcfg, batch, seed: int):
 
 
 def training(syn) -> dict:
-    """Phase 9: the training path at full width, configurations (a) and (b)."""
+    """Phases 9 and 17: the training path at full width, configurations (a),
+    (b) and (c), `DecoderConfig(attention_impl="flash")`: per loss pass six
+    flash forwards (two blocks at T, four at T/2), and per train step six
+    flash backwards (dq and dk/dv kernels, bf16)."""
     import torch
 
     from matcha_tts_tpu_torch.config import DecoderConfig, MatchaConfig, TrainConfig
@@ -745,7 +771,9 @@ def training(syn) -> dict:
     from matcha_tts_tpu_torch.train.losses import log_gaussian_prior
     from matcha_tts_tpu_torch.train.train_state import create_train_state, train_step
 
-    configs = {"a": MatchaConfig(), "b": MatchaConfig(decoder=DecoderConfig(use_pallas=True))}
+    configs = {"a": MatchaConfig(), "b": MatchaConfig(decoder=DecoderConfig(use_pallas=True)),
+               "c": MatchaConfig(decoder=DecoderConfig(attention_impl="flash"))}
+    n_attn = n_attention_blocks(configs["c"])
     tcfg = TrainConfig(log_every_n_steps=1, ckpt_every_n_steps=10 ** 6)
     per_pass = {"resnet1d": 2 * len(configs["b"].decoder.channels)
                 + configs["b"].decoder.num_mid_blocks, "block1d": 1}
@@ -779,8 +807,11 @@ def training(syn) -> dict:
                 raise AssertionError(f"({name}): expected {TRAIN_STEPS} finite steps, got {steps}")
             passes = TRAIN_STEPS + n_val_batches
             fused = cfg.decoder.use_pallas
+            flash = cfg.decoder.attention_impl == "flash"
             want = {"mas": passes, "block1d": per_pass["block1d"] * passes if fused else 0,
-                    "resnet1d": per_pass["resnet1d"] * passes if fused else 0}
+                    "resnet1d": per_pass["resnet1d"] * passes if fused else 0,
+                    "vmem_mha": 0, "flash_mha": n_attn * passes if flash else 0,
+                    "flash_mha_bwd": n_attn * TRAIN_STEPS if flash else 0}
             if counts != want:
                 raise AssertionError(f"({name}): launches {counts}, expected {want}")
             out["launches"][name] = counts
@@ -804,6 +835,8 @@ def training(syn) -> dict:
                 raise AssertionError(f"({name}): the loss did not fall on a repeated batch")
             out[f"step_ms_{name}"] = step_ms
             out[f"frames_per_s_{name}"] = frames / step_ms * 1e3
+            if name != "b":
+                profile_step(state, batch, cfg, tcfg, out, step_ms, name)
             if name == "a":
                 with torch.no_grad():
                     mu_x, _, x_mask = state.model.encoder(batch["x"], batch["x_lengths"])
@@ -815,24 +848,27 @@ def training(syn) -> dict:
                 out["mas_share"] = mas_ms / step_ms
                 print(f"[train] MAS at {tuple(lp.shape)}: {mas_ms:.3f} ms, "
                       f"{mas_ms / step_ms:.4f} of a step", flush=True)
-                profile_step(state, batch, cfg, tcfg, out, step_ms)
             del state
             torch.cuda.empty_cache()
 
-        # (a) and (b) from the same weights and batch
+        # (b) and (c) against (a) from the same weights and batch
         model_a = MatchaTTS(configs["a"], seed=2, device="cuda")
-        model_b = MatchaTTS(configs["b"], seed=2, device="cuda")
-        model_b.load_state_dict(model_a.state_dict())
+        weights = {k: v.clone() for k, v in model_a.state_dict().items()}
         m_a = train_step(create_train_state(model_a, tcfg), batch, configs["a"], tcfg)
-        m_b = train_step(create_train_state(model_b, tcfg), batch, configs["b"], tcfg)
-        la, lb = float(m_a["loss"]), float(m_b["loss"])
-        ga, gb = float(m_a["grad_norm"]), float(m_b["grad_norm"])
-        print(f"[train] one step from the same weights: loss (a) {la:.6f} (b) {lb:.6f} "
-              f"(rel {abs(la - lb) / abs(la):.2e}); grad norm (a) {ga:.6f} (b) {gb:.6f} "
-              f"(rel {abs(ga - gb) / abs(ga):.2e})", flush=True)
-        if not (abs(la - lb) <= LOSS_REL * abs(la) and abs(ga - gb) <= GNORM_REL * abs(ga)):
-            raise AssertionError("configurations (a) and (b) disagree on one step")
-        del model_a
+        la, ga = float(m_a["loss"]), float(m_a["grad_norm"])
+        for name in ("b", "c"):
+            model_x = MatchaTTS(configs[name], seed=2, device="cuda")
+            model_x.load_state_dict(weights)
+            m_x = train_step(create_train_state(model_x, tcfg), batch, configs[name], tcfg)
+            lx, gx = float(m_x["loss"]), float(m_x["grad_norm"])
+            print(f"[train] one step from the same weights: loss (a) {la:.6f} ({name}) {lx:.6f} "
+                  f"(rel {abs(la - lx) / abs(la):.2e}); grad norm (a) {ga:.6f} ({name}) "
+                  f"{gx:.6f} (rel {abs(ga - gx) / abs(ga):.2e})", flush=True)
+            if not (abs(la - lx) <= LOSS_REL * abs(la) and abs(ga - gx) <= GNORM_REL * abs(ga)):
+                raise AssertionError(f"configurations (a) and ({name}) disagree on one step")
+            if name == "b":
+                model_b = model_x
+        del model_a, model_x, weights
 
         # (b) synthesises through the kernels
         syn_b = Synthesizer(model_b, configs["b"], syn.vocoder, syn.hifi_cfg,
@@ -843,7 +879,8 @@ def training(syn) -> dict:
         wav = r.wav
         calls = syn_b.stats["calls"] - c0
         counts = read_counts()
-        want = {"mas": 0, "block1d": 10 * calls, "resnet1d": per_pass["resnet1d"] * 10 * calls}
+        want = {"mas": 0, "block1d": 10 * calls, "resnet1d": per_pass["resnet1d"] * 10 * calls,
+                "vmem_mha": 0, "flash_mha": 0, "flash_mha_bwd": 0}
         print(f"[train] (b) synthesised {r.y_length} frames in {calls} device call(s); "
               f"launches {counts}", flush=True)
         import numpy as np
@@ -853,7 +890,13 @@ def training(syn) -> dict:
     return out
 
 
-def profile_step(state, batch, cfg, tcfg, out, step_ms: float) -> None:
+def n_attention_blocks(cfg) -> int:
+    """Transformer blocks of one estimator pass (each one attention call)."""
+    d = cfg.decoder
+    return d.n_blocks * (2 * len(d.channels) + d.num_mid_blocks)
+
+
+def profile_step(state, batch, cfg, tcfg, out, step_ms: float, name: str) -> None:
     """The device's busy share of one train step under torch.profiler, of
     its profiled wall time and of the unprofiled median `step_ms` (the
     profiler's own host overhead stretches the profiled step)."""
@@ -868,12 +911,12 @@ def profile_step(state, batch, cfg, tcfg, out, step_ms: float) -> None:
         float(train_step(state, batch, cfg, tcfg)["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    share = print_busy("train", "one step", prof, wall)
+    share = print_busy("train", f"({name}) one step", prof, wall)
     if share is not None:
-        out["busy_share"] = share
-        out["busy_share_vs_step"] = share * wall * 1e3 / step_ms
-        print(f"[train] device busy over the unprofiled median step ({step_ms:.2f} ms): "
-              f"{out['busy_share_vs_step']:.3f}", flush=True)
+        out[f"busy_share_{name}"] = share
+        out[f"busy_share_vs_step_{name}"] = share * wall * 1e3 / step_ms
+        print(f"[train] ({name}) device busy over the unprofiled median step ({step_ms:.2f} "
+              f"ms): {out[f'busy_share_vs_step_{name}']:.3f}", flush=True)
 
 
 def convs_from_taps(w, b):
@@ -985,15 +1028,16 @@ def check_int8_kernels(t_y: int, reps: int) -> dict:
     return table
 
 
-def attention_inputs(b, t, dtype, dev, seed):
-    """q, k, v (B, T, 2 * 64) and a ragged key mask (lengths from 0.6 T to T - 1)."""
+def attention_inputs(b, t, dtype, dev, seed, d=64, n=3):
+    """n tensors (B, T, 2 * d) (q, k, v and, with n = 4, an output gradient)
+    and a ragged key mask (lengths from 0.6 T to T - 1)."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn(b, t, 128, generator=g, device=dev).to(dtype) for _ in range(3))
+    xs = [torch.randn(b, t, 2 * d, generator=g, device=dev).to(dtype) for _ in range(n)]
     lengths = torch.linspace(int(0.6 * t), t - 1, b, device=dev).long()
     mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).float()
-    return q, k, v, mask
+    return (*xs, mask)
 
 
 def check_attention(reps: int) -> dict:
@@ -1268,6 +1312,303 @@ def cli_on_card(audible, mel) -> None:
         raise AssertionError(f"quantization_report: {rep}")
 
 
+def flash_bwd_case(b, t, d, dtype, seed):
+    """Phase 16's operands: q, k, v with a ragged key mask, the kernel
+    forward's residuals o, m, l, and an output gradient that is not zero at
+    padded rows."""
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    q, k, v, do, mask = attention_inputs(b, t, dtype, "cuda", seed, d, n=4)
+    o, m, l = attn_cuda.flash_mha_fwd(q, k, v, mask, 2, d ** -0.5)
+    return q, k, v, mask, o, m, l, do
+
+
+def check_flash_bwd(reps: int) -> dict:
+    """Phase 16: the flash backward kernels (dq with di as its prologue, then
+    dk/dv) against the plain backward at the paths' shapes, H = 2: training
+    (c) in bf16 at (64, 1024) and (64, 512), distillation in fp32 at (16,
+    512) and (16, 256), and D = 128 at (16, 512) in both types.  fp32 max
+    |diff| <= 1e-5 of each gradient's max |value|; bf16 relative L2 <= 1e-2
+    against the fp32 plain backward on the same bf16 operands and residuals;
+    two runs bitwise equal.  Timed with CUDA events: the whole backward, dq
+    (with di) and dk/dv alone, beside the plain version, the bounds (the
+    whole: 10 B H T^2 D operations, dq 6, dk/dv 8, against the bytes of q,
+    k, v, o, do, the gradients, m, l, di and the mask, each once) and the
+    backward of `scaled_dot_product_attention` with the same additive
+    segment mask (a yardstick the port never calls)."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    shapes = [("train T", 64, 1024, 64, torch.bfloat16), ("train T/2", 64, 512, 64, torch.bfloat16),
+              ("distill T", 16, 512, 64, torch.float32),
+              ("distill T/2", 16, 256, 64, torch.float32),
+              ("D128", 16, 512, 128, torch.float32), ("D128", 16, 512, 128, torch.bfloat16)]
+    rows = {}
+    for idx, (name, b, t, d, dtype) in enumerate(shapes):
+        scale = d ** -0.5
+        case = flash_bwd_case(b, t, d, dtype, 300 + idx)
+        q, k, v, mask, o, m, l, do = case
+        got = attn_cuda.flash_mha_bwd(*case, 2, scale)
+        torch.cuda.synchronize()
+        again = attn_cuda.flash_mha_bwd(*case, 2, scale)
+        bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+        want = attn_cuda.flash_mha_bwd_plain(*(x.float() for x in case), 2, scale)
+        errs = {}
+        for gname, gk, gp in zip(("dq", "dk", "dv"), got, want):
+            if dtype == torch.float32:
+                errs[gname] = float((gk - gp).abs().max()) / float(gp.abs().max())
+            else:
+                errs[gname] = rel_l2(gk.float(), gp)
+        max_abs = max(float((gk.float() - gp).abs().max()) for gk, gp in zip(got, want))
+        del got, again, want
+
+        # the two kernels alone, through the library's entry points
+        lib = attn_cuda._lib()
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        di = torch.empty_like(m)
+        ptrs = [x.data_ptr() for x in (q, k, v, mask, o, do, m, l)]
+        args = (b, t, 2, d, int(dtype == torch.bfloat16), ctypes.c_float(scale),
+                torch.cuda.current_stream().cuda_stream)
+        n = max(reps, 10)
+        ms = cuda_ms(lambda: attn_cuda.flash_mha_bwd(*case, 2, scale), n)
+        dq_ms = cuda_ms(lambda: lib.attention_bwd_dq(*ptrs, dq.data_ptr(), di.data_ptr(), *args), n)
+        dkv_ms = cuda_ms(lambda: lib.attention_bwd_dkv(*ptrs, di.data_ptr(), dk.data_ptr(),
+                                                       dv.data_ptr(), *args), n)
+        plain_ms = cuda_ms(lambda: attn_cuda.flash_mha_bwd_plain(*case, 2, scale), reps)
+        # SDPA's backward on (B, H, T, D) views with the same additive mask
+        seg = mask == 0
+        bias = torch.where(seg[:, :, None] == seg[:, None, :], 0.0,
+                           attn_cuda.FLASH_MASK)[:, None].to(dtype)
+        qh, kh, vh = (x.view(b, t, 2, d).transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias, scale=scale)
+        doh = do.view(b, t, 2, d).transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True), n)
+        del out, qh, kh, vh, bias
+
+        elem = 2 if dtype == torch.bfloat16 else 4
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+        bhtd, bht = b * 2 * t * d, b * 2 * t
+        parts = {  # name: (operations, bytes)
+            "all": (10 * bhtd * t, elem * 8 * bhtd + 4 * 3 * bht + 4 * b * t),
+            "dq": (6 * bhtd * t, elem * 6 * bhtd + 4 * 3 * bht + 4 * b * t),
+            "dkv": (8 * bhtd * t, elem * 6 * bhtd + 4 * 3 * bht + 4 * b * t)}
+        bounds = {k_: max(ops / peak, nb / PEAK_BYTES) * 1e3 for k_, (ops, nb) in parts.items()}
+        bound_by = {k_: "operations" if ops / peak >= nb / PEAK_BYTES else "bytes"
+                    for k_, (ops, nb) in parts.items()}
+        key = f"{name} {str(dtype).split('.')[-1]}"
+        row = dict(shape=key, batch=b, t=t, heads=2, dim_head=d, errors=errs, max_abs_err=max_abs,
+                   bitwise_repeat=bitwise, ms=ms, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bounds["all"], dq_bound_ms=bounds["dq"],
+                   dkv_bound_ms=bounds["dkv"], bound_by=bound_by["all"],
+                   dq_bound_by=bound_by["dq"], dkv_bound_by=bound_by["dkv"])
+        print(f"[flash_bwd] {json.dumps(row)}", flush=True)
+        limit = ATTN_FP32 if dtype == torch.float32 else BF16_REL_L2
+        if not (bitwise and max(errs.values()) <= limit):
+            raise AssertionError(f"flash backward {key}: errors {errs} (limit {limit}), "
+                                 f"bitwise repeat {bitwise}")
+        rows[key] = row
+        del case, q, k, v, mask, o, m, l, do, dq, dk, dv, di
+        torch.cuda.empty_cache()
+    return rows
+
+
+def distill_text_batch(encoded, rng, batch: int, text_bucket: int):
+    import torch
+
+    from matcha_tts_tpu_torch.train import distill
+
+    x, xl = distill.text_batch(encoded, rng.integers(0, len(encoded), size=batch), text_bucket)
+    return torch.from_numpy(x).long().cuda(), torch.from_numpy(xl).long().cuda()
+
+
+def distillation() -> dict:
+    """Phase 18: few-step distillation at full width.  `MatchaConfig()` with
+    a random teacher from seed 0 and `DistillConfig()` defaults (reflow,
+    NFE 16 -> 2, batch 16, text bucket 128, frame bucket 512) through
+    `distill_fit`, both losses with attention_impl "xla" and "flash": finite
+    losses; the EMA moved less than the student; the flash launch counts
+    match the estimator passes (zeroed before, read after; per step the
+    teacher's NFE-16 solve plus the student, plus the teacher and the EMA
+    once more for consistency, six attention blocks each; six backwards);
+    one xla and one flash step from the same state agree (loss 1e-3, grad
+    norm 1e-2, relative; fp32); ms per step.  Then reflow at lr 1e-3 from
+    the trained `tests/golden/trained/matcha_tone.ckpt` teacher until the
+    student's NFE-2 endpoint error (`distill_eval`, fixed noise) is below
+    the undistilled teacher's at NFE 2, at most DISTILL_TRAINED_STEPS steps;
+    (batch DISTILL_TRAINED_BATCH, checked every 10 steps);
+    the distillation CLI as a subprocess, its checkpoint reloaded and
+    synthesising at NFE 2; and `student_tone.ckpt` through the inference
+    CLI at --nfe 2."""
+    import os
+    import re
+
+    import numpy as np
+    import torch
+
+    from matcha_tts_tpu_torch.config import DecoderConfig, MatchaConfig
+    from matcha_tts_tpu_torch.inference.cli import load_models
+    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tts_tpu_torch.ops import attn_cuda
+    from matcha_tts_tpu_torch.train import distill
+    from matcha_tts_tpu_torch.train.loop import Checkpointer
+    from matcha_tts_tpu_torch.utils.wav import read_wav
+
+    out = {"launches": {}, "ms_per_step": {}}
+    base = MatchaConfig()
+    teacher0 = MatchaTTS(base, seed=0, device="cuda")
+    n_attn = n_attention_blocks(base)
+    for loss in ("reflow", "consistency"):
+        dcfg = distill.DistillConfig(loss=loss)
+        passes = dcfg.nfe_teacher + (1 if loss == "reflow" else 3)
+        for impl in ("xla", "flash"):
+            cfg = dataclasses.replace(base, decoder=dataclasses.replace(base.decoder,
+                                                                        attention_impl=impl))
+            teacher = MatchaTTS(cfg, device="cuda")
+            teacher.load_state_dict(teacher0.state_dict())
+            losses, times = [], []
+            last = [time.perf_counter()]
+
+            def cb(step, metrics):
+                losses.append(float(metrics["distill_loss"]))
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                times.append(now - last[0])
+                last[0] = now
+
+            zero_counts()
+            torch.cuda.synchronize()
+            last[0] = time.perf_counter()
+            state = distill.distill_fit(teacher, cfg, dcfg, SENTENCES, steps=DISTILL_STEPS,
+                                        callback=cb)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_counts().items() if "mha" in k}
+            flash = impl == "flash"
+            want = {"vmem_mha": 0, "flash_mha": n_attn * passes * DISTILL_STEPS if flash else 0,
+                    "flash_mha_bwd": n_attn * DISTILL_STEPS if flash else 0}
+            with torch.no_grad():
+                w0 = teacher.decoder.estimator.final_proj.weight
+                d_student = float((state.student.decoder.estimator.final_proj.weight - w0)
+                                  .abs().max())
+                d_ema = float((state.ema.decoder.estimator.final_proj.weight - w0).abs().max())
+            step_ms = statistics.median(times[1:]) * 1e3
+            print(f"[distill] {loss} {impl}: losses {losses}; step {step_ms:.1f} ms (median of "
+                  f"{len(times) - 1} after the first, host clock); |student - teacher| "
+                  f"{d_student:.3e}, |ema - teacher| {d_ema:.3e}; launches {counts}", flush=True)
+            if not all(math.isfinite(x) for x in losses) or len(losses) != DISTILL_STEPS:
+                raise AssertionError(f"distill {loss} {impl}: losses {losses}")
+            if not 0 < d_ema < d_student:
+                raise AssertionError(f"distill {loss} {impl}: the EMA moved {d_ema}, the student "
+                                     f"{d_student}")
+            if counts != want:
+                raise AssertionError(f"distill {loss} {impl}: launches {counts}, expected {want}")
+            out["launches"][f"{loss} {impl}"] = counts
+            out["ms_per_step"][f"{loss} {impl}"] = step_ms
+            del state, teacher
+            torch.cuda.empty_cache()
+
+        # one xla and one flash step from the same state, batch and noise
+        encoded = distill.encode_texts(SENTENCES, 128)
+        x, xl = distill_text_batch(encoded, np.random.default_rng(7), 16, 128)
+        metrics = {}
+        for impl in ("xla", "flash"):
+            cfg = dataclasses.replace(base, decoder=dataclasses.replace(base.decoder,
+                                                                        attention_impl=impl))
+            teacher = MatchaTTS(cfg, device="cuda")
+            teacher.load_state_dict(teacher0.state_dict())
+            state = distill.create_distill_state(teacher, dcfg)
+            metrics[impl] = {k_: float(v_) for k_, v_ in distill.distill_step(
+                state, teacher, x, xl, cfg, dcfg, 512, seed=11).items()}
+            del state, teacher
+        lx, lf = metrics["xla"]["distill_loss"], metrics["flash"]["distill_loss"]
+        gx, gf = metrics["xla"]["grad_norm"], metrics["flash"]["grad_norm"]
+        print(f"[distill] {loss}, one step from the same state: loss xla {lx:.6f} flash {lf:.6f} "
+              f"(rel {abs(lx - lf) / abs(lx):.2e}); grad norm xla {gx:.6f} flash {gf:.6f} "
+              f"(rel {abs(gx - gf) / abs(gx):.2e})", flush=True)
+        if not (abs(lx - lf) <= 1e-3 * abs(lx) and abs(gx - gf) <= 1e-2 * abs(gx)):
+            raise AssertionError(f"distill {loss}: xla and flash disagree on one step")
+    del teacher0
+    torch.cuda.empty_cache()
+
+    # reflow from the trained teacher (head dim 48: the plain attention)
+    ckpt = REPO / "tests" / "golden" / "trained" / "matcha_tone.ckpt"
+    teacher, cfg, _, _ = load_models(str(ckpt), None, device="cuda")
+    dcfg = distill.DistillConfig(learning_rate=1e-3)
+    encoded = distill.encode_texts(SENTENCES, 128)
+    ex, exl = distill_text_batch(encoded, np.random.default_rng(1), 16, 128)
+
+    def endpoint_error(model):
+        return float(distill.distill_eval(model, teacher, ex, exl, cfg, dcfg, 512,
+                                          nfe_student=2, seed=5))
+
+    before = endpoint_error(teacher)
+    state = distill.create_distill_state(teacher, dcfg)
+    rng = np.random.default_rng(0)
+    history = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while state.step < DISTILL_TRAINED_STEPS:
+        x, xl = distill_text_batch(encoded, rng, DISTILL_TRAINED_BATCH, 128)
+        m = distill.distill_step(state, teacher, x, xl, cfg, dcfg, 512, seed=0)
+        if not math.isfinite(float(m["distill_loss"])):
+            raise AssertionError(f"trained teacher: non-finite loss at step {state.step}")
+        if state.step % 10 == 0:
+            history.append((state.step, endpoint_error(state.student)))
+            if history[-1][1] < before:
+                break
+    wall = time.perf_counter() - t0
+    after = history[-1][1]
+    print(f"[distill] trained teacher, reflow lr 1e-3, batch {DISTILL_TRAINED_BATCH}: NFE-2 "
+          f"endpoint error (vs the teacher's "
+          f"NFE 16) undistilled {before:.5f}, student {after:.5f} after {state.step} steps "
+          f"({wall:.1f} s); history {history}", flush=True)
+    if not after < before:
+        raise AssertionError(f"the student's NFE-2 error {after} is not below the teacher's "
+                             f"{before}")
+    out["trained"] = {"before": before, "after": after, "steps": state.step}
+    del state, teacher
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "matcha_tts_tpu_torch.train.distill", "--steps", "3",
+               "--work_dir", str(Path(tmp) / "run")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"distillation CLI failed:\n{proc.stderr[-3000:]}")
+        student = Checkpointer(Path(tmp) / "run" / "ckpt").load_model(device="cuda")
+        ids = distill.encode_texts(SENTENCES[:1], 256)[0]
+        x = torch.zeros((1, 256), dtype=torch.long, device="cuda")
+        x[0, :len(ids)] = torch.from_numpy(ids.astype(np.int64)).cuda()
+        mel = student.synthesize(x, torch.tensor([len(ids)], device="cuda"), n_timesteps=2,
+                                 t_y_max=1024).mel
+        print(f"[distill] CLI --steps 3: {time.perf_counter() - t0:.1f} s; reloaded student "
+              f"synthesised {tuple(mel.shape)} at NFE 2", flush=True)
+        if not bool(torch.isfinite(mel).all()) or float(mel.abs().max()) == 0.0:
+            raise AssertionError("the distilled CLI student's mel is not finite")
+
+        wav_path = Path(tmp) / "student.wav"
+        cmd = [sys.executable, "-m", "matcha_tts_tpu_torch.inference.cli", "--checkpoint",
+               str(REPO / "tests" / "golden" / "trained" / "student_tone.ckpt"), "--nfe", "2",
+               "--output", str(wav_path)]
+        proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"inference CLI (student_tone) failed:\n{proc.stderr[-3000:]}")
+        frames = int(re.search(r"Mel Shape: \(80, (\d+)\)", proc.stdout).group(1))
+        wav, sr = read_wav(wav_path)
+        rtf = [ln for ln in proc.stdout.splitlines() if "RTF" in ln]
+        print(f"[distill] student_tone.ckpt through the inference CLI at --nfe 2: {frames} "
+              f"frames, {len(wav)} samples at {sr} Hz; {rtf[0] if rtf else 'no RTF line'}",
+              flush=True)
+        if not (len(wav) == 256 * frames and np.isfinite(wav).all() and rtf):
+            raise AssertionError("student_tone.ckpt: bad wav from the inference CLI")
+    return out
+
 
 def main() -> int:
     import torch
@@ -1298,6 +1639,7 @@ def main() -> int:
     table = check_kernels(T_Y, REPS)
     int8_table = check_int8_kernels(T_Y, REPS)
     attn_rows = check_attention(REPS)
+    bwd_rows = check_flash_bwd(REPS)
     tap_rows = check_tap(REPS)
     mas_row = check_mas(REPS)
     block_rows = check_blocks(MatchaConfig(), REPS)
@@ -1309,6 +1651,7 @@ def main() -> int:
     forced = forced_modes(syn, audible)
     cli_on_card(audible, mel)
     train = training(syn)
+    dist = distillation()
 
     up = [table["level2"], table["level3"]]
     kernels = [
@@ -1385,7 +1728,27 @@ def main() -> int:
             "bound_ms": sum(n * r["bound_ms"] for n, r in per_pass),
             "bound_by": per_pass[0][1]["bound_by"],
             "library_ms": sum(n * r["library_ms"] for n, r in per_pass)})
+    # the flash backward: one training step of (c), B = 64 in the (256, 1024)
+    # bucket, bf16 (2 launches of each kernel at T = 1024, 4 at T = 512)
+    per_step = [(2, bwd_rows["train T bfloat16"]), (4, bwd_rows["train T/2 bfloat16"])]
+    bwd_launches = (train["launches"]["c"]["flash_mha_bwd"]
+                    + sum(c["flash_mha_bwd"] for c in dist["launches"].values()))
+    for kname, part, line in (("flash_mha_bwd_dkv", "dkv", "941"), ("flash_mha_bwd_dq", "dq", "1287")):
+        kernels.append({
+            "name": kname, "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/attention.cu",
+            "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line} (upstream, "
+                        f"reached from matcha_tts_tpu/ops/pallas/attention.py:64)",
+            "launches": bwd_launches,
+            "max_abs_err": max(r["max_abs_err"] for k_, r in bwd_rows.items() if "float32" in k_),
+            "ms": sum(n * r[f"{part}_ms"] for n, r in per_step),
+            "plain_ms": sum(n * r["plain_ms"] for n, r in per_step),
+            "bound_ms": sum(n * r[f"{part}_bound_ms"] for n, r in per_step),
+            "bound_by": per_step[0][1][f"{part}_bound_by"],
+            "library_ms": sum(n * r["library_ms"] for n, r in per_step),
+            "plain_and_library_cover": "the whole backward (dq, dk, dv)"})
     shapes = {
+        "flash_mha_bwd_dkv": f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16",
+        "flash_mha_bwd_dq": f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16",
         "mrf": f"(1, {64 * T_Y}, 128) bf16",
         "mrf_up": f"128 -> 64 at {128 * T_Y}; 64 -> 32 + tail at {256 * T_Y}; bf16",
         "mas": f"{MAS_SHAPE} fp32",

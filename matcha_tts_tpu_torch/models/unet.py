@@ -11,8 +11,10 @@ the fused resnet kernel and the final Block1D as the fused Block1D kernel
 (`ops/unet_cuda.py`; their plain versions on the CPU), forward and through
 autograd.  With `attention_impl="vmem"` or `"flash"`, each transformer
 block whose (T, dim_head) passes the kernel's gate runs that attention
-kernel (`ops/attn_cuda.py`) on the projections as they are; a block that
-fails the gate runs the plain attention, the JAX package's own rule.
+kernel (`ops/attn_cuda.py`) on the projections as they are (dense rows, in
+inference and under autograd alike; flash trains through its backward
+kernels, vmem has no gradient); a block that fails the gate runs the plain
+attention, the JAX package's own rule.
 
 Dropout (attention output and feed-forward, at `cfg.dropout`) draws from the
 `generator` passed to `Decoder.forward`; without one it is off.

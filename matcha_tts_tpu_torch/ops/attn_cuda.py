@@ -15,10 +15,20 @@ and return (B, T, H * D):
   padded query over the padded keys, with an additive -0.7 * FLT_MAX where
   the segments differ (upstream's `mha_reference`).
 
-On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches the kernel (through an autograd Function whose backward raises:
-the JAX package has no gradient for the whole-row kernel, and the flash
-backward kernels are still to port, ROADMAP.md Queue 2) or raises.
+`flash_mha_bwd` replaces upstream's two backward kernels
+(`_flash_attention_bwd_dq` and `_flash_attention_bwd_dkv`): from the
+forward's output and its fp32 row statistics m (the row max) and l (the sum
+of exp(s - m)), it recomputes p = exp(s - m) * (1 / l) and forms
+dv = p^T do, ds = (do v^T - di) * p * scale with di = rowsum(o * do), dk =
+ds^T q and dq = ds k, each product on operands cast to the input dtype with
+fp32 sums, cast once at the end.
+
+On a CPU tensor each wrapper runs its plain version (the forwards through
+autograd); on a CUDA tensor it launches the kernel or raises.  On the card
+both forwards run in an autograd Function: flash's backward launches the
+backward kernels on the residuals the forward saved (q, k, v, the mask, o,
+m, l); vmem's backward raises, since the JAX package's whole-row kernel has
+no gradient either.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ MIN_SEQ_BLOCK = 128  # the upstream flash kernel's smallest sequence block
 HEAD_DIMS = (64, 128)  # what the kernels take; the gates pass dim_head % 64 == 0
 
 # Kernel launches, counted where each wrapper launches its kernel.
-LAUNCHES = {"vmem_mha": 0, "flash_mha": 0}
+LAUNCHES = {"vmem_mha": 0, "flash_mha": 0, "flash_mha_bwd": 0}
 
 
 def attn_vmem_ok(t: int, dim_head: int) -> bool:
@@ -89,18 +99,52 @@ def vmem_mha_plain(q, k, v, key_mask, heads: int, sm_scale: float) -> torch.Tens
     return _merge(torch.matmul(p, vh), q.dtype)
 
 
-def flash_mha_plain(q, k, v, key_mask, heads: int, sm_scale: float) -> torch.Tensor:
-    """Upstream `mha_reference` with segment ids from the key mask (padded =
-    segment 1): fp32 logits * scale, + (-0.7 * FLT_MAX) where the query's
-    and the key's segments differ, softmax, fp32 weights times v."""
-    qh, kh, vh = _heads(q, heads), _heads(k, heads), _heads(v, heads)
+def _flash_logits(qh, kh, key_mask, sm_scale: float) -> torch.Tensor:
+    """fp32 q k^T * scale, + (-0.7 * FLT_MAX) where the query's and the key's
+    segments differ (padded = segment 1): (B, H, T_q, T_k)."""
     seg = key_mask == 0
     same = seg[:, :, None] == seg[:, None, :]  # (B, T_q, T_k)
     bias = torch.where(same, 0.0, FLASH_MASK).float()
-    s = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale + bias[:, None]
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    w = e / e.sum(dim=-1, keepdim=True)
-    return _merge(torch.matmul(w, vh), q.dtype)
+    return torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale + bias[:, None]
+
+
+def flash_mha_plain(q, k, v, key_mask, heads: int, sm_scale: float,
+                    return_stats: bool = False):
+    """Upstream `mha_reference` with segment ids from the key mask: the
+    logits of `_flash_logits`, softmax, fp32 weights times v.  With
+    `return_stats`, also the row statistics the backward reads, fp32
+    (B, H, T): m, the row max of the logits, and l, the sum of exp(s - m)."""
+    qh, kh, vh = _heads(q, heads), _heads(k, heads), _heads(v, heads)
+    s = _flash_logits(qh, kh, key_mask, sm_scale)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    out = _merge(torch.matmul(e / l, vh), q.dtype)
+    if return_stats:
+        return out, m[..., 0], l[..., 0]
+    return out
+
+
+def flash_mha_bwd_plain(q, k, v, key_mask, o, m, l, do, heads: int, sm_scale: float):
+    """Upstream's backward arithmetic (`flash_attention.py:273-275`, the dkv
+    kernel `:844-920`, the dq kernel `:1187-1261`) step by step, not
+    autograd: p = exp(s - m) * (1 / l) from the saved fp32 statistics;
+    dv = (p cast to do's dtype)^T do; dp = do v^T; ds = (dp - di) * p *
+    scale with di = rowsum(o * do) in fp32; dk = (ds cast to the input
+    dtype)^T q; dq = (ds cast) k; fp32 sums, each gradient cast once to the
+    input dtype.  (B, T, H * D) in and out; m, l (B, H, T) fp32."""
+    qh, kh, vh = _heads(q, heads), _heads(k, heads), _heads(v, heads)
+    oh, doh = _heads(o, heads), _heads(do, heads)
+    di = torch.sum(oh * doh, dim=-1)  # (B, H, T)
+    s = _flash_logits(qh, kh, key_mask, sm_scale)
+    p = torch.exp(s - m[..., None]) * (1 / l)[..., None]
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = (dp - di[..., None]) * p * sm_scale
+    ds = ds.to(q.dtype).float()
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    dq = torch.matmul(ds, kh)
+    return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -111,61 +155,115 @@ def flash_mha_plain(q, k, v, key_mask, heads: int, sm_scale: float) -> torch.Ten
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("attention")
     if not getattr(lib, "_typed", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.attention_fwd.argtypes = ([ptr] * 5 + [i32] * 6
-                                      + [ctypes.c_float, ptr])
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.attention_fwd.argtypes = [ptr] * 7 + [i32] * 6 + [f32, ptr]
         lib.attention_fwd.restype = i32
+        lib.attention_bwd_dq.argtypes = [ptr] * 10 + [i32] * 5 + [f32, ptr]
+        lib.attention_bwd_dq.restype = i32
+        lib.attention_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 5 + [f32, ptr]
+        lib.attention_bwd_dkv.restype = i32
         lib.attention_error_string.argtypes = [i32]
         lib.attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
 
 
-def _launch(q, k, v, key_mask, heads: int, sm_scale: float, flash: bool) -> torch.Tensor:
+def _check_operands(q, k, v, key_mask, heads: int, more=()) -> int:
+    """Raises on what the kernels do not take; returns the head dim."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"attention kernels take float32 or bfloat16, got {q.dtype}")
     b, t, inner = q.shape
     if inner % heads or inner // heads not in HEAD_DIMS:
         raise ValueError(f"attention kernels take a head dim in {HEAD_DIMS}, "
                          f"got {inner} / {heads} heads")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in (("k", k), ("v", v), *more):
         if x.device != q.device or x.dtype != q.dtype or x.shape != q.shape:
             raise ValueError(f"{name} must match q: {x.device}, {x.dtype}, {tuple(x.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v), *more):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be a dense (B, T, H * D) tensor")
     if key_mask.shape != (b, t) or key_mask.device != q.device:
         raise ValueError(f"key_mask must be ({b}, {t}) on {q.device}")
+    return inner // heads
+
+
+def _ptr(x) -> int:
+    return x.data_ptr() if x is not None else None
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.attention_error_string(err).decode()}")
+
+
+def _launch(q, k, v, key_mask, heads: int, sm_scale: float, flash: bool,
+            stats: bool = False):
+    """(out, m, l): with `stats` (flash only) the kernel also writes the fp32
+    row statistics (B, H, T) the backward reads; else m = l = None."""
+    d = _check_operands(q, k, v, key_mask, heads)
+    b, t, _ = q.shape
     mask = key_mask.float().contiguous()
     out = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m = torch.empty((b, heads, t), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     lib = _lib()
     err = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                            out.data_ptr(), b, t, heads, inner // heads,
+                            out.data_ptr(), _ptr(m), _ptr(l), b, t, heads, d,
                             int(q.dtype == torch.bfloat16), int(flash), float(sm_scale),
                             torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: "
-                           f"{lib.attention_error_string(err).decode()}")
+    _raise_on(lib, err, "attention kernel")
     LAUNCHES["flash_mha" if flash else "vmem_mha"] += 1
-    return out
+    return out, m, l
+
+
+def _launch_bwd(q, k, v, key_mask, o, m, l, do, heads: int, sm_scale: float):
+    d = _check_operands(q, k, v, key_mask, heads, (("o", o), ("do", do)))
+    b, t, _ = q.shape
+    for name, x in (("m", m), ("l", l)):
+        if (x.shape != (b, heads, t) or x.dtype != torch.float32 or x.device != q.device
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} must be dense fp32 ({b}, {heads}, {t}) on {q.device}")
+    mask = key_mask.float().contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    di = torch.empty_like(m)  # rowsum(o * do), written by the dq kernel
+    lib = _lib()
+    args = (b, t, heads, d, int(q.dtype == torch.bfloat16), float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = [x.data_ptr() for x in (q, k, v, mask, o, do, m, l)]
+    _raise_on(lib, lib.attention_bwd_dq(*ptrs, dq.data_ptr(), di.data_ptr(), *args),
+              "flash backward (dq)")
+    _raise_on(lib, lib.attention_bwd_dkv(*ptrs, di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                         *args), "flash backward (dk, dv)")
+    LAUNCHES["flash_mha_bwd"] += 1
+    return dq, dk, dv
 
 
 class _Attention(torch.autograd.Function):
-    """The forward kernel; its backward is not ported."""
+    """The forward kernel; for flash, the backward kernels on the residuals
+    it saves when an input needs a gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, heads, sm_scale, flash):
-        ctx.flash = flash
-        return _launch(q, k, v, key_mask, heads, sm_scale, flash)
+        ctx.flash, ctx.heads, ctx.sm_scale = flash, heads, sm_scale
+        save = flash and any(ctx.needs_input_grad[:3])
+        out, m, l = _launch(q, k, v, key_mask, heads, sm_scale, flash, stats=save)
+        if save:
+            ctx.save_for_backward(q, k, v, key_mask, out, m, l)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        if ctx.flash:
+        if not ctx.flash:
             raise NotImplementedError(
-                "attention_impl='flash' has no backward kernel on the card yet: the "
-                "upstream dq/dkv kernels are still to port (ROADMAP.md Queue 2)")
-        raise NotImplementedError(
-            "attention_impl='vmem' has no gradient: the JAX package's whole-row "
-            "kernel has none either (ROADMAP.md Queue 2, item 7)")
+                "attention_impl='vmem' has no gradient: the JAX package's whole-row "
+                "kernel has none either (ROADMAP.md Queue 2, item 7)")
+        q, k, v, key_mask, out, m, l = ctx.saved_tensors
+        # the incoming gradient may be a strided view; the kernels take dense rows
+        dq, dk, dv = _launch_bwd(q, k, v, key_mask, out, m, l, grad.contiguous(),
+                                 ctx.heads, ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def _check_device(q: torch.Tensor, name: str) -> None:
@@ -182,8 +280,27 @@ def vmem_mha(q, k, v, key_mask, heads: int, sm_scale: float) -> torch.Tensor:
 
 
 def flash_mha(q, k, v, key_mask, heads: int, sm_scale: float) -> torch.Tensor:
-    """Segment-id online-softmax attention, (B, T, H * D) -> (B, T, H * D)."""
+    """Segment-id online-softmax attention, (B, T, H * D) -> (B, T, H * D);
+    differentiable (on the card through `flash_mha_bwd`)."""
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, key_mask, heads, sm_scale)
     _check_device(q, "flash_mha")
     return _Attention.apply(q, k, v, key_mask, heads, sm_scale, True)
+
+
+def flash_mha_fwd(q, k, v, key_mask, heads: int, sm_scale: float):
+    """The flash forward with its residuals, outside autograd: (out, m, l)."""
+    if q.device.type == "cpu":
+        return flash_mha_plain(q, k, v, key_mask, heads, sm_scale, return_stats=True)
+    _check_device(q, "flash_mha_fwd")
+    return _launch(q, k, v, key_mask, heads, sm_scale, True, stats=True)
+
+
+def flash_mha_bwd(q, k, v, key_mask, o, m, l, do, heads: int, sm_scale: float):
+    """The flash backward, (dq, dk, dv), from the forward's output `o` and
+    statistics m, l (`flash_mha_fwd`) and the output gradient `do`, all
+    dense; the CPU runs `flash_mha_bwd_plain`."""
+    if q.device.type == "cpu":
+        return flash_mha_bwd_plain(q, k, v, key_mask, o, m, l, do, heads, sm_scale)
+    _check_device(q, "flash_mha_bwd")
+    return _launch_bwd(q, k, v, key_mask, o, m, l, do, heads, sm_scale)

@@ -20,7 +20,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from matcha_tts_tpu_torch.config import MatchaConfig, TrainConfig, config_to_dict
+from matcha_tts_tpu_torch.config import (MatchaConfig, TrainConfig, config_from_dict,
+                                         config_to_dict)
 from matcha_tts_tpu_torch.data.dataset import BucketBatcher, PrefetchIterator, TextMelDataset
 from matcha_tts_tpu_torch.models.matcha import MatchaTTS
 from matcha_tts_tpu_torch.ops.stft import log_mel_spectrogram, normalize_mel
@@ -114,7 +115,10 @@ class GracefulShutdown:
 class Checkpointer:
     """`torch.save` checkpoints, one file per step: the step, the model's
     state dict, the optimizer's, the model config as a dict and the val
-    metrics.
+    metrics.  A distillation state (`train/distill.py::DistillState`) is
+    saved the same way, its student as the model, plus the EMA's state
+    dict; `load_model` gives the student back as a `MatchaTTS` for
+    synthesis.
 
     The `keep` best by val loss survive, plus always the latest, so resume
     never goes back in time.  The metrics of every kept step are indexed in
@@ -145,14 +149,21 @@ class Checkpointer:
                         key=lambda s: (self.index[s]["loss"], s))
         return sorted(set(ranked[:self.keep]) | {steps[-1]})
 
-    def save(self, step: int, state: TrainState, model_cfg: Optional[MatchaConfig] = None,
+    @staticmethod
+    def _model(state):
+        return state.student if hasattr(state, "student") else state.model
+
+    def save(self, step: int, state, model_cfg: Optional[MatchaConfig] = None,
              metrics: Optional[Dict] = None):
+        """`state`: a TrainState or a DistillState."""
         if metrics is not None:
             metrics = {k: float(v) for k, v in metrics.items()}
-        payload = {"step": int(step), "model": state.model.state_dict(),
+        payload = {"step": int(step), "model": self._model(state).state_dict(),
                    "optimizer": state.optimizer.state_dict(),
                    "config": None if model_cfg is None else config_to_dict(model_cfg),
                    "metrics": metrics}
+        if hasattr(state, "ema"):
+            payload["ema"] = state.ema.state_dict()
         tmp = self._file(step).with_suffix(".tmp")
         torch.save(payload, tmp)
         tmp.replace(self._file(step))
@@ -169,18 +180,37 @@ class Checkpointer:
         for s in dropped:
             self._file(s).unlink(missing_ok=True)
 
-    def restore(self, state: TrainState, step: Optional[int] = None) -> Optional[TrainState]:
-        """Load the latest checkpoint (or `step`) into `state` in place and
-        return it; None when there is none."""
+    def _load(self, step: Optional[int], device):
         step = step if step is not None else self.latest_step()
         if step is None:
             return None
-        payload = torch.load(self._file(step), map_location=state.model.device,
-                             weights_only=True)
-        state.model.load_state_dict(payload["model"])
+        return torch.load(self._file(step), map_location=device, weights_only=True)
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load the latest checkpoint (or `step`) into `state` (a TrainState
+        or a DistillState) in place and return it; None when there is none."""
+        model = self._model(state)
+        payload = self._load(step, model.device)
+        if payload is None:
+            return None
+        model.load_state_dict(payload["model"])
+        if hasattr(state, "ema"):
+            state.ema.load_state_dict(payload["ema"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
         return state
+
+    def load_model(self, step: Optional[int] = None, device="cuda") -> Optional[MatchaTTS]:
+        """The checkpoint's model (a distillation's student) as a MatchaTTS
+        built from the config it carries, on `device`; None without one."""
+        payload = self._load(step, "cpu")
+        if payload is None:
+            return None
+        if payload["config"] is None:
+            raise ValueError("the checkpoint carries no model config")
+        model = MatchaTTS(config_from_dict(MatchaConfig, payload["config"]), device="cpu")
+        model.load_state_dict(payload["model"])
+        return model.to(device)
 
 
 def fit(model_cfg: MatchaConfig, train_cfg: TrainConfig, train_filelist: str,

@@ -4,7 +4,12 @@ against the JAX package, in fp32 on the CPU: the whole-row kernel against
 included (atol 1e-5); the flash plain version against upstream's
 `mha_reference` with the same segment ids at every position (atol 1e-5) and
 against the XLA attention on valid rows; the decoder with each forced impl
-against the JAX decoder (atol 1e-4); and the resolution rule against JAX's.
+against the JAX decoder (atol 1e-4): with the same impl on the JAX side at
+every frame (JAX's flash kernels in interpret mode), and flash against the
+XLA decoder on the valid frames; the flash decoder's parameter gradients
+(CPU autograd) against the JAX XLA decoder's (whose flash gradients equal
+them within 6.9e-7 relative), max |diff| <= 1e-4 of each leaf's max |grad|;
+and the resolution rule against JAX's.
 The kernels themselves are held to these plain versions on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py`)."""
 
@@ -16,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds, mha_reference
 
 from matcha_tts_tpu import config as jcfg
@@ -24,7 +30,7 @@ from matcha_tts_tpu.models.matcha import init_matcha
 from matcha_tts_tpu.ops.pallas.attn_vmem import vmem_mha_packed
 from matcha_tts_tpu_torch import config as tcfg
 from matcha_tts_tpu_torch.ops import attn_cuda
-from matcha_tts_tpu_torch.params.from_jax import load_jax_tree
+from matcha_tts_tpu_torch.params.from_jax import load_jax_tree, to_jax_tree
 from port_params import numpy_tree
 
 HEADS, DIM_HEAD = 2, 64
@@ -121,12 +127,14 @@ def _decoder_inputs(t, valid, seed):
     return x, mask, mu, np.array([0.25, 0.8], np.float32)
 
 
-@pytest.mark.parametrize("impl,t,jax_impl", [("vmem", 64, "vmem"), ("flash", 256, "xla")])
+@pytest.mark.parametrize("impl,t,jax_impl", [("vmem", 64, "vmem"), ("flash", 256, "xla"),
+                                             ("flash", 256, "flash")])
 def test_decoder_with_forced_attention_matches_jax(impl, t, jax_impl, monkeypatch):
-    """vmem: against the JAX decoder with vmem, at every frame.  flash:
-    against the JAX XLA decoder on the valid frames, at T = 256 so that the
-    half-resolution blocks (T = 128) pass the gate too; every block reaches
-    the wrapper with dense projections."""
+    """Against the JAX decoder with the same impl at every frame (flash: its
+    upstream kernels in interpret mode), and flash against the JAX XLA
+    decoder on the valid frames; at T = 256 the half-resolution blocks (T =
+    128) pass the flash gate too; every block reaches the wrapper with dense
+    projections."""
     jc, est = _port_decoder(impl)
     calls = []
     fn = getattr(attn_cuda, f"{impl}_mha")
@@ -139,11 +147,50 @@ def test_decoder_with_forced_attention_matches_jax(impl, t, jax_impl, monkeypatc
     monkeypatch.setattr(attn_cuda, f"{impl}_mha", spy)
     x, mask, mu, tt = _decoder_inputs(t, t - 23, 4)
     jdec = dataclasses.replace(jc.decoder, attention_impl=jax_impl)
-    ref = np.asarray(junet.decoder(_params()["decoder"]["estimator"],
-                                   *(jnp.asarray(a) for a in (x, mask, mu, tt)), jdec))
+    args = (_params()["decoder"]["estimator"], *(jnp.asarray(a) for a in (x, mask, mu, tt)))
+    if jax_impl == "flash":
+        # upstream's kernels in TPU interpret mode, as one jitted call: eager
+        # dispatch beside the interpreter's host callbacks deadlocks on a CPU
+        with pltpu.force_tpu_interpret_mode():
+            ref = np.asarray(jax.jit(lambda p, *a: junet.decoder(p, *a, jdec))(*args))
+    else:
+        ref = np.asarray(junet.decoder(*args, jdec))
     with torch.no_grad():
         got = est(*(torch.from_numpy(a) for a in (x, mask, mu, tt))).numpy()
     assert sorted(calls) == sorted([t, t // 2, t // 2, t // 2, t])  # one mid block
     valid = mask.astype(bool)
-    np.testing.assert_allclose(got[valid], ref[valid], atol=1e-4)
+    if jax_impl == impl:
+        np.testing.assert_allclose(got, ref, atol=1e-4)  # every frame
+    else:
+        np.testing.assert_allclose(got[valid], ref[valid], atol=1e-4)
     assert np.abs(got[~valid]).max() == 0.0
+
+
+def test_flash_decoder_gradients_match_jax():
+    """Parameter gradients of sum(out * w) through the port's flash decoder
+    (CPU autograd through the plain flash attention, dense projections at
+    every block) against `jax.grad` of the JAX XLA decoder."""
+    jc, est = _port_decoder("flash")
+    x, mask, mu, tt = _decoder_inputs(256, 233, 5)
+    w = np.random.default_rng(6).standard_normal(x.shape).astype(np.float32)
+    jdec = dataclasses.replace(jc.decoder, attention_impl="xla")
+
+    def jloss(p):
+        out = junet.decoder(p, *(jnp.asarray(a) for a in (x, mask, mu, tt)), jdec)
+        return jnp.sum(out * w)
+
+    want = jax.jit(jax.grad(jloss))(_params()["decoder"]["estimator"])
+    est.zero_grad()
+    out = est(*(torch.from_numpy(a) for a in (x, mask, mu, tt)))
+    (out * torch.from_numpy(w)).sum().backward()
+    got = to_jax_tree(est, grads=True)
+    paths = jax.tree_util.tree_flatten_with_path(want)[0]
+    leaves = jax.tree_util.tree_leaves(got)
+    assert len(paths) == len(leaves)
+    attn_leaves = 0
+    for (path, g_want), g in zip(paths, leaves):
+        g_want = np.asarray(g_want)
+        scale = max(float(np.abs(g_want).max()), 1e-30)
+        assert float(np.abs(g - g_want).max()) <= 1e-4 * scale, jax.tree_util.keystr(path)
+        attn_leaves += "to_q" in jax.tree_util.keystr(path)
+    assert attn_leaves == 5  # every transformer block's query projection had a gradient

@@ -1,6 +1,9 @@
 """The port's kernels against their plain versions on a CUDA card (marker
 `gpu`; they skip where there is no card): the MRF levels, MAS (identical
-paths) and the fused Block1D / ResnetBlock1D (forward and gradients).  Run
+paths), the fused Block1D / ResnetBlock1D (forward and gradients), the
+attention kernels and the flash backward (dq, dk/dv: fp32 max |diff| <=
+1e-5 of each gradient's max |value|, bf16 relative L2 <= 1e-2 against the
+fp32 plain backward on the same rounded operands, bitwise repeatable).  Run
 on a machine with one (`--noconftest`: tests/conftest.py imports JAX, which
 the port does not need):
 
@@ -331,8 +334,14 @@ def test_attention_kernel_matches_plain(cuda, impl, b, t, d):
     ref16 = plain(q16.float(), k16.float(), v16.float(), mask, heads, scale)
     assert got16.dtype == torch.bfloat16 and _rel(got16.float(), ref16) <= 1e-2
     qq = q.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if impl == "vmem":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            kern(qq, k, v, mask, heads, scale).sum().backward()
+    else:  # the flash backward runs its kernels (held to the plain version below)
+        n0 = attn_cuda.LAUNCHES["flash_mha_bwd"]
         kern(qq, k, v, mask, heads, scale).sum().backward()
+        torch.cuda.synchronize()
+        assert attn_cuda.LAUNCHES["flash_mha_bwd"] == n0 + 1 and torch.isfinite(qq.grad).all()
 
 
 def test_attention_wrapper_rejects_bad_operands(cuda):
@@ -343,3 +352,73 @@ def test_attention_wrapper_rejects_bad_operands(cuda):
         attn_cuda.vmem_mha(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, mask, 2, 0.125)
     with pytest.raises(ValueError):
         attn_cuda.flash_mha(q, k, v, mask, 4, 0.125)  # head dim 32
+
+
+def _flash_bwd_case(b, t, d, dtype, dev, seed):
+    """Operands, the forward's residuals and a non-zero output gradient at
+    every row, padded rows included."""
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    q, k, v, mask = _attn_operands(b, t, 2, d, dtype, dev, seed)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    do = torch.randn(b, t, 2 * d, generator=g).to(dev, dtype)
+    o, m, l = attn_cuda.flash_mha_fwd(q, k, v, mask, 2, d ** -0.5)
+    return q, k, v, mask, o, m, l, do
+
+
+@pytest.mark.parametrize("b,t,d", [(1, 128, 64), (3, 384, 64), (3, 128, 128), (1, 384, 128)])
+def test_flash_backward_kernels_match_plain(cuda, b, t, d):
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    scale = d ** -0.5
+    case = _flash_bwd_case(b, t, d, torch.float32, cuda, t + d)
+    n0 = attn_cuda.LAUNCHES["flash_mha_bwd"]
+    got = attn_cuda.flash_mha_bwd(*case, 2, scale)
+    torch.cuda.synchronize()
+    assert attn_cuda.LAUNCHES["flash_mha_bwd"] == n0 + 1
+    want = attn_cuda.flash_mha_bwd_plain(*case, 2, scale)
+    for name, gk, gp in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(gk).all(), name
+        assert float((gk - gp).abs().max()) <= 1e-5 * float(gp.abs().max()), name
+    again = attn_cuda.flash_mha_bwd(*case, 2, scale)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # bit for bit
+    # bf16: its own forward's residuals; the plain backward in fp32 on them
+    c16 = _flash_bwd_case(b, t, d, torch.bfloat16, cuda, t + d)
+    got16 = attn_cuda.flash_mha_bwd(*c16, 2, scale)
+    want16 = attn_cuda.flash_mha_bwd_plain(*(x.float() for x in c16), 2, scale)
+    for name, gk, gp in zip(("dq", "dk", "dv"), got16, want16):
+        assert gk.dtype == torch.bfloat16 and _rel(gk.float(), gp) <= 1e-2, name
+    again16 = attn_cuda.flash_mha_bwd(*c16, 2, scale)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got16, again16))
+
+
+def test_flash_autograd_takes_strided_gradients(cuda):
+    """Through autograd, against autograd of the plain version; the output
+    gradient arrives as a transposed view."""
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    q, k, v, mask = _attn_operands(2, 256, 2, 64, torch.float32, cuda, 9)
+    gout = torch.randn(2, 128, 256, device=cuda).transpose(1, 2)  # (2, 256, 128), strided
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves, mask, 2, 0.125), leaves, gout)
+
+    for gk, gp in zip(grads(attn_cuda.flash_mha), grads(attn_cuda.flash_mha_plain)):
+        assert float((gk - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
+
+
+def test_flash_backward_refuses_bad_operands(cuda):
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    q, k, v, mask, o, m, l, do = _flash_bwd_case(1, 128, 64, torch.float32, cuda, 3)
+    for cast in (torch.Tensor.half, torch.Tensor.int):  # float16, and not a float at all
+        with pytest.raises(ValueError):
+            attn_cuda.flash_mha_bwd(*(cast(x) for x in (q, k, v)), mask, cast(o), m, l, cast(do),
+                                    2, 0.125)
+    with pytest.raises(ValueError):
+        attn_cuda.flash_mha_bwd(q, k, v, mask, o, m, l, do, 4, 0.125)  # head dim 32
+    with pytest.raises(ValueError):
+        attn_cuda.flash_mha_bwd(q, k, v, mask, o, m.double(), l, do, 2, 0.125)
+    with pytest.raises(ValueError):
+        attn_cuda.flash_mha_bwd(q, k, v, mask, o, m, l, do.bfloat16(), 2, 0.125)

@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_no_jax_package():
             "matcha_tts_tpu_torch.data.dataset",
             "matcha_tts_tpu_torch.data.statistics", "matcha_tts_tpu_torch.ops.attn_cuda",
             "matcha_tts_tpu_torch.inference.cli", "matcha_tts_tpu_torch.params.convert",
-            "matcha_tts_tpu_torch.utils.wav", "matcha_tts_tpu_torch.utils.fetch"} <= expected
+            "matcha_tts_tpu_torch.utils.wav", "matcha_tts_tpu_torch.utils.fetch",
+            "matcha_tts_tpu_torch.train.distill"} <= expected
     assert res["bad"] == []
 
 
@@ -58,9 +59,10 @@ def test_entry_points_default_to_cuda():
     from matcha_tts_tpu_torch.train.loop import fit
 
     from matcha_tts_tpu_torch.inference import cli as infer_cli
+    from matcha_tts_tpu_torch.train import distill
 
     for fn in (MatchaTTS, HiFiGANGenerator, init_vocoder, load_jax_tree, Synthesizer, fit,
                compute_mel_statistics, infer_cli.load_models):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
-    for main in (cli.main, infer_cli.main):
+    for main in (cli.main, infer_cli.main, distill.main):
         assert "cuda" in main.__code__.co_consts  # --device defaults to cuda
