@@ -83,7 +83,8 @@ Phases, each of which raises on failure (no phase catches and carries on):
    masks and an output gradient that is not zero at padded rows: fp32 max
    |diff| <= 1e-5 of each gradient's max |value|, bf16 relative L2 <= 1e-2,
    bitwise repeatable; timed beside the plain version, the bound and the
-   backward of `scaled_dot_product_attention` (see `check_flash_bwd`);
+   backward of `scaled_dot_product_attention`, with each kernel's TFLOP/s
+   and the whole backward's time over SDPA's (see `check_flash_bwd`);
 17. training in configuration (c), `DecoderConfig(attention_impl="flash")`,
    inside phase 9's function: six flash forwards per loss pass and six
    flash backwards per step, finite, the loss falling over 20 steps on one
@@ -1335,7 +1336,9 @@ def check_flash_bwd(reps: int) -> dict:
     whole: 10 B H T^2 D operations, dq 6, dk/dv 8, against the bytes of q,
     k, v, o, do, the gradients, m, l, di and the mask, each once) and the
     backward of `scaled_dot_product_attention` with the same additive
-    segment mask (a yardstick the port never calls)."""
+    segment mask (a yardstick the port never calls).  Each row also gives
+    dq's and dk/dv's TFLOP/s (over 6 and 8 B H T^2 D) and `vs_library`, the
+    whole backward's time over SDPA's."""
     import ctypes
 
     import torch
@@ -1405,7 +1408,9 @@ def check_flash_bwd(reps: int) -> dict:
                    bitwise_repeat=bitwise, ms=ms, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bounds["all"], dq_bound_ms=bounds["dq"],
                    dkv_bound_ms=bounds["dkv"], bound_by=bound_by["all"],
-                   dq_bound_by=bound_by["dq"], dkv_bound_by=bound_by["dkv"])
+                   dq_bound_by=bound_by["dq"], dkv_bound_by=bound_by["dkv"],
+                   dq_tflops=parts["dq"][0] / dq_ms * 1e-9,
+                   dkv_tflops=parts["dkv"][0] / dkv_ms * 1e-9, vs_library=ms / lib_ms)
         print(f"[flash_bwd] {json.dumps(row)}", flush=True)
         limit = ATTN_FP32 if dtype == torch.float32 else BF16_REL_L2
         if not (bitwise and max(errs.values()) <= limit):
@@ -1745,7 +1750,8 @@ def main() -> int:
             "bound_ms": sum(n * r[f"{part}_bound_ms"] for n, r in per_step),
             "bound_by": per_step[0][1][f"{part}_bound_by"],
             "library_ms": sum(n * r["library_ms"] for n, r in per_step),
-            "plain_and_library_cover": "the whole backward (dq, dk, dv)"})
+            "plain_and_library_cover": "the whole backward (dq, dk, dv)",
+            "design": "wgmma+tma, PR 5"})
     shapes = {
         "flash_mha_bwd_dkv": f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16",
         "flash_mha_bwd_dq": f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16",

@@ -38,24 +38,48 @@
 // dk = sum_q ds_cast q; dq = sum_k ds_cast k, where _cast rounds to the
 // input dtype (the P V rounding of the forward), fp32 sums, each gradient
 // cast once.  Two deterministic kernels, no atomics, so a gradient repeats
-// bit for bit: dq (with di as its prologue) takes one block per 64 query
-// rows of an (item, head) and walks the key tiles; dk/dv takes one block
-// per 64 keys, holds them in shared memory with dk and dv in fp32
-// registers, and walks the query tiles, reading the di the dq kernel wrote
-// (so dq launches first).  Each product is a 16-row warp tile of the
-// forward's layout: q k^T and do v^T (dkv: k q^T and v do^T) as
-// `dot_nt`, and the P V-shaped sums as `accumulate_pv` on a transposed
-// tile.  10 B H T^2 D operations; at the U-Net's shapes the key (query)
-// loop of one block is serial and its tiles are staged element by element,
-// so the kernels are far from both bounds (PERF.md).
+// bit for bit: dq (with di = rowsum(o * do) as its prologue) walks the key
+// tiles of its query rows; dk/dv walks the query tiles of its keys, reading
+// the di the dq kernel wrote (so dq launches first).  Both recompute q k^T
+// and do v^T, as upstream's split does: 14 B H T^2 D operations against the
+// least 10, the price of a gradient without atomics.
 //
-// Bound.  4 B H T^2 D operations against q, k, v and the output moved once:
-// at the U-Net's T (a few hundred to a few thousand frames, D = 64) the
+// bf16 backward (sm_90a).  Bound by the tensor cores: at the training
+// shapes (T = 512-1024, D = 64) the 14 B H T^2 D operations take 3-6x the
+// bytes' time.  A block has two consumer warpgroups of 64 rows each (dq:
+// 128 query rows; dk/dv: 128 keys, so each query tile is loaded once for
+// 128 keys) and one producer warp: 288 threads, one block per SM, so a
+// consumer thread may hold 224 registers without setmaxnreg.  The producer
+// feeds a ring of kStages stages under mbarriers: TMA loads of 64-row tiles
+// (dq: K and V; dk/dv: Q and dO) through a (D, H, T, B) tensor map with the
+// 128-byte swizzle, which zero-fills rows past T, and the streamed rows'
+// segment (and for dk/dv m, 1 / l, di) written by its lanes.  Every
+// product is a wgmma from the swizzled tiles: dq runs S = Q K^T and dP =
+// dO V^T from shared memory and dQ += dS K; dk/dv runs S^T = K Q^T and
+// dP^T = V dO^T and dV += P^T dO, dK += dS^T Q.  The second operand of the
+// accumulating products is the row-major tile read MN-major (the
+// descriptor's transpose), so no tile is ever transposed; their first
+// operand, P or dS, is the score accumulator rounded to bf16 in registers
+// (its layout is wgmma's A fragment).  One warpgroup's exp and rounded
+// elementwise steps overlap the other's wgmma, and the producer's next tile
+// overlaps both.  Tensor maps are encoded on the host per call
+// (cuTensorMapEncodeTiled, fetched at run time through the CUDA runtime, so
+// the library needs no -lcuda).
+//
+// fp32 backward.  wgmma has no fp32 and TF32 would break the 1e-5 bound, so
+// fp32 keeps the mma-free design: one block of 4 warps per 64 rows (keys),
+// 16-row warp tiles of FMAs from shared memory, tiles staged element by
+// element (transposed where a product needs it); far from its bound
+// (PERF.md).
+//
+// Bound (forward).  4 B H T^2 D operations against q, k, v and the output
+// moved once: at the U-Net's T (a few hundred to a few thousand frames, D = 64) the
 // tensor-core time and the bytes are of the same order, both far below the
 // launch and the sequential key loop of one block, so short sequences are
 // latency-bound.  The grid has T / 64 x H x B blocks; the key loop is not
 // split across blocks.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -414,30 +438,7 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
 
 // c[nt][e] = A[row] . B[col] over D for the warp's 16 rows of A (sA points
 // at the warp's first row) and the tile's 64 rows of B, both [.][qs] in
-// shared memory; the accumulator layout above.  bf16: mma.sync with the A
-// fragments loaded by ldmatrix; fp32: FMAs.
-template <int D>
-__device__ __forceinline__ void dot_nt(float (&c)[kKeys / 8][4], const bf16* sA, const bf16* sB,
-                                       int lane) {
-  constexpr int QS = Smem<bf16, D>::qs;
-  const int g = lane / 4, qd = lane % 4;
-#pragma unroll
-  for (int nt = 0; nt < kKeys / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
-  const bf16* ar = sA + (lane & 15) * QS + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    unsigned a[4];
-    ldmatrix_x4(smem_addr(ar + kk * 16), a);
-#pragma unroll
-    for (int nt = 0; nt < kKeys / 8; ++nt) {
-      const bf16* br = sB + (nt * 8 + g) * QS + kk * 16 + 2 * qd;
-      mma_bf16(c[nt], a, ld32(br), ld32(br + 8));
-    }
-  }
-}
-
+// shared memory, in the accumulator layout above; fp32 FMAs.
 template <int D>
 __device__ __forceinline__ void dot_nt(float (&c)[kKeys / 8][4], const float* sA, const float* sB,
                                        int lane) {
@@ -464,7 +465,7 @@ __device__ __forceinline__ void dot_nt(float (&c)[kKeys / 8][4], const float* sA
   }
 }
 
-// Shared memory of the backward kernels: four [64][qs] row tiles, the
+// Shared memory of the fp32 backward kernels: four [64][qs] row tiles, the
 // transposed tiles ([D][vs]; one for dq, two for dk/dv), four 64-entry
 // per-row arrays, and (fp32) the per-warp P tiles of accumulate_pv.
 template <typename T, int D>
@@ -499,20 +500,26 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // p = exp(s * scale + mask - m) * (1 / l) as upstream forms it (the scale
-// before the segment mask, m and l kept apart), 0 where `seg` < 0 (past the
-// end); ds = (dp - di) * p * scale.
+// before the segment mask, m and l kept apart); ds = (dp - di) * p * scale.
+// A key or query past the end has segment -1, which matches no other, so
+// its p is exp(-0.7 FLT_MAX - m) = 0 exactly (m is finite: every row sees
+// its own segment, and a row past the end has m = 0).  No branch, so the
+// compiler interleaves the steps of many elements.
+__device__ __forceinline__ float p_of(float s, int seg, int other_seg, float m, float rinv_l,
+                                      float scale) {
+  const float val = __fadd_rn(__fmul_rn(s, scale), seg == other_seg ? 0.f : kFlashMask);
+  return __fmul_rn(expf(__fsub_rn(val, m)), rinv_l);
+}
+__device__ __forceinline__ float ds_of(float dp, float p, float di, float scale) {
+  return __fmul_rn(__fmul_rn(__fsub_rn(dp, di), p), scale);
+}
 __device__ __forceinline__ void p_ds(float& s, float& dp, int seg, int other_seg, float m,
                                      float rinv_l, float di, float scale) {
-  float p = 0.f;
-  if (seg >= 0) {
-    const float val = __fadd_rn(__fmul_rn(s, scale), seg == other_seg ? 0.f : kFlashMask);
-    p = __fmul_rn(expf(__fsub_rn(val, m)), rinv_l);
-  }
-  s = p;
-  dp = __fmul_rn(__fmul_rn(__fsub_rn(dp, di), p), scale);
+  s = p_of(s, seg, other_seg, m, rinv_l, scale);
+  dp = ds_of(dp, s, di, scale);
 }
 
-// dq and di.  grid (ceil(t / 64), heads, B), kThreads threads.
+// dq and di, fp32 (T = float).  grid (ceil(t / 64), heads, B), kThreads threads.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -609,7 +616,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     }
 }
 
-// dk and dv.  grid (ceil(t / 64), heads, B), kThreads threads; each warp
+// dk and dv, fp32 (T = float).  grid (ceil(t / 64), heads, B), kThreads threads; each warp
 // owns 16 keys.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
@@ -699,6 +706,574 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     }
 }
 
+// ---------------------------------------------------------------------------
+// flash backward, bf16: TMA ring and wgmma (sm_90a)
+// ---------------------------------------------------------------------------
+
+constexpr int kWG = 128;                 // threads of a warpgroup
+constexpr int kBwdThreads = 2 * kWG + 32; // two consumer warpgroups, one producer warp
+constexpr int kBlockRows = 2 * kRows;    // rows (dq) or keys (dk/dv) of a block
+constexpr int kStages = 2;               // depth of the tile ring
+constexpr int kBox = 64 * 64 * 2;        // one TMA box: 64 rows x 64 bf16, 128-byte swizzle
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// arrives and adds `bytes` to the transactions the phase waits for
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Waits until the phase of parity `parity` has completed.  A wait that
+// never ends (a lost arrival) fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0; !mbar_try_wait(bar, parity); ++n)
+    if (n == (1u << 24)) __trap();
+}
+
+// One box (64 columns from c0, head c1, rows c2.., item c3) of a (D, H, T, B)
+// tensor map into shared memory; rows past T arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of d across a wgmma
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand.  K-major
+// (rows of 64 bf16 along K): SBO = 1024 bytes between 8-row groups, LBO
+// unused; a k step of 16 moves the start by 32 bytes inside the row.
+// MN-major (the same rows read with K = the row index): SBO = 1024 bytes
+// between groups of 8 K rows, LBO = one box (kBox) between the 64-column
+// halves of a 128-wide N.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, kBox, 1024);
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), both from shared memory,
+// K-major (tnspA = tnspB = 0); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 in registers, the accumulator
+// layout packed) B (16 x 64), B from shared memory MN-major (tnspB = 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const unsigned (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, fp32) += A (64 x 16, bf16 in registers, the accumulator
+// layout packed) B (16 x 128), B from shared memory MN-major (tnspB = 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const unsigned (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// Packs the accumulator columns [16 j, 16 j + 16) of a 64 x 64 tile (rounded
+// to bf16) as the A operand of one k step: the register layout of a wgmma
+// accumulator is that of its A fragment.
+__device__ __forceinline__ void pack_a(unsigned (&a)[4][4], const float (&c)[32]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[j][r] = pack_bf16(c[8 * j + 2 * r], c[8 * j + 2 * r + 1]);
+}
+
+// Shared memory of the bf16 backward kernels, from a 1024-byte aligned base:
+// `fixed` [2][D / 64][64 x 64] tiles loaded once (dq: Q and dO of its 128 rows;
+// dk/dv: K and V of its 128 keys), then a ring of kStages stages of two
+// streamed tiles (dq: K and V; dk/dv: Q and dO), then per stage the streamed
+// rows' statistics as 64-entry arrays (dq: the key segment; dk/dv: the query
+// segment, m, 1 / l and di), then the barriers: full[kStages],
+// empty[kStages] and one for the fixed tiles.
+template <int D>
+struct Sm90Smem {
+  static constexpr int tile = (D / 64) * kBox;  // one 64 x D tile
+  static constexpr int ring_off = 4 * tile;
+  static constexpr int stats_off = ring_off + kStages * 2 * tile;
+  static constexpr int stats_bytes = 4 * kRows * 4;
+  static constexpr int bar_off = stats_off + kStages * stats_bytes;
+  static constexpr int total = bar_off + (2 * kStages + 1) * 8 + 1024;  // + alignment slack
+  static_assert(total <= 232448, "bf16 backward: shared memory");
+};
+
+struct Ring {
+  uint32_t base;
+  __device__ uint32_t full(int s) const { return base + 8 * s; }
+  __device__ uint32_t empty(int s) const { return base + 8 * (kStages + s); }
+  __device__ uint32_t fixed() const { return base + 16 * kStages; }
+};
+
+// Prologue shared by both kernels: align the base, initialise the barriers.
+// full: the producer warp's 32 arrivals plus the TMA bytes; empty: every
+// consumer thread; fixed: one arrival plus the bytes.
+template <int D>
+__device__ __forceinline__ uint32_t sm90_setup(unsigned char* smem_raw, unsigned char*& smem,
+                                               Ring& ring) {
+  using L = Sm90Smem<D>;
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  smem = smem_raw + (base - raw);
+  ring.base = base + L::bar_off;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.full(s), 32);
+      mbar_init(ring.empty(s), 2 * kWG);
+    }
+    mbar_init(ring.fixed(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return base;
+}
+
+// Issues the loads of two 64 x D operand tiles, rows r0.. of item bi, head h,
+// to `dst` and `dst + gap` (each D / 64 boxes) on barrier `bar`.
+template <int D>
+__device__ __forceinline__ void load_pair(uint32_t dst, int gap, const CUtensorMap* a,
+                                          const CUtensorMap* b, uint32_t bar, int r0, int h,
+                                          int bi) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    tma_load(dst + c * kBox, a, bar, c * 64, h, r0, bi);
+    tma_load(dst + gap + c * kBox, b, bar, c * 64, h, r0, bi);
+  }
+}
+
+// S = A B^T over D for one warpgroup: A and B are 64 x D K-major tiles.
+template <int D>
+__device__ __forceinline__ void gemm_nt(float (&c)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(c, kmajor(a, kk), kmajor(b, kk), kk > 0);
+}
+
+// acc += A B for one warpgroup: A (64 x 64) packed in registers, B the
+// 64 x D tile read MN-major (no transposed copy).
+template <int D>
+__device__ __forceinline__ void gemm_rs(float (&acc)[D / 2], const unsigned (&a)[4][4],
+                                        uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wgmma_rs(acc, a[j], mnmajor(b, j));
+}
+
+// Writes a warpgroup's 64 x D fp32 accumulator as bf16 rows r0.. (< t).
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, size_t ld, const float (&acc)[D / 2], int r0,
+                                           int t) {
+  const int tid = threadIdx.x % kWG, lane = tid % 32;
+  const int row = r0 + (tid / 32) * 16 + lane / 4, col = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (row + 8 * hh < t)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8 * hh) * ld + 8 * j + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+}
+
+// dq and di, bf16.  grid (ceil(t / 128), heads, B), kBwdThreads threads:
+// warpgroups 0 and 1 own 64 query rows each, warp 8 feeds the key tiles.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_sm90(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ mask, const bf16* __restrict__ o, const bf16* __restrict__ dout,
+    const float* __restrict__ m, const float* __restrict__ l, float* __restrict__ di,
+    bf16* __restrict__ dq, int t, int heads, float scale) {
+  using L = Sm90Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem;
+  Ring ring;
+  const uint32_t base = sm90_setup<D>(smem_raw, smem, ring);
+  const int bi = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kBlockRows;
+  const int wg = threadIdx.x / kWG, n_tiles = (t + kKeys - 1) / kKeys;
+  const float* mb = mask + (size_t)bi * t;
+
+  if (wg == 2) {  // the producer warp
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_tx(ring.fixed(), 4 * L::tile);
+      for (int w = 0; w < 2; ++w)  // Q of warpgroup w at tile w, its dO at tile 2 + w
+        load_pair<D>(base + w * L::tile, 2 * L::tile, &tq, &tdo, ring.fixed(), r0 + w * kRows, h,
+                     bi);
+    }
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int s = kt % kStages;
+      int sg[2];  // this lane's keys' segments, read before the stage is free
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = kt * kKeys + lane + 32 * i;
+        sg[i] = key < t ? (mb[key] == 0.f ? 1 : 0) : -1;  // -1: past the end
+      }
+      mbar_wait(ring.empty(s), ((kt / kStages) & 1) ^ 1);
+      int* seg = reinterpret_cast<int*>(smem + L::stats_off + s * L::stats_bytes);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) seg[lane + 32 * i] = sg[i];
+      if (lane == 0) {
+        mbar_arrive_tx(ring.full(s), 2 * L::tile);
+        load_pair<D>(base + L::ring_off + s * 2 * L::tile, L::tile, &tk, &tv, ring.full(s),
+                     kt * kKeys, h, bi);
+      } else {
+        mbar_arrive(ring.full(s));
+      }
+    }
+    return;
+  }
+  const int tid = threadIdx.x % kWG, lane = tid % 32, qd = lane % 4;
+  const int row0 = r0 + wg * kRows + (tid / 32) * 16 + lane / 4;  // this thread's rows: + 0, + 8
+  const size_t ld = (size_t)heads * D;
+  const size_t off = (size_t)bi * t * ld + h * D;
+  const size_t srow = ((size_t)bi * heads + h) * t;
+
+  // di = rowsum(o * do) in fp32: each lane of a quad sums D / 4 columns of
+  // its rows with 16-byte loads, then the quad adds its four sums.
+  int qseg[2];
+  float mrow[2], rinv[2], drow[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const bool in = row < t;
+    float acc = 0.f;
+    if (in) {
+      const uint4* po = reinterpret_cast<const uint4*>(o + off + row * ld + qd * (D / 4));
+      const uint4* pd = reinterpret_cast<const uint4*>(dout + off + row * ld + qd * (D / 4));
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        const uint4 a = po[i], b = pd[i];
+        const bf16* x = reinterpret_cast<const bf16*>(&a);
+        const bf16* y = reinterpret_cast<const bf16*>(&b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc = fmaf(to_f(x[e]), to_f(y[e]), acc);
+      }
+    }
+    acc = quad_sum(acc);
+    if (in && qd == 0) di[srow + row] = acc;
+    qseg[hh] = in && mb[row] == 0.f ? 1 : 0;
+    mrow[hh] = in ? m[srow + row] : 0.f;
+    rinv[hh] = in ? __fdiv_rn(1.f, l[srow + row]) : 0.f;
+    drow[hh] = acc;
+  }
+
+  float adq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adq[i] = 0.f;
+  const uint32_t sq = base + wg * L::tile, sdo = base + (2 + wg) * L::tile;
+  mbar_wait(ring.fixed(), 0);
+#pragma unroll 1
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(ring.full(s), (kt / kStages) & 1);
+    const uint32_t sk = base + L::ring_off + s * 2 * L::tile, sv = sk + L::tile;
+    const int* seg = reinterpret_cast<const int*>(smem + L::stats_off + s * L::stats_bytes);
+    float sc[32], dp[32];
+    wg_fence();
+    gemm_nt<D>(sc, sq, sk);  // S = Q K^T
+    wg_commit();
+    gemm_nt<D>(dp, sdo, sv);  // dP = dO V^T
+    wg_commit();
+    wg_wait<1>();
+    reg_fence(sc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int2 sg = *reinterpret_cast<const int2*>(seg + 8 * j + 2 * qd);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * j + e] = p_of(sc[4 * j + e], e % 2 ? sg.y : sg.x, qseg[e / 2], mrow[e / 2],
+                             rinv[e / 2], scale);
+    }
+    wg_wait<0>();
+    reg_fence(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = ds_of(dp[i], sc[i], drow[(i % 4) / 2], scale);
+    unsigned a[4][4];
+    pack_a(a, dp);
+    wg_fence();
+    reg_fence(adq);
+    gemm_rs<D>(adq, a, sk);  // dQ += dS K
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(adq);
+    mbar_arrive(ring.empty(s));
+  }
+  store_rows<D>(dq + off, ld, adq, r0 + wg * kRows, t);
+}
+
+// dk and dv, bf16.  grid (ceil(t / 128), heads, B), kBwdThreads threads:
+// warpgroups 0 and 1 own 64 keys each (rows of the transposed scores), warp
+// 8 feeds the query tiles with their statistics.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_sm90(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ mask, const float* __restrict__ m, const float* __restrict__ l,
+    const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int heads,
+    float scale) {
+  using L = Sm90Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem;
+  Ring ring;
+  const uint32_t base = sm90_setup<D>(smem_raw, smem, ring);
+  const int bi = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBlockRows;
+  const int wg = threadIdx.x / kWG, n_tiles = (t + kRows - 1) / kRows;
+  const float* mb = mask + (size_t)bi * t;
+  const size_t srow = ((size_t)bi * heads + h) * t;
+
+  if (wg == 2) {  // the producer warp
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_tx(ring.fixed(), 4 * L::tile);
+      for (int w = 0; w < 2; ++w)  // K of warpgroup w at tile w, its V at tile 2 + w
+        load_pair<D>(base + w * L::tile, 2 * L::tile, &tk, &tv, ring.fixed(), k0 + w * kKeys, h,
+                     bi);
+    }
+    for (int qt = 0; qt < n_tiles; ++qt) {
+      const int s = qt % kStages;
+      int sg[2];  // this lane's rows' statistics, read before the stage is free
+      float mm[2], ri[2], dd[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = qt * kRows + lane + 32 * i;
+        const bool in = row < t;
+        sg[i] = in ? (mb[row] == 0.f ? 1 : 0) : -1;  // -1: past the end
+        mm[i] = in ? m[srow + row] : 0.f;
+        ri[i] = in ? __fdiv_rn(1.f, l[srow + row]) : 0.f;
+        dd[i] = in ? di[srow + row] : 0.f;
+      }
+      mbar_wait(ring.empty(s), ((qt / kStages) & 1) ^ 1);
+      float* st = reinterpret_cast<float*>(smem + L::stats_off + s * L::stats_bytes);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = lane + 32 * i;
+        reinterpret_cast<int*>(st)[r] = sg[i];
+        st[kRows + r] = mm[i];
+        st[2 * kRows + r] = ri[i];
+        st[3 * kRows + r] = dd[i];
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(ring.full(s), 2 * L::tile);
+        load_pair<D>(base + L::ring_off + s * 2 * L::tile, L::tile, &tq, &tdo, ring.full(s),
+                     qt * kRows, h, bi);
+      } else {
+        mbar_arrive(ring.full(s));
+      }
+    }
+    return;
+  }
+  const int tid = threadIdx.x % kWG, lane = tid % 32, qd = lane % 4;
+  const int key0 = k0 + wg * kKeys + (tid / 32) * 16 + lane / 4;  // this thread's keys: + 0, + 8
+  int kseg[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = key0 + 8 * hh;
+    kseg[hh] = key < t && mb[key] == 0.f ? 1 : 0;
+  }
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  const uint32_t sk = base + wg * L::tile, sv = base + (2 + wg) * L::tile;
+  mbar_wait(ring.fixed(), 0);
+#pragma unroll 1
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    const int s = qt % kStages;
+    mbar_wait(ring.full(s), (qt / kStages) & 1);
+    const uint32_t sq = base + L::ring_off + s * 2 * L::tile, sdo = sq + L::tile;
+    const float* st = reinterpret_cast<const float*>(smem + L::stats_off + s * L::stats_bytes);
+    float sc[32], dp[32];
+    wg_fence();
+    gemm_nt<D>(sc, sk, sq);  // S^T = K Q^T
+    wg_commit();
+    gemm_nt<D>(dp, sv, sdo);  // dP^T = V dO^T
+    wg_commit();
+    wg_wait<1>();
+    reg_fence(sc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * qd;
+      const int2 sg = *reinterpret_cast<const int2*>(reinterpret_cast<const int*>(st) + col);
+      const float2 mm = *reinterpret_cast<const float2*>(st + kRows + col);
+      const float2 ri = *reinterpret_cast<const float2*>(st + 2 * kRows + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[4 * j + e] = p_of(sc[4 * j + e], e % 2 ? sg.y : sg.x, kseg[e / 2], e % 2 ? mm.y : mm.x,
+                             e % 2 ? ri.y : ri.x, scale);
+    }
+    unsigned pa[4][4];
+    pack_a(pa, sc);
+    wg_wait<0>();
+    reg_fence(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dd = *reinterpret_cast<const float2*>(st + 3 * kRows + 8 * j + 2 * qd);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * j + e] = ds_of(dp[4 * j + e], sc[4 * j + e], e % 2 ? dd.y : dd.x, scale);
+    }
+    unsigned da[4][4];
+    pack_a(da, dp);
+    wg_fence();
+    reg_fence(adv);
+    reg_fence(adk);
+    gemm_rs<D>(adv, pa, sdo);  // dV += P^T dO
+    gemm_rs<D>(adk, da, sq);   // dK += dS^T Q
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(adv);
+    reg_fence(adk);
+    mbar_arrive(ring.empty(s));
+  }
+  const size_t ld = (size_t)heads * D;
+  const size_t off = (size_t)bi * t * ld + h * D;
+  store_rows<D>(dk + off, ld, adk, k0 + wg * kKeys, t);
+  store_rows<D>(dv + off, ld, adv, k0 + wg * kKeys, t);
+}
+
+// A (D, heads, t, B) view of a dense (B, t, heads * D) bf16 tensor, boxes of
+// 64 columns x 64 rows with the 128-byte swizzle; out-of-range rows read 0.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched at run time through the CUDA runtime, so
+// the library needs no -lcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+cudaError_t tensor_map(CUtensorMap* map, const void* x, int batch, int t, int heads, int d) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0) return cudaErrorMisalignedAddress;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)t, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)t * heads * d * 2};  // bytes, dims 1-3
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kRows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 struct BwdArgs {
   const void *q, *k, *v;
   const float* mask;
@@ -709,6 +1284,35 @@ struct BwdArgs {
   int batch, t, heads;
   float scale;
 };
+
+template <int D>
+cudaError_t bwd_launch_sm90(bool dq_pass, const BwdArgs& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  const void* srcs[4] = {a.q, a.k, a.v, a.dout};
+  CUtensorMap* maps[4] = {&tq, &tk, &tv, &tdo};
+  for (int i = 0; i < 4; ++i)
+    if ((err = tensor_map(maps[i], srcs[i], a.batch, a.t, a.heads, D)) != cudaSuccess) return err;
+  const dim3 grid((a.t + kBlockRows - 1) / kBlockRows, a.heads, a.batch);
+  constexpr int smem = Sm90Smem<D>::total;
+  if (dq_pass) {
+    if (reinterpret_cast<uintptr_t>(a.o) % 16 != 0) return cudaErrorMisalignedAddress;
+    auto kernel = flash_bwd_dq_sm90<D>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kBwdThreads, smem, stream>>>(
+        tq, tk, tv, tdo, a.mask, static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
+        a.m, a.l, a.di, static_cast<bf16*>(a.dq), a.t, a.heads, a.scale);
+  } else {
+    auto kernel = flash_bwd_dkv_sm90<D>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kBwdThreads, smem, stream>>>(tq, tk, tv, tdo, a.mask, a.m, a.l, a.di,
+                                                static_cast<bf16*>(a.dk),
+                                                static_cast<bf16*>(a.dv), a.t, a.heads, a.scale);
+  }
+  return cudaGetLastError();
+}
 
 template <typename T, int D>
 cudaError_t bwd_launch(bool dq_pass, const BwdArgs& a, cudaStream_t stream) {
@@ -743,8 +1347,8 @@ cudaError_t bwd_launch(bool dq_pass, const BwdArgs& a, cudaStream_t stream) {
 cudaError_t bwd_dispatch(bool dq_pass, int is_bf16, int d, const BwdArgs& a, cudaStream_t s) {
   if (a.t <= 0 || a.batch <= 0 || a.heads <= 0) return cudaErrorInvalidValue;
   if (is_bf16) {
-    if (d == 64) return bwd_launch<bf16, 64>(dq_pass, a, s);
-    if (d == 128) return bwd_launch<bf16, 128>(dq_pass, a, s);
+    if (d == 64) return bwd_launch_sm90<64>(dq_pass, a, s);
+    if (d == 128) return bwd_launch_sm90<128>(dq_pass, a, s);
   } else {
     if (d == 64) return bwd_launch<float, 64>(dq_pass, a, s);
     if (d == 128) return bwd_launch<float, 128>(dq_pass, a, s);

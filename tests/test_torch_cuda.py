@@ -354,24 +354,35 @@ def test_attention_wrapper_rejects_bad_operands(cuda):
         attn_cuda.flash_mha(q, k, v, mask, 4, 0.125)  # head dim 32
 
 
-def _flash_bwd_case(b, t, d, dtype, dev, seed):
+def _flash_bwd_case(b, t, d, dtype, dev, seed, lengths=None):
     """Operands, the forward's residuals and a non-zero output gradient at
-    every row, padded rows included."""
+    every row, padded rows included; `lengths` replaces the default ragged
+    key mask."""
     from matcha_tts_tpu_torch.ops import attn_cuda
 
     q, k, v, mask = _attn_operands(b, t, 2, d, dtype, dev, seed)
+    if lengths is not None:
+        mask = (torch.arange(t)[None] < torch.tensor(lengths)[:, None]).float().to(dev)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
     do = torch.randn(b, t, 2 * d, generator=g).to(dev, dtype)
     o, m, l = attn_cuda.flash_mha_fwd(q, k, v, mask, 2, d ** -0.5)
     return q, k, v, mask, o, m, l, do
 
 
-@pytest.mark.parametrize("b,t,d", [(1, 128, 64), (3, 384, 64), (3, 128, 128), (1, 384, 128)])
-def test_flash_backward_kernels_match_plain(cuda, b, t, d):
+# The bf16 kernels take 128 rows (dq) or keys (dk/dv) per block in two
+# 64-row warpgroups and stream 64-row tiles: (2, 1024) is the training
+# shape; 640 gives an odd number of 128-row blocks; 200 ends inside a tile
+# (the wrapper takes it by a direct call); lengths pad one item over whole
+# tiles and leave one unpadded.
+@pytest.mark.parametrize("b,t,d,lengths", [
+    (1, 128, 64, None), (3, 384, 64, None), (3, 128, 128, None), (1, 384, 128, None),
+    (2, 1024, 64, None), (3, 640, 64, None), (1, 200, 64, None), (2, 512, 128, None),
+    (3, 384, 64, (384, 40, 300)), (2, 640, 128, (100, 640))])
+def test_flash_backward_kernels_match_plain(cuda, b, t, d, lengths):
     from matcha_tts_tpu_torch.ops import attn_cuda
 
     scale = d ** -0.5
-    case = _flash_bwd_case(b, t, d, torch.float32, cuda, t + d)
+    case = _flash_bwd_case(b, t, d, torch.float32, cuda, t + d, lengths)
     n0 = attn_cuda.LAUNCHES["flash_mha_bwd"]
     got = attn_cuda.flash_mha_bwd(*case, 2, scale)
     torch.cuda.synchronize()
@@ -383,7 +394,7 @@ def test_flash_backward_kernels_match_plain(cuda, b, t, d):
     again = attn_cuda.flash_mha_bwd(*case, 2, scale)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # bit for bit
     # bf16: its own forward's residuals; the plain backward in fp32 on them
-    c16 = _flash_bwd_case(b, t, d, torch.bfloat16, cuda, t + d)
+    c16 = _flash_bwd_case(b, t, d, torch.bfloat16, cuda, t + d, lengths)
     got16 = attn_cuda.flash_mha_bwd(*c16, 2, scale)
     want16 = attn_cuda.flash_mha_bwd_plain(*(x.float() for x in c16), 2, scale)
     for name, gk, gp in zip(("dq", "dk", "dv"), got16, want16):

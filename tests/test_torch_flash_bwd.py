@@ -12,7 +12,8 @@ not zero at padded rows, where padded queries attend over the padded keys
 and feed those keys' dk and dv.  Tolerances: fp32 atol 1e-5 at every
 position; bf16 (the same bf16 operands on both sides) relative L2 <= 1e-2
 per gradient; and fp32 atol 1e-5 against torch autograd through
-`flash_mha_plain`.  The kernels are held to the plain version on the card
+`flash_mha_plain`.  Head dims 64 and 128 (the two the kernels take; 128 at
+T = 128 only, to keep the interpreter's time down).  The kernels are held to the plain version on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py`)."""
 
 import jax
@@ -29,23 +30,24 @@ HEADS, DIM_HEAD = 2, 64
 SCALE = DIM_HEAD ** -0.5
 
 
-def _case(t, lengths, seed):
+def _case(t, lengths, seed, d=DIM_HEAD):
     rng = np.random.default_rng(seed)
     b = len(lengths)
-    q, k, v, do = (rng.standard_normal((b, t, HEADS * DIM_HEAD)).astype(np.float32)
+    q, k, v, do = (rng.standard_normal((b, t, HEADS * d)).astype(np.float32)
                    for _ in range(4))
     mask = (np.arange(t)[None] < np.asarray(lengths)[:, None]).astype(np.float32)
     return q, k, v, mask, do
 
 
 def _jax_grads(q, k, v, mask, do, dtype):
-    b, t, _ = q.shape
-    split = lambda a: jnp.asarray(a, dtype).reshape(b, t, HEADS, DIM_HEAD)  # noqa: E731
+    b, t, inner = q.shape
+    d = inner // HEADS
+    split = lambda a: jnp.asarray(a, dtype).reshape(b, t, HEADS, d)  # noqa: E731
 
     @jax.jit
     def grads(qq, kk, vv, dd):
-        _, vjp = jax.vjp(lambda x, y, z: jflash_mha(x, y, z, jnp.asarray(mask), sm_scale=SCALE),
-                         qq, kk, vv)
+        _, vjp = jax.vjp(lambda x, y, z: jflash_mha(x, y, z, jnp.asarray(mask),
+                                                    sm_scale=d ** -0.5), qq, kk, vv)
         return [g.astype(jnp.float32) for g in vjp(dd)]
 
     # one jitted call, waited for inside the context: eager dispatch beside
@@ -58,9 +60,10 @@ def _jax_grads(q, k, v, mask, do, dtype):
 def _port_grads(q, k, v, mask, do, dtype):
     q, k, v, do = (torch.from_numpy(a).to(dtype) for a in (q, k, v, do))
     mask = torch.from_numpy(mask)
-    o, m, l = attn_cuda.flash_mha_fwd(q, k, v, mask, HEADS, SCALE)
+    scale = (q.shape[2] // HEADS) ** -0.5
+    o, m, l = attn_cuda.flash_mha_fwd(q, k, v, mask, HEADS, scale)
     assert m.dtype == l.dtype == torch.float32 and m.shape == (q.shape[0], HEADS, q.shape[1])
-    grads = attn_cuda.flash_mha_bwd(q, k, v, mask, o, m, l, do, HEADS, SCALE)
+    grads = attn_cuda.flash_mha_bwd(q, k, v, mask, o, m, l, do, HEADS, scale)
     assert all(g.dtype == dtype for g in grads)
     return [g.float().numpy() for g in grads]
 
@@ -69,9 +72,11 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-@pytest.mark.parametrize("t,lengths", [(128, [77, 128]), (256, [256, 141])])
-def test_flash_bwd_plain_matches_jax_kernels(t, lengths):
-    q, k, v, mask, do = _case(t, lengths, t)
+@pytest.mark.parametrize("t,lengths,d", [(128, [77, 128], 64), (256, [256, 141], 64),
+                                         (128, [77, 128], 128)],
+                         ids=["128-lengths0", "256-lengths1", "128-d128"])
+def test_flash_bwd_plain_matches_jax_kernels(t, lengths, d):
+    q, k, v, mask, do = _case(t, lengths, t, d)
     for name, got, want in zip("qkv", _port_grads(q, k, v, mask, do, torch.float32),
                                _jax_grads(q, k, v, mask, do, jnp.float32)):
         np.testing.assert_allclose(got, want, atol=1e-5, err_msg=f"d{name}")
