@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (matcha_tts_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py            # a few minutes on an H100, build included
+    python3 chip_smoke.py                   # a few minutes on an H100, build included
+    python3 chip_smoke.py --attention-only  # phases 1, 2 (attention only) and 11
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
@@ -60,10 +61,13 @@ Phases, each of which raises on failure (no phase catches and carries on):
    codes), and SNR >= 35 dB against the exact kernel; timed beside the plain
    version and the bound;
 11. the attention kernels (whole-row "vmem" at B in {1, 8}, T up to 4096;
-   "flash" up to 2048; H=2, D=64, ragged key masks) against their plain
-   versions: fp32 max |diff| <= 1e-5 of the output's scale at every row,
-   bf16 relative L2 <= 1e-2; timed beside the plain version, the bound and
-   `scaled_dot_product_attention` with the same additive mask;
+   "flash" up to 2048; (c)'s bf16 (64, 512) and (64, 1024); distillation's
+   fp32 (16, 256) and (16, 512); T = 72 and 200 and items of length 0; H=2,
+   D=64, ragged key masks) against their plain versions: fp32 max |diff| <=
+   1e-5 of the output's scale at every row, bf16 relative L2 <= 1e-2, flash's
+   fp32 row statistics m, l within 1e-5 of their scale; timed beside the
+   plain version, the bound and `scaled_dot_product_attention` with the same
+   additive mask (see `check_attention`);
 12. the fp32 level kernel of the tap mode at (1, 65536, 64) and (1, 131072,
    32) against its plain version, max |diff| <= 1e-4, timed;
 13. serving at full width in the four forced modes (int8, tap, vmem, flash),
@@ -151,6 +155,9 @@ INT8_E2E_SNR_DB = 25.0  # int8 serving against the default, audible generator
 ATTN_FP32 = 1e-5        # attention kernels vs plain, fp32: of the output's scale
 ATTN_VMEM_T = (256, 512, 1024, 2048, 4096)
 ATTN_FLASH_T = (256, 512, 1024, 2048)
+ATTN_TRAIN_SHAPES = ((64, 512), (64, 1024))   # (B, T) of (c)'s flash forwards, bf16
+ATTN_DISTILL_SHAPES = ((16, 256), (16, 512))  # distillation's fp32 forwards
+ATTN_EDGE_CASES = ((72, (0, 41, 72)), (200, (200, 0, 131)), (512, (0, 300)))  # (T, lengths)
 TAP_ATOL = 1e-4
 FORCED_SENTENCES = 3  # sentences per forced mode in phase 13
 FORCED_MEL_REL_L2 = 1e-2
@@ -1029,81 +1036,165 @@ def check_int8_kernels(t_y: int, reps: int) -> dict:
     return table
 
 
-def attention_inputs(b, t, dtype, dev, seed, d=64, n=3):
+def attention_inputs(b, t, dtype, dev, seed, d=64, n=3, lengths=None):
     """n tensors (B, T, 2 * d) (q, k, v and, with n = 4, an output gradient)
-    and a ragged key mask (lengths from 0.6 T to T - 1)."""
+    and a key mask: ragged lengths from 0.6 T to T - 1, or `lengths`."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     xs = [torch.randn(b, t, 2 * d, generator=g, device=dev).to(dtype) for _ in range(n)]
-    lengths = torch.linspace(int(0.6 * t), t - 1, b, device=dev).long()
+    if lengths is None:
+        lengths = torch.linspace(int(0.6 * t), t - 1, b, device=dev).long()
+    else:
+        lengths = torch.tensor(lengths, device=dev)
     mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).float()
     return (*xs, mask)
 
 
-def check_attention(reps: int) -> dict:
-    """Phase 11: the attention kernels against their plain versions, H = 2,
-    D = 64, ragged key masks; fp32 max |diff| <= 1e-5 of the output's scale
-    at every row (vmem: padded rows included; flash: padded rows finite and
-    equal to the plain segment-id rows), bf16 relative L2 <= 1e-2.  Timed in
-    bf16 beside the plain version, the bound (4 B H T^2 D operations at 989
-    TFLOP/s against q, k, v, the mask and the output moved once) and
-    `scaled_dot_product_attention` with the same additive mask (a yardstick
-    the port never calls)."""
+def attention_bias(impl: str, mask, dtype):
+    """The additive mask SDPA takes for each kernel's semantics: -1e30 on
+    masked keys (vmem), -0.7 FLT_MAX where the segments differ (flash)."""
+    import torch
+
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    if impl == "vmem":
+        bias = torch.where(mask == 0, attn_cuda.VMEM_NEG, 0.0)[:, None, None, :]
+    else:
+        seg = mask == 0
+        bias = torch.where(seg[:, :, None] == seg[:, None, :], 0.0, attn_cuda.FLASH_MASK)[:, None]
+    return bias.to(dtype)
+
+
+def attention_check(impl: str, b: int, t: int, seed: int, dtypes=("fp32", "bf16"),
+                    lengths=None) -> dict:
+    """One phase-11 case, H = 2, D = 64: the kernel against its plain version
+    on the same operands.  fp32: max |diff| over every row (padded rows
+    included) <= 1e-5 of the output's max |value|; bf16: relative L2 <= 1e-2
+    against the plain version on the same bf16 operands; flash also holds
+    the fp32 row statistics m, l of `flash_mha_fwd` to the plain version's,
+    max |diff| <= 1e-5 of their max |value|.  Raises on a miss."""
+    import torch
+
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    heads, d = 2, 64
+    scale = d ** -0.5
+    kern = getattr(attn_cuda, f"{impl}_mha")
+    plain = getattr(attn_cuda, f"{impl}_mha_plain")
+    q, k, v, mask = attention_inputs(b, t, torch.float32, "cuda", seed, lengths=lengths)
+    row, ok = {}, True
+    for tag in dtypes:
+        x = (q, k, v) if tag == "fp32" else tuple(z.bfloat16() for z in (q, k, v))
+        got = kern(*x, mask, heads, scale)
+        torch.cuda.synchronize()
+        ref = plain(*x, mask, heads, scale)
+        row["finite"] = row.get("finite", True) and bool(torch.isfinite(got).all())
+        if tag == "fp32":
+            row["fp32_max_abs_err"] = float((got - ref).abs().max())
+            row["fp32_max_rel_err"] = row["fp32_max_abs_err"] / float(ref.abs().max())
+            ok &= row["fp32_max_rel_err"] <= ATTN_FP32
+        else:
+            row["bf16_rel_l2"] = rel_l2(got.float(), ref.float())
+            ok &= row["bf16_rel_l2"] <= BF16_REL_L2
+        if impl == "flash":
+            _, m, l = attn_cuda.flash_mha_fwd(*x, mask, heads, scale)
+            _, pm, pl = attn_cuda.flash_mha_plain(*x, mask, heads, scale, return_stats=True)
+            for name, a, want in (("m", m, pm), ("l", l, pl)):
+                err = float((a - want).abs().max()) / float(want.abs().max())
+                row[f"{tag}_{name}_max_rel_err"] = err
+                ok &= err <= ATTN_FP32
+        del got, ref
+    ok &= row["finite"]
+    if not ok:
+        raise AssertionError(f"{impl} B={b} T={t} lengths={lengths}: {row}")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def attention_timing(impl: str, b: int, t: int, dtype, seed: int, reps: int,
+                     stats: bool = False) -> dict:
+    """Times one kernel launch (flash with the row statistics where `stats`,
+    as training runs it) with CUDA events beside the plain version, the
+    bound (4 B H T^2 D operations at the type's peak, 989 TFLOP/s bf16 on
+    the tensor cores or 67 TFLOP/s fp32 on FMAs, against q, k, v, the mask
+    and the output moved once) and `scaled_dot_product_attention` with the
+    same additive mask (a yardstick the port never calls; TF32 is off, so
+    fp32 SDPA is fp32)."""
     import torch
     import torch.nn.functional as F
 
     from matcha_tts_tpu_torch.ops import attn_cuda
 
-    dev = torch.device("cuda")
     heads, d = 2, 64
     scale = d ** -0.5
-    rows = {}
+    q, k, v, mask = attention_inputs(b, t, dtype, "cuda", seed)
+    if stats:
+        kern = lambda: attn_cuda.flash_mha_fwd(q, k, v, mask, heads, scale)  # noqa: E731
+    else:
+        fn = getattr(attn_cuda, f"{impl}_mha")
+        kern = lambda: fn(q, k, v, mask, heads, scale)  # noqa: E731
+    plain = getattr(attn_cuda, f"{impl}_mha_plain")
+    qh, kh, vh = (z.view(b, t, heads, d).transpose(1, 2) for z in (q, k, v))
+    bias = attention_bias(impl, mask, dtype)
+    n = max(reps, 20)
+    ms = cuda_ms(kern, n)
+    plain_ms = cuda_ms(lambda: plain(q, k, v, mask, heads, scale), reps)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias,
+                                                            scale=scale), n)
+    elem = q.element_size()
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    ops = 4 * b * heads * t * t * d
+    nbytes = elem * 4 * b * t * heads * d + 4 * b * t
+    del q, k, v, mask, qh, kh, vh, bias
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=max(ops / peak, nbytes / PEAK_BYTES) * 1e3,
+                bound_by="operations" if ops / peak >= nbytes / PEAK_BYTES else "bytes",
+                tflops=ops / ms * 1e-9, vs_library=ms / lib_ms)
+
+
+def check_attention(reps: int) -> dict:
+    """Phase 11: the attention kernels against their plain versions, H = 2,
+    D = 64, with the bounds of `attention_check` at every case:
+
+    * "grid": vmem at B in {1, 8} and T up to 4096, flash up to 2048, ragged
+      key masks, both types; timed in bf16 (the batch-1 rows make the
+      per-estimator-pass reading of the kernels line);
+    * "train": (c)'s bf16 shapes (64, 512) and (64, 1024), both modes;
+    * "distill": distillation's fp32 shapes (16, 256) and (16, 512), both
+      modes (these two groups time flash with its row statistics, as
+      training runs it);
+    * "edge": T = 72 and 200 (ends inside a 64-key tile; TMA zero-fills the
+      rest) and items of length 0, both modes and types; not timed.
+
+    Every timed row has `attention_timing`'s keys."""
+    import torch
+
+    rows = {"grid": {}, "train": {}, "distill": {}, "edge": {}}
     for impl, ts in (("vmem", ATTN_VMEM_T), ("flash", ATTN_FLASH_T)):
-        kern = getattr(attn_cuda, f"{impl}_mha")
-        plain = getattr(attn_cuda, f"{impl}_mha_plain")
         for b in (1, 8):
             for t in ts:
-                q, k, v, mask = attention_inputs(b, t, torch.float32, dev, b * 10000 + t)
-                got = kern(q, k, v, mask, heads, scale)
-                torch.cuda.synchronize()
-                ref = plain(q, k, v, mask, heads, scale)
-                abs_err = float((got - ref).abs().max())
-                err = abs_err / float(ref.abs().max())
-                finite = bool(torch.isfinite(got).all())
-                q16, k16, v16 = (z.bfloat16() for z in (q, k, v))
-                got16 = kern(q16, k16, v16, mask, heads, scale)
-                rel16 = rel_l2(got16.float(), plain(q16, k16, v16, mask, heads, scale).float())
-                del q, k, v, got, ref
-                # the library yardstick: SDPA on (B, H, T, D) views with the additive mask
-                qh, kh, vh = (z.view(b, t, heads, d).transpose(1, 2) for z in (q16, k16, v16))
-                if impl == "vmem":
-                    bias = torch.where(mask == 0, attn_cuda.VMEM_NEG, 0.0)[:, None, None, :]
-                else:
-                    seg = mask == 0
-                    bias = torch.where(seg[:, :, None] == seg[:, None, :], 0.0,
-                                       attn_cuda.FLASH_MASK)[:, None]
-                bias = bias.bfloat16()
-                n = max(reps, 20)
-                ms = cuda_ms(lambda: kern(q16, k16, v16, mask, heads, scale), n)
-                plain_ms = cuda_ms(lambda: plain(q16, k16, v16, mask, heads, scale), reps)
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=bias, scale=scale), n)
-                ops = 4 * b * heads * t * t * d
-                nbytes = 2 * 4 * b * t * heads * d + 4 * b * t
-                row = dict(impl=impl, batch=b, t=t, heads=heads, dim_head=d,
-                           fp32_max_abs_err=abs_err, fp32_max_rel_err=err, bf16_rel_l2=rel16, finite=finite, ms=ms,
-                           plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3,
-                           bound_by="operations" if ops / PEAK_BF16 >= nbytes / PEAK_BYTES
-                           else "bytes")
-                print(f"[attn] {json.dumps(row)}", flush=True)
-                if not (finite and err <= ATTN_FP32 and rel16 <= BF16_REL_L2):
-                    raise AssertionError(f"{impl} B={b} T={t}: fp32 err {err} of scale, bf16 rel"
-                                         f" L2 {rel16}, finite {finite}")
-                rows[(impl, b, t)] = row
-                del q16, k16, v16, qh, kh, vh, bias
-                torch.cuda.empty_cache()
+                row = attention_check(impl, b, t, b * 10000 + t)
+                row.update(attention_timing(impl, b, t, torch.bfloat16, b * 10000 + t + 1, reps))
+                rows["grid"][(impl, b, t)] = row
+                print(f"[attn] {json.dumps(dict(impl=impl, batch=b, t=t, **row))}", flush=True)
+        for group, shapes, dtype in (("train", ATTN_TRAIN_SHAPES, torch.bfloat16),
+                                     ("distill", ATTN_DISTILL_SHAPES, torch.float32)):
+            for b, t in shapes:
+                tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+                row = attention_check(impl, b, t, 7 * t + b, dtypes=(tag,))
+                row.update(attention_timing(impl, b, t, dtype, 7 * t + b + 1, reps,
+                                            stats=impl == "flash"))
+                rows[group][(impl, b, t)] = row
+                print(f"[attn {group}] {json.dumps(dict(impl=impl, batch=b, t=t, dtype=tag, **row))}",
+                      flush=True)
+        for t, lengths in ATTN_EDGE_CASES:
+            row = attention_check(impl, len(lengths), t, 3 * t, lengths=lengths)
+            rows["edge"][(impl, t, lengths)] = row
+            print(f"[attn edge] {json.dumps(dict(impl=impl, t=t, lengths=lengths, **row))}",
+                  flush=True)
     return rows
 
 
@@ -1628,8 +1719,9 @@ def main() -> int:
 
     from matcha_tts_tpu_torch.ops import cuda_build, mrf_cuda
 
+    attention_only = "--attention-only" in sys.argv[1:]
     t0 = time.perf_counter()
-    paths = cuda_build.build_all()
+    paths = cuda_build.build_all(["attention"] if attention_only else cuda_build.SOURCES)
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s: "
           f"{[p.name for p in paths.values()]}", flush=True)
     for name in paths:
@@ -1641,6 +1733,10 @@ def main() -> int:
 
     from matcha_tts_tpu_torch.config import MatchaConfig
 
+    if attention_only:  # phase 11 alone, for work on the attention kernels
+        check_attention(REPS)
+        print(card)
+        return 0
     table = check_kernels(T_Y, REPS)
     int8_table = check_int8_kernels(T_Y, REPS)
     attn_rows = check_attention(REPS)
@@ -1718,21 +1814,34 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in tap_rows), "bound_by": tap_rows[0]["bound_by"],
         "library_ms": None})
     # attention: one estimator pass at the 512-frame bucket, batch 1 (2 blocks
-    # at T = 512, 4 at T = 256)
+    # at T = 512, 4 at T = 256), and one (c) training step's flash forwards (2
+    # at (64, 1024), 4 at (64, 512), bf16; vmem at the same shapes beside it)
     for impl, line in (("vmem", "attn_vmem.py:85"), ("flash", "attention.py:44")):
-        per_pass = [(2, attn_rows[(impl, 1, T_Y)]), (4, attn_rows[(impl, 1, T_Y // 2)])]
+        grid = attn_rows["grid"]
+        per_pass = [(2, grid[(impl, 1, T_Y)]), (4, grid[(impl, 1, T_Y // 2)])]
+        per_step = [(2, attn_rows["train"][(impl, 64, BLOCK_T)]),
+                    (4, attn_rows["train"][(impl, 64, BLOCK_T // 2)])]
+        launches = forced["launches"][impl][f"{impl}_mha"]
+        if impl == "flash":
+            launches += (train["launches"]["c"]["flash_mha"]
+                         + sum(c["flash_mha"] for c in dist["launches"].values()))
         kernels.append({
             "name": f"{impl}_mha", "route": "cuda",
             "source": "matcha_tts_tpu_torch/csrc/attention.cu",
             "replaces": f"matcha_tts_tpu/ops/pallas/{line}",
-            "launches": forced["launches"][impl][f"{impl}_mha"],
-            "max_abs_err": max(r["fp32_max_abs_err"] for (i, _, _), r in attn_rows.items()
-                               if i == impl),
+            "launches": launches,
+            "max_abs_err": max(r["fp32_max_abs_err"] for group in attn_rows.values()
+                               for (i, *_), r in group.items()
+                               if i == impl and "fp32_max_abs_err" in r),
             "ms": sum(n * r["ms"] for n, r in per_pass),
             "plain_ms": sum(n * r["plain_ms"] for n, r in per_pass),
             "bound_ms": sum(n * r["bound_ms"] for n, r in per_pass),
             "bound_by": per_pass[0][1]["bound_by"],
-            "library_ms": sum(n * r["library_ms"] for n, r in per_pass)})
+            "library_ms": sum(n * r["library_ms"] for n, r in per_pass),
+            "train_step_ms": sum(n * r["ms"] for n, r in per_step),
+            "train_step_library_ms": sum(n * r["library_ms"] for n, r in per_step),
+            "train_step_bound_ms": sum(n * r["bound_ms"] for n, r in per_step),
+            "design": "wgmma+tma, PR 6"})
     # the flash backward: one training step of (c), B = 64 in the (256, 1024)
     # bucket, bf16 (2 launches of each kernel at T = 1024, 4 at T = 512)
     per_step = [(2, bwd_rows["train T bfloat16"]), (4, bwd_rows["train T/2 bfloat16"])]
@@ -1763,8 +1872,11 @@ def main() -> int:
         "mrf_int8": f"(1, {64 * T_Y}, 128) bf16",
         "mrf_up_int8": f"128 -> 64 at {128 * T_Y} bf16; 64 -> 32 + tail at {256 * T_Y} fp32",
         "mrf_tap": f"(1, {128 * T_Y}, 64) and (1, {256 * T_Y}, 32) fp32",
-        "vmem_mha": f"2 x (1, {T_Y}, 2 x 64) + 4 x (1, {T_Y // 2}, 2 x 64) bf16",
-        "flash_mha": f"2 x (1, {T_Y}, 2 x 64) + 4 x (1, {T_Y // 2}, 2 x 64) bf16",
+        "vmem_mha": f"2 x (1, {T_Y}, 2 x 64) + 4 x (1, {T_Y // 2}, 2 x 64) bf16; train_step: "
+                    f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16",
+        "flash_mha": f"2 x (1, {T_Y}, 2 x 64) + 4 x (1, {T_Y // 2}, 2 x 64) bf16; train_step: "
+                     f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16 "
+                     f"with the row statistics",
     }
     for k in kernels:
         k["shapes"] = shapes[k["name"]]

@@ -12,22 +12,49 @@
 //   padded (a padded query attends over the padded keys); unseen keys get an
 //   additive -0.7 * FLT_MAX after the scale.
 //
-// Design.  One block of 4 warps owns 64 query rows of one (item, head) and
-// walks the keys in tiles of 64 staged in shared memory (K row-major, V
-// transposed); shared memory does not grow with T.  Each warp owns 16 query
-// rows: its 16 x 64 score tile and its 16 x D output stay in registers in
-// the mma.sync accumulator layout.  "vmem" makes two passes over the keys:
-// the first takes each row's max and its sum of exp(s - max) (rescaled as
-// the max grows), the second recomputes the scores, forms
-// p = exp(s - max) / sum, rounds p to the V dtype and accumulates P V, so p
-// rounds as the JAX kernel's plain softmax does.  "flash" makes one pass
-// with FlashAttention-2's running max, sum and output rescaling, and
-// divides by the sum at the end.
+// bf16 forward (sm_90a), both modes in one kernel, attention_fwd_sm90.
+// Bound: 4 B H T^2 D operations on the tensor cores (6 for vmem, whose
+// second pass recomputes Q K^T) against q, k, v and the output moved once:
+// at 989 TFLOP/s and 3.35 TB/s the operations take T / 590 of the bytes'
+// time, so the U-Net's T = 256-512 blocks are bound by the bytes and T >=
+// 1024 by the operations (7x the bytes at 4096).  In practice the exp and
+// the rounded elementwise steps on each score take longer than the
+// operations on the tensor cores, and a batch-1 launch (8-16 blocks) is
+// bound by its latency: the key loop of one block.  A block keeps 128 query
+// rows in two consumer warpgroups of 64 rows (the Q tiles are loaded once)
+// plus one producer warp: 288 threads.  The producer feeds a ring of
+// kFwdStages (3) stages under mbarriers with TMA loads of 64-key tiles (K
+// and, where the pass needs it, V) through a (D, H, T, B) tensor map with
+// the 128-byte swizzle, which zero-fills rows past T, and its lanes write a
+// word per streamed key (flash: its segment, -1 past the end; vmem: its
+// bias, -inf past the end), so a key past the end is masked by its word,
+// never by its score of 0.  Both products are wgmma from the
+// swizzled tiles: S = Q K^T with both operands from shared memory, and O +=
+// P V with P the score accumulator rounded to bf16 in registers (wgmma's
+// accumulator layout is its A fragment's) and V read MN-major through the
+// descriptor's transpose bit, so no tile is restaged or transposed.  The P V
+// loop is software-pipelined: a warpgroup issues tile n's S with tile n - 1's
+// P V, so tile n's exp steps run while that P V is on the tensor cores (it
+// holds two tiles of the ring, hence three stages); the other warpgroup's
+// steps and the producer's loads overlap both.  The scores are kept in log2
+// units (the scale times log2 e, the mask added after it), so each p is one
+// ex2 on the multi-function unit, within a few ulps of exp: inside the bf16
+// bound, and the fp32 row statistics, written back in natural units, stay
+// within 1e-6 of the plain version's.
+// "flash" makes one pass with FlashAttention-2's running max, sum and output
+// rescaling and divides by the sum at the end (writing each row's fp32 max m
+// and sum l when the backward needs them).  "vmem" streams the keys twice:
+// a first loop over K alone builds each row's max and sum, then the P V loop
+// over K and V forms p = exp(s - max) / sum, correctly rounded (div_rn), so
+// p rounds as the JAX kernel's plain softmax does; the ring's phases follow
+// the count of streamed tiles across both passes.  Each loop's control flow
+// is uniform in the warpgroup: a wgmma behind a data-dependent branch is
+// serialised by ptxas.
 //
-// Arithmetic.  bf16 runs both products on the tensor cores (mma.sync
-// m16n8k16, fp32 sums; the P operand is the score accumulator repacked to
-// bf16 in registers).  fp32 runs FMAs from shared memory in the same
-// ownership layout, with P through a per-warp shared tile.
+// fp32 forward.  wgmma has no fp32 and TF32 would break the 1e-5 bound, so
+// fp32 keeps the mma-free design: one block of 4 warps per 64 query rows,
+// 16-row warp tiles of FMAs from shared memory, each 64-key tile staged
+// element by element (V transposed), the same two modes.
 //
 // Backward (flash only).  Replaces the two kernels of JAX's upstream flash
 // attention backward, _flash_attention_bwd_dq and _flash_attention_bwd_dkv
@@ -46,38 +73,23 @@
 //
 // bf16 backward (sm_90a).  Bound by the tensor cores: at the training
 // shapes (T = 512-1024, D = 64) the 14 B H T^2 D operations take 3-6x the
-// bytes' time.  A block has two consumer warpgroups of 64 rows each (dq:
-// 128 query rows; dk/dv: 128 keys, so each query tile is loaded once for
-// 128 keys) and one producer warp: 288 threads, one block per SM, so a
-// consumer thread may hold 224 registers without setmaxnreg.  The producer
-// feeds a ring of kStages stages under mbarriers: TMA loads of 64-row tiles
-// (dq: K and V; dk/dv: Q and dO) through a (D, H, T, B) tensor map with the
-// 128-byte swizzle, which zero-fills rows past T, and the streamed rows'
-// segment (and for dk/dv m, 1 / l, di) written by its lanes.  Every
-// product is a wgmma from the swizzled tiles: dq runs S = Q K^T and dP =
-// dO V^T from shared memory and dQ += dS K; dk/dv runs S^T = K Q^T and
-// dP^T = V dO^T and dV += P^T dO, dK += dS^T Q.  The second operand of the
-// accumulating products is the row-major tile read MN-major (the
-// descriptor's transpose), so no tile is ever transposed; their first
-// operand, P or dS, is the score accumulator rounded to bf16 in registers
-// (its layout is wgmma's A fragment).  One warpgroup's exp and rounded
-// elementwise steps overlap the other's wgmma, and the producer's next tile
-// overlaps both.  Tensor maps are encoded on the host per call
-// (cuTensorMapEncodeTiled, fetched at run time through the CUDA runtime, so
-// the library needs no -lcuda).
+// bytes' time.  The forward's block shape (dq: 128 query rows; dk/dv: 128
+// keys, so each query tile is loaded once for 128 keys), 288 threads, one
+// block per SM, so a consumer thread may hold 168 registers without
+// setmaxnreg.  The producer streams 64-row tiles (dq: K and V; dk/dv: Q
+// and dO) and the streamed rows' segment (and for dk/dv m, 1 / l, di).
+// dq runs S = Q K^T and dP = dO V^T from shared memory and dQ += dS K;
+// dk/dv runs S^T = K Q^T and dP^T = V dO^T and dV += P^T dO, dK += dS^T Q,
+// the accumulating products' second operand read MN-major and their first,
+// P or dS, rounded to bf16 in registers.  Tensor maps are encoded on the
+// host per call (cuTensorMapEncodeTiled, fetched at run time through the
+// CUDA runtime, so the library needs no -lcuda); a base or stride TMA
+// cannot take fails the launch.
 //
-// fp32 backward.  wgmma has no fp32 and TF32 would break the 1e-5 bound, so
-// fp32 keeps the mma-free design: one block of 4 warps per 64 rows (keys),
-// 16-row warp tiles of FMAs from shared memory, tiles staged element by
-// element (transposed where a product needs it); far from its bound
+// fp32 backward.  As the fp32 forward: one block of 4 warps per 64 rows
+// (keys), 16-row warp tiles of FMAs from shared memory, tiles staged element
+// by element (transposed where a product needs it); far from its bound
 // (PERF.md).
-//
-// Bound (forward).  4 B H T^2 D operations against q, k, v and the output
-// moved once: at the U-Net's T (a few hundred to a few thousand frames, D = 64) the
-// tensor-core time and the bytes are of the same order, both far below the
-// launch and the sequential key loop of one block, so short sequences are
-// latency-bound.  The grid has T / 64 x H x B blocks; the key loop is not
-// split across blocks.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -98,46 +110,24 @@ typedef __nv_bfloat16 bf16;
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
-// Row strides (elements) of the shared tiles: bf16 rows padded by 16 bytes
-// (ldmatrix needs 16-byte aligned rows; the pad staggers the banks), fp32
-// rows by 16 bytes for float4 loads.
-template <typename T> constexpr int row_pad() { return sizeof(T) == 2 ? 8 : 4; }
-
-template <typename T, int D>
+// Shared memory of the fp32 forward: rows padded by 16 bytes for float4
+// loads (the pad staggers the banks).
+template <int D>
 struct Smem {
-  static constexpr int qs = D + row_pad<T>();      // sQ, sK: [64][qs]
-  static constexpr int vs = kKeys + row_pad<T>();  // sVt: [D][vs]
-  static constexpr int ps = kKeys + 4;             // sP (fp32 only): [4][16][ps]
+  static constexpr int qs = D + 4;      // sQ, sK: [64][qs]
+  static constexpr int vs = kKeys + 4;  // sVt: [D][vs]
+  static constexpr int ps = kKeys + 4;  // sP: [4][16][ps]
   static constexpr int q_off = 0;
-  static constexpr int k_off = q_off + kRows * qs * (int)sizeof(T);
-  static constexpr int v_off = k_off + kKeys * qs * (int)sizeof(T);
-  static constexpr int seg_off = v_off + D * vs * (int)sizeof(T);
+  static constexpr int k_off = q_off + kRows * qs * 4;
+  static constexpr int v_off = k_off + kKeys * qs * 4;
+  static constexpr int seg_off = v_off + D * vs * 4;
   static constexpr int p_off = seg_off + kKeys * 4;
-  static constexpr int total = p_off + (sizeof(T) == 4 ? kWarps * 16 * ps * 4 : 0);
+  static constexpr int total = p_off + kWarps * 16 * ps * 4;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&a)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) * b (16 x 8, bf16, k-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -145,35 +135,17 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-__device__ __forceinline__ unsigned ld32(const bf16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
+// The fp32 kernels keep the accumulator layout of mma.m16n8k16 (and of
+// wgmma, warp by warp): lane = 4 g + qd holds, for n-tile nt, element e in
+// 0..3 at row g + 8 (e / 2) of the warp's 16 rows and column nt * 8 + 2 qd
+// + e % 2.
 
-// The accumulator layout of mma.m16n8k16 (and of the fp32 path, which keeps
-// it): lane = 4 g + qd holds, for n-tile nt, element e in 0..3 at
-// row g + 8 (e / 2) of the warp's 16 rows and column nt * 8 + 2 qd + e % 2.
-
-// s[nt][e] = Q[row] . K[key] over the warp's 16 rows and the tile's 64 keys.
+// s[nt][e] = Q[row] . K[key] over the warp's 16 rows and the tile's 64
+// keys, fp32 FMAs from shared memory.
 template <int D>
-__device__ __forceinline__ void scores(float (&s)[kKeys / 8][4], const unsigned (&qa)[D / 16][4],
-                                       const bf16* sK, const float*, int, int g, int qd) {
-  constexpr int QS = Smem<bf16, D>::qs;
-#pragma unroll
-  for (int nt = 0; nt < kKeys / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    const bf16* kr = sK + (nt * 8 + g) * QS + 2 * qd;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      mma_bf16(s[nt], qa[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[kKeys / 8][4], const unsigned (&)[D / 16][4],
-                                       const float* sK, const float* sQ, int row0, int g,
-                                       int qd) {
-  constexpr int QS = Smem<float, D>::qs;
+__device__ __forceinline__ void scores(float (&s)[kKeys / 8][4], const float* sK,
+                                       const float* sQ, int row0, int g, int qd) {
+  constexpr int QS = Smem<D>::qs;
   const float* q0 = sQ + (row0 + g) * QS;
   const float* q1 = q0 + 8 * QS;
 #pragma unroll
@@ -195,40 +167,19 @@ __device__ __forceinline__ void scores(float (&s)[kKeys / 8][4], const unsigned 
   }
 }
 
-// o[nt][e] += sum over the tile's keys of p[row][key] * V[key][col], with p
-// rounded to the V dtype.
+// o[nt][e] += sum over the tile's keys of p[row][key] * V[key][col], fp32
+// FMAs with P through the warp's shared tile sP.
 template <int D>
 __device__ __forceinline__ void accumulate_pv(float (&o)[D / 8][4], const float (&p)[kKeys / 8][4],
-                                              const bf16* sVt, float*, int g, int qd, int) {
-  constexpr int VS = Smem<bf16, D>::vs;
-#pragma unroll
-  for (int j = 0; j < kKeys / 16; ++j) {
-    unsigned a[4];
-    a[0] = pack_bf16(p[2 * j][0], p[2 * j][1]);
-    a[1] = pack_bf16(p[2 * j][2], p[2 * j][3]);
-    a[2] = pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]);
-    a[3] = pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3]);
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const bf16* vr = sVt + (nt * 8 + g) * VS + j * 16 + 2 * qd;
-      mma_bf16(o[nt], a, ld32(vr), ld32(vr + 8));
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void accumulate_pv(float (&o)[D / 8][4], const float (&p)[kKeys / 8][4],
-                                              const float* sVt, float* sP, int g, int qd,
-                                              int lane) {
-  constexpr int VS = Smem<float, D>::vs;
-  constexpr int PS = Smem<float, D>::ps;
+                                              const float* sVt, float* sP, int g, int qd) {
+  constexpr int VS = Smem<D>::vs;
+  constexpr int PS = Smem<D>::ps;
   __syncwarp();  // the previous tile's reads of sP are done
 #pragma unroll
   for (int nt = 0; nt < kKeys / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) sP[(g + 8 * (e / 2)) * PS + nt * 8 + 2 * qd + e % 2] = p[nt][e];
   __syncwarp();
-  (void)lane;
   const float* p0 = sP + g * PS;
   const float* p1 = p0 + 8 * PS;
 #pragma unroll
@@ -258,26 +209,26 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// q, k, v, out: (B, t, heads * D); mask: (B, t) fp32, 0 = padded.
-// grid (ceil(t / 64), heads, B), kThreads threads.
-template <typename T, int D, bool FLASH>
+// The fp32 forward.  q, k, v, out: (B, t, heads * D); mask: (B, t) fp32,
+// 0 = padded.  grid (ceil(t / 64), heads, B), kThreads threads.
+template <int D, bool FLASH>
 __global__ void __launch_bounds__(kThreads) attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ mask, T* __restrict__ out, float* __restrict__ m_out,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ mask, float* __restrict__ out, float* __restrict__ m_out,
     float* __restrict__ l_out, int t, int heads, float scale) {
-  using L = Smem<T, D>;
+  using L = Smem<D>;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem + L::q_off);
-  T* sK = reinterpret_cast<T*>(smem + L::k_off);
-  T* sVt = reinterpret_cast<T*>(smem + L::v_off);
+  float* sQ = reinterpret_cast<float*>(smem + L::q_off);
+  float* sK = reinterpret_cast<float*>(smem + L::k_off);
+  float* sVt = reinterpret_cast<float*>(smem + L::v_off);
   int* sSeg = reinterpret_cast<int*>(smem + L::seg_off);
   float* sP = reinterpret_cast<float*>(smem + L::p_off);
 
   const int bi = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kRows;
   const size_t ld = (size_t)heads * D;
-  const T* qb = q + (size_t)bi * t * ld + h * D;
-  const T* kb = k + (size_t)bi * t * ld + h * D;
-  const T* vb = v + (size_t)bi * t * ld + h * D;
+  const float* qb = q + (size_t)bi * t * ld + h * D;
+  const float* kb = k + (size_t)bi * t * ld + h * D;
+  const float* vb = v + (size_t)bi * t * ld + h * D;
   const float* mb = mask + (size_t)bi * t;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, qd = lane % 4;
@@ -285,7 +236,7 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
 
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    sQ[r * L::qs + c] = r0 + r < t ? qb[(r0 + r) * ld + c] : from_f<T>(0.f);
+    sQ[r * L::qs + c] = r0 + r < t ? qb[(r0 + r) * ld + c] : 0.f;
   }
   // segment of this lane's two rows: 1 = padded (flash only)
   int qseg[2];
@@ -295,12 +246,6 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
     qseg[hh] = row < t && mb[row] == 0.f ? 1 : 0;
   }
   __syncthreads();
-  unsigned qa[D / 16][4];
-  if constexpr (sizeof(T) == 2) {
-    const T* qr = sQ + (wrow + (lane & 15)) * L::qs + (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(smem_addr(qr + kk * 16), qa[kk]);
-  }
 
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
   float l_run[2] = {0.f, 0.f};
@@ -322,15 +267,15 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
       for (int i = threadIdx.x; i < kKeys * D; i += kThreads) {
         const int j = i / D, c = i % D;
         const bool in = k0 + j < t;
-        sK[j * L::qs + c] = in ? kb[(k0 + j) * ld + c] : from_f<T>(0.f);
-        if (pv) sVt[c * L::vs + j] = in ? vb[(k0 + j) * ld + c] : from_f<T>(0.f);
+        sK[j * L::qs + c] = in ? kb[(k0 + j) * ld + c] : 0.f;
+        if (pv) sVt[c * L::vs + j] = in ? vb[(k0 + j) * ld + c] : 0.f;
       }
       for (int j = threadIdx.x; j < kKeys; j += kThreads)
         sSeg[j] = k0 + j < t ? (mb[k0 + j] == 0.f ? 1 : 0) : -1;  // -1: past the end
       __syncthreads();
 
       float s[kKeys / 8][4];
-      scores<D>(s, qa, sK, reinterpret_cast<const float*>(sQ), wrow, g, qd);
+      scores<D>(s, sK, sQ, wrow, g, qd);
       float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
       for (int nt = 0; nt < kKeys / 8; ++nt)
@@ -380,19 +325,19 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
 #pragma unroll
           for (int e = 0; e < 4; ++e) o[nt][e] *= alpha[e / 2];
       }
-      if (pv) accumulate_pv<D>(o, s, sVt, sP + warp * 16 * L::ps, g, qd, lane);
+      if (pv) accumulate_pv<D>(o, s, sVt, sP + warp * 16 * L::ps, g, qd);
     }
   }
 
-  T* ob = out + (size_t)bi * t * ld + h * D;
+  float* ob = out + (size_t)bi * t * ld + h * D;
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r0 + wrow + g + 8 * (e / 2);
       if (row >= t) continue;
-      const float val = FLASH ? __fdiv_rn(o[nt][e], l_run[e / 2]) : o[nt][e];
-      ob[row * ld + nt * 8 + 2 * qd + e % 2] = from_f<T>(val);
+      ob[row * ld + nt * 8 + 2 * qd + e % 2] = FLASH ? __fdiv_rn(o[nt][e], l_run[e / 2])
+                                                     : o[nt][e];
     }
   if (FLASH && m_out != nullptr && qd == 0) {
     // the residuals of the backward: every lane of a quad holds its rows' m, l
@@ -407,29 +352,20 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
   }
 }
 
-template <typename T, int D, bool FLASH>
+template <int D, bool FLASH>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* mask, void* out,
                    float* m, float* l, int batch, int t, int heads, float scale,
                    cudaStream_t stream) {
-  auto kernel = attention_kernel<T, D, FLASH>;
-  const int smem = Smem<T, D>::total;
+  auto kernel = attention_kernel<D, FLASH>;
+  const int smem = Smem<D>::total;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t + kRows - 1) / kRows, heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           static_cast<const T*>(v), mask,
-                                           static_cast<T*>(out), m, l, t, heads, scale);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      mask, static_cast<float*>(out), m, l, t, heads, scale);
   return cudaGetLastError();
-}
-
-template <typename T, bool FLASH>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const float* mask,
-                       void* out, float* m, float* l, int batch, int t, int heads, float scale,
-                       cudaStream_t s) {
-  if (d == 64) return launch<T, 64, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
-  if (d == 128) return launch<T, 128, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
-  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -442,7 +378,7 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v, const
 template <int D>
 __device__ __forceinline__ void dot_nt(float (&c)[kKeys / 8][4], const float* sA, const float* sB,
                                        int lane) {
-  constexpr int QS = Smem<float, D>::qs;
+  constexpr int QS = Smem<D>::qs;
   const int g = lane / 4, qd = lane % 4;
   const float* a0 = sA + g * QS;
   const float* a1 = a0 + 8 * QS;
@@ -468,16 +404,16 @@ __device__ __forceinline__ void dot_nt(float (&c)[kKeys / 8][4], const float* sA
 // Shared memory of the fp32 backward kernels: four [64][qs] row tiles, the
 // transposed tiles ([D][vs]; one for dq, two for dk/dv), four 64-entry
 // per-row arrays, and (fp32) the per-warp P tiles of accumulate_pv.
-template <typename T, int D>
+template <int D>
 struct BwdSmem {
-  static constexpr int qs = Smem<T, D>::qs;
-  static constexpr int vs = Smem<T, D>::vs;
-  static constexpr int ps = Smem<T, D>::ps;
-  static constexpr int row_tile = kRows * qs * (int)sizeof(T);
-  static constexpr int col_tile = D * vs * (int)sizeof(T);
+  static constexpr int qs = Smem<D>::qs;
+  static constexpr int vs = Smem<D>::vs;
+  static constexpr int ps = Smem<D>::ps;
+  static constexpr int row_tile = kRows * qs * 4;
+  static constexpr int col_tile = D * vs * 4;
   static constexpr int rows_off = 4 * row_tile;  // then n_col col tiles
   static constexpr int stats_bytes = 4 * kRows * 4;
-  static constexpr int p_bytes = sizeof(T) == 4 ? kWarps * 16 * ps * 4 : 0;
+  static constexpr int p_bytes = kWarps * 16 * ps * 4;
   static constexpr int total(int n_col) { return rows_off + n_col * col_tile + stats_bytes + p_bytes; }
 };
 
@@ -487,7 +423,7 @@ struct BwdSmem {
 template <typename T, int D>
 __device__ __forceinline__ void stage(const T* __restrict__ src, size_t ld, int r0, int t,
                                       T* rows, T* tr) {
-  constexpr int QS = Smem<T, D>::qs, VS = Smem<T, D>::vs;
+  constexpr int QS = Smem<D>::qs, VS = Smem<D>::vs;
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const T x = r0 + r < t ? src[(size_t)(r0 + r) * ld + c] : from_f<T>(0.f);
@@ -526,7 +462,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const float* __restrict__ mask, const T* __restrict__ o, const T* __restrict__ dout,
     const float* __restrict__ m, const float* __restrict__ l, float* __restrict__ di,
     T* __restrict__ dq, int t, int heads, float scale) {
-  using L = BwdSmem<T, D>;
+  using L = BwdSmem<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sdO = reinterpret_cast<T*>(smem + L::row_tile);
@@ -603,7 +539,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
         p_ds(s[nt][e], dp[nt][e], sSeg[nt * 8 + 2 * qd + e % 2], qseg[hh], mrow[hh], rinv[hh],
              drow[hh], scale);
       }
-    accumulate_pv<D>(acc, dp, sKt, sP + warp * 16 * L::ps, g, qd, lane);  // dq += ds k
+    accumulate_pv<D>(acc, dp, sKt, sP + warp * 16 * L::ps, g, qd);  // dq += ds k
   }
 
   T* dqb = dq + off;
@@ -624,7 +560,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const float* __restrict__ mask, const T* __restrict__ dout, const float* __restrict__ m,
     const float* __restrict__ l, const float* __restrict__ di, T* __restrict__ dk,
     T* __restrict__ dv, int t, int heads, float scale) {
-  using L = BwdSmem<T, D>;
+  using L = BwdSmem<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
   T* sV = reinterpret_cast<T*>(smem + L::row_tile);
@@ -690,8 +626,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
         const int col = nt * 8 + 2 * qd + e % 2;
         p_ds(s[nt][e], dp[nt][e], sSeg[col], kseg[e / 2], sM[col], sRinv[col], sDi[col], scale);
       }
-    accumulate_pv<D>(adv, s, sdOt, sP + warp * 16 * L::ps, g, qd, lane);  // dv += p^T do
-    accumulate_pv<D>(adk, dp, sQt, sP + warp * 16 * L::ps, g, qd, lane);  // dk += ds^T q
+    accumulate_pv<D>(adv, s, sdOt, sP + warp * 16 * L::ps, g, qd);  // dv += p^T do
+    accumulate_pv<D>(adk, dp, sQt, sP + warp * 16 * L::ps, g, qd);  // dk += ds^T q
   }
 
 #pragma unroll
@@ -707,13 +643,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// flash backward, bf16: TMA ring and wgmma (sm_90a)
+// bf16 forward and flash backward: TMA ring and wgmma (sm_90a)
 // ---------------------------------------------------------------------------
 
 constexpr int kWG = 128;                 // threads of a warpgroup
-constexpr int kBwdThreads = 2 * kWG + 32; // two consumer warpgroups, one producer warp
-constexpr int kBlockRows = 2 * kRows;    // rows (dq) or keys (dk/dv) of a block
-constexpr int kStages = 2;               // depth of the tile ring
+constexpr int kSm90Threads = 2 * kWG + 32; // two consumer warpgroups, one producer warp
+constexpr int kBlockRows = 2 * kRows;    // query rows (forward, dq) or keys (dk/dv) of a block
+constexpr int kStages = 2;               // depth of the backward's tile ring
+constexpr int kFwdStages = 3;            // depth of the forward's (its loop holds two tiles)
 constexpr int kBox = 64 * 64 * 2;        // one TMA box: 64 rows x 64 bf16, 128-byte swizzle
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -891,6 +828,7 @@ __device__ __forceinline__ void pack_a(unsigned (&a)[4][4], const float (&c)[32]
 // empty[kStages] and one for the fixed tiles.
 template <int D>
 struct Sm90Smem {
+  static constexpr int stages = kStages;
   static constexpr int tile = (D / 64) * kBox;  // one 64 x D tile
   static constexpr int ring_off = 4 * tile;
   static constexpr int stats_off = ring_off + kStages * 2 * tile;
@@ -900,27 +838,45 @@ struct Sm90Smem {
   static_assert(total <= 232448, "bf16 backward: shared memory");
 };
 
+// Shared memory of the bf16 forward, from a 1024-byte aligned base: the Q
+// tiles of the two warpgroups, loaded once, then a ring of kFwdStages stages
+// of a K and a V tile, then per stage the streamed keys' words, then the
+// barriers as in Sm90Smem.
+template <int D>
+struct FwdSmem {
+  static constexpr int stages = kFwdStages;
+  static constexpr int tile = (D / 64) * kBox;
+  static constexpr int ring_off = 2 * tile;
+  static constexpr int stats_off = ring_off + stages * 2 * tile;
+  static constexpr int stats_bytes = kKeys * 4;
+  static constexpr int bar_off = stats_off + stages * stats_bytes;
+  static constexpr int total = bar_off + (2 * stages + 1) * 8 + 1024;  // + alignment slack
+  static_assert(total <= 232448, "bf16 forward: shared memory");
+};
+
+// The barriers of a ring of S stages: full[S], empty[S], then `fixed`.
+template <int S>
 struct Ring {
   uint32_t base;
   __device__ uint32_t full(int s) const { return base + 8 * s; }
-  __device__ uint32_t empty(int s) const { return base + 8 * (kStages + s); }
-  __device__ uint32_t fixed() const { return base + 16 * kStages; }
+  __device__ uint32_t empty(int s) const { return base + 8 * (S + s); }
+  __device__ uint32_t fixed() const { return base + 16 * S; }
 };
 
-// Prologue shared by both kernels: align the base, initialise the barriers.
-// full: the producer warp's 32 arrivals plus the TMA bytes; empty: every
-// consumer thread; fixed: one arrival plus the bytes.
-template <int D>
+// Prologue shared by the sm_90a kernels (L: their shared-memory layout):
+// align the base, initialise the barriers.  full: the producer warp's 32
+// arrivals plus the TMA bytes; empty: every consumer thread; fixed: one
+// arrival plus the bytes.
+template <typename L>
 __device__ __forceinline__ uint32_t sm90_setup(unsigned char* smem_raw, unsigned char*& smem,
-                                               Ring& ring) {
-  using L = Sm90Smem<D>;
+                                               Ring<L::stages>& ring) {
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   smem = smem_raw + (base - raw);
   ring.base = base + L::bar_off;
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < L::stages; ++s) {
       mbar_init(ring.full(s), 32);
       mbar_init(ring.empty(s), 2 * kWG);
     }
@@ -975,10 +931,247 @@ __device__ __forceinline__ void store_rows(bf16* out, size_t ld, const float (&a
             __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
 }
 
-// dq and di, bf16.  grid (ceil(t / 128), heads, B), kBwdThreads threads:
+// 2^x on the multi-function unit (subnormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a / b rounded to nearest, from rb = RN(1 / b): q = RN(a rb) is within an
+// ulp of a / b, and one correction step with the exact residual a - q b
+// (an FMA) gives RN(a / b) for every normal quotient (Markstein's theorem).
+// Branch-free, unlike __fdiv_rn, whose slow-path test keeps the compiler from
+// interleaving the steps of a thread's 32 scores.
+__device__ __forceinline__ float div_rn(float a, float b, float rb) {
+  const float q = __fmul_rn(a, rb);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), rb, q);
+}
+
+// One tile's scores for a thread's two rows (sc: the S accumulator), in
+// place, in log2 units (scale = log2 e / sqrt(D), so p = 2^(s - m) is one
+// ex2): the scale and the mask in one FMA, s * scale + bias, from the tile's
+// 64 key words `kw` (flash: the key's segment, and the bias is -0.7 FLT_MAX
+// where it differs from the row's, so a key past the end, segment -1,
+// matches no row; vmem: the bias itself, -1e30 at padded keys and -inf past
+// the end).  The biases are 0 or beyond 1e30 in magnitude, so one rounding
+// gives what two would, and a masked score is the bias itself: its p is
+// exactly 0 beside any real score and 1 where a row sees only masked keys
+// (vmem's item of length 0: a uniform softmax over its t keys), as in the
+// natural units.  Then either the running max and sum (STATS: sc becomes
+// 2^(s - m), alpha the factor of the earlier sums) or vmem's second pass
+// (sc becomes p = 2^(s - m) / l from rinv = RN(1 / l)).
+template <bool FLASH, bool STATS>
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], const uint32_t* kw, int qd,
+                                             const int (&qseg)[2], float scale,
+                                             float (&m_run)[2], float (&l_run)[2],
+                                             const float (&rinv)[2], float (&alpha)[2]) {
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint2 w2 = *reinterpret_cast<const uint2*>(kw + 8 * j + 2 * qd);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t w = e % 2 ? w2.y : w2.x;
+      const float bias = FLASH ? (static_cast<int>(w) == qseg[e / 2] ? 0.f : kFlashMask)
+                               : __uint_as_float(w);
+      const float val = __fmaf_rn(sc[4 * j + e], scale, bias);
+      sc[4 * j + e] = val;
+      mx[e / 2] = fmaxf(mx[e / 2], val);
+    }
+  }
+  if (STATS) {
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      // every tile holds key k0 < t, so the new max is finite
+      const float m_new = fmaxf(m_run[hh], quad_max(mx[hh]));
+      alpha[hh] = ex2(m_run[hh] - m_new);  // 0 on the first tile
+      m_run[hh] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float ex = ex2(sc[i] - m_run[(i % 4) / 2]);
+      sc[i] = ex;
+      rs[(i % 4) / 2] += ex;
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l_run[hh] = l_run[hh] * alpha[hh] + quad_sum(rs[hh]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i % 4) / 2;
+      sc[i] = div_rn(ex2(sc[i] - m_run[hh]), l_run[hh], rinv[hh]);
+    }
+  }
+}
+
+// The bf16 forward, both modes.  grid (ceil(t / 128), heads, B),
+// kSm90Threads threads: warpgroups 0 and 1 own 64 query rows each, warp 8
+// feeds the key tiles.  "flash" streams K and V once; "vmem" streams K
+// alone (pass 1: each row's max and sum), then K and V (pass 2: p = exp(s -
+// max) / sum rounded to bf16, P V).  The ring's stage and phase follow the
+// count n of streamed tiles over both passes, so they carry across the
+// pass boundary whatever the number of tiles.
+template <int D, bool FLASH>
+__global__ void __launch_bounds__(kSm90Threads, 1) attention_fwd_sm90(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const float* __restrict__ mask,
+    bf16* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out, int t,
+    int heads, float scale) {
+  using L = FwdSmem<D>;
+  constexpr int kS = L::stages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem;
+  Ring<kS> ring;
+  const uint32_t base = sm90_setup<L>(smem_raw, smem, ring);
+  const int bi = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kBlockRows;
+  const int wg = threadIdx.x / kWG, n_tiles = (t + kKeys - 1) / kKeys;
+  const int n_stream = (FLASH ? 1 : 2) * n_tiles;
+  const float* mb = mask + (size_t)bi * t;
+
+  if (wg == 2) {  // the producer warp
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_tx(ring.fixed(), 2 * L::tile);
+      for (int w = 0; w < 2; ++w)  // Q of warpgroup w at tile w
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          tma_load(base + w * L::tile + c * kBox, &tq, ring.fixed(), c * 64, h, r0 + w * kRows,
+                   bi);
+    }
+    for (int n = 0; n < n_stream; ++n) {
+      const int s = n % kS, k0 = (n % n_tiles) * kKeys;
+      const bool with_v = FLASH || n >= n_tiles;
+      uint32_t w[2];  // this lane's key words (see softmax_tile), read before the stage is free
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = k0 + lane + 32 * i;
+        const bool in = key < t, padded = in && mb[key] == 0.f;
+        w[i] = FLASH ? static_cast<uint32_t>(in ? (padded ? 1 : 0) : -1)  // -1: past the end
+                     : __float_as_uint(in ? (padded ? kVmemNeg : 0.f) : -CUDART_INF_F);
+      }
+      mbar_wait(ring.empty(s), ((n / kS) & 1) ^ 1);
+      uint32_t* kw = reinterpret_cast<uint32_t*>(smem + L::stats_off + s * L::stats_bytes);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) kw[lane + 32 * i] = w[i];
+      if (lane == 0) {
+        const uint32_t dst = base + L::ring_off + s * 2 * L::tile;
+        mbar_arrive_tx(ring.full(s), (with_v ? 2 : 1) * L::tile);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(dst + c * kBox, &tk, ring.full(s), c * 64, h, k0, bi);
+          if (with_v) tma_load(dst + L::tile + c * kBox, &tv, ring.full(s), c * 64, h, k0, bi);
+        }
+      } else {
+        mbar_arrive(ring.full(s));
+      }
+    }
+    return;
+  }
+  const int tid = threadIdx.x % kWG, lane = tid % 32, qd = lane % 4;
+  const int row0 = r0 + wg * kRows + (tid / 32) * 16 + lane / 4;  // this thread's rows: + 0, + 8
+  int qseg[2];  // flash: the segment of this thread's rows (1 = padded)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    qseg[hh] = row < t && mb[row] == 0.f ? 1 : 0;
+  }
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};
+  float rinv[2] = {0.f, 0.f}, alpha[2] = {0.f, 0.f};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t sq = base + wg * L::tile;
+  auto key_tile = [&](int n) { return base + L::ring_off + (n % kS) * 2 * L::tile; };
+  auto key_words = [&](int n) {
+    return reinterpret_cast<const uint32_t*>(smem + L::stats_off + (n % kS) * L::stats_bytes);
+  };
+  scale *= 1.4426950408889634f;  // the scores in log2 units: p = 2^(s - max)
+  float sc[32];
+  mbar_wait(ring.fixed(), 0);
+  if (!FLASH) {  // vmem pass 1: each row's max and sum over the K tiles
+#pragma unroll 1
+    for (int n = 0; n < n_tiles; ++n) {
+      mbar_wait(ring.full(n % kS), (n / kS) & 1);
+      wg_fence();
+      gemm_nt<D>(sc, sq, key_tile(n));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(sc);
+      softmax_tile<false, true>(sc, key_words(n), qd, qseg, scale, m_run, l_run, rinv, alpha);
+      mbar_arrive(ring.empty(n % kS));
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) rinv[hh] = __frcp_rn(l_run[hh]);
+  }
+
+  // The P V pass (flash: the only one; vmem: tiles n_tiles.. of the stream).
+  // Tile n's S = Q K^T is issued with tile n - 1's O += P V, and tile n's
+  // exp steps run while that P V is on the tensor cores.
+  const int n0 = FLASH ? 0 : n_tiles;
+  unsigned pa[4][4];  // P of the tile whose P V is next, bf16
+  mbar_wait(ring.full(n0 % kS), (n0 / kS) & 1);
+  wg_fence();
+  gemm_nt<D>(sc, sq, key_tile(n0));
+  wg_commit();
+  wg_wait<0>();
+  reg_fence(sc);
+  softmax_tile<FLASH, FLASH>(sc, key_words(n0), qd, qseg, scale, m_run, l_run, rinv, alpha);
+  pack_a(pa, sc);  // the first tile needs no rescale: acc is 0
+#pragma unroll 1
+  for (int n = n0 + 1; n < n_stream; ++n) {
+    mbar_wait(ring.full(n % kS), (n / kS) & 1);
+    wg_fence();
+    gemm_nt<D>(sc, sq, key_tile(n));  // S = Q K^T of tile n
+    wg_commit();
+    reg_fence(acc);
+    gemm_rs<D>(acc, pa, key_tile(n - 1) + L::tile);  // O += P V of tile n - 1
+    wg_commit();
+    wg_wait<1>();
+    reg_fence(sc);
+    softmax_tile<FLASH, FLASH>(sc, key_words(n), qd, qseg, scale, m_run, l_run, rinv, alpha);
+    wg_wait<0>();
+    reg_fence(acc);
+    mbar_arrive(ring.empty((n - 1) % kS));
+    if (FLASH) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i % 4) / 2];
+    }
+    pack_a(pa, sc);  // P, rounded to bf16
+  }
+  // the last tile's P V
+  wg_fence();
+  reg_fence(acc);
+  gemm_rs<D>(acc, pa, key_tile(n_stream - 1) + L::tile);
+  wg_commit();
+  wg_wait<0>();
+  reg_fence(acc);
+
+  if (FLASH) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = __fdiv_rn(acc[i], l_run[(i % 4) / 2]);
+  }
+  const size_t ld = (size_t)heads * D;
+  store_rows<D>(out + (size_t)bi * t * ld + h * D, ld, acc, r0 + wg * kRows, t);
+  if (FLASH && m_out != nullptr && qd == 0) {
+    // the residuals of the backward: every lane of a quad holds its rows' m, l
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row >= t) continue;
+      const size_t at = ((size_t)bi * heads + h) * t + row;
+      m_out[at] = m_run[hh] * 0.6931471805599453f;  // natural units
+      l_out[at] = l_run[hh];
+    }
+  }
+}
+
+// dq and di, bf16.  grid (ceil(t / 128), heads, B), kSm90Threads threads:
 // warpgroups 0 and 1 own 64 query rows each, warp 8 feeds the key tiles.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_sm90(
+__global__ void __launch_bounds__(kSm90Threads, 1) flash_bwd_dq_sm90(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ mask, const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -987,8 +1180,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_sm90(
   using L = Sm90Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem;
-  Ring ring;
-  const uint32_t base = sm90_setup<D>(smem_raw, smem, ring);
+  Ring<L::stages> ring;
+  const uint32_t base = sm90_setup<L>(smem_raw, smem, ring);
   const int bi = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kBlockRows;
   const int wg = threadIdx.x / kWG, n_tiles = (t + kKeys - 1) / kKeys;
   const float* mb = mask + (size_t)bi * t;
@@ -1102,11 +1295,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dq_sm90(
   store_rows<D>(dq + off, ld, adq, r0 + wg * kRows, t);
 }
 
-// dk and dv, bf16.  grid (ceil(t / 128), heads, B), kBwdThreads threads:
+// dk and dv, bf16.  grid (ceil(t / 128), heads, B), kSm90Threads threads:
 // warpgroups 0 and 1 own 64 keys each (rows of the transposed scores), warp
 // 8 feeds the query tiles with their statistics.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_sm90(
+__global__ void __launch_bounds__(kSm90Threads, 1) flash_bwd_dkv_sm90(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ mask, const float* __restrict__ m, const float* __restrict__ l,
@@ -1115,8 +1308,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) flash_bwd_dkv_sm90(
   using L = Sm90Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem;
-  Ring ring;
-  const uint32_t base = sm90_setup<D>(smem_raw, smem, ring);
+  Ring<L::stages> ring;
+  const uint32_t base = sm90_setup<L>(smem_raw, smem, ring);
   const int bi = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kBlockRows;
   const int wg = threadIdx.x / kWG, n_tiles = (t + kRows - 1) / kRows;
   const float* mb = mask + (size_t)bi * t;
@@ -1274,6 +1467,42 @@ cudaError_t tensor_map(CUtensorMap* map, const void* x, int batch, int t, int he
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+template <int D, bool FLASH>
+cudaError_t fwd_launch_sm90(const void* q, const void* k, const void* v, const float* mask,
+                            void* out, float* m, float* l, int batch, int t, int heads,
+                            float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  const void* srcs[3] = {q, k, v};
+  CUtensorMap* maps[3] = {&tq, &tk, &tv};
+  for (int i = 0; i < 3; ++i)
+    if ((err = tensor_map(maps[i], srcs[i], batch, t, heads, D)) != cudaSuccess) return err;
+  auto kernel = attention_fwd_sm90<D, FLASH>;
+  constexpr int smem = FwdSmem<D>::total;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + kBlockRows - 1) / kBlockRows, heads, batch);
+  kernel<<<grid, kSm90Threads, smem, stream>>>(tq, tk, tv, mask, static_cast<bf16*>(out), m, l,
+                                               t, heads, scale);
+  return cudaGetLastError();
+}
+
+// The forward, by type, mode and head dim: bf16 on the sm_90a kernel, fp32
+// on the FMA kernel.
+template <bool FLASH>
+cudaError_t fwd_dispatch(int is_bf16, int d, const void* q, const void* k, const void* v,
+                         const float* mask, void* out, float* m, float* l, int batch, int t,
+                         int heads, float scale, cudaStream_t s) {
+  if (is_bf16) {
+    if (d == 64) return fwd_launch_sm90<64, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
+    if (d == 128) return fwd_launch_sm90<128, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
+  } else {
+    if (d == 64) return launch<64, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
+    if (d == 128) return launch<128, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 struct BwdArgs {
   const void *q, *k, *v;
   const float* mask;
@@ -1300,14 +1529,14 @@ cudaError_t bwd_launch_sm90(bool dq_pass, const BwdArgs& a, cudaStream_t stream)
     auto kernel = flash_bwd_dq_sm90<D>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kBwdThreads, smem, stream>>>(
+    kernel<<<grid, kSm90Threads, smem, stream>>>(
         tq, tk, tv, tdo, a.mask, static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
         a.m, a.l, a.di, static_cast<bf16*>(a.dq), a.t, a.heads, a.scale);
   } else {
     auto kernel = flash_bwd_dkv_sm90<D>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kBwdThreads, smem, stream>>>(tq, tk, tv, tdo, a.mask, a.m, a.l, a.di,
+    kernel<<<grid, kSm90Threads, smem, stream>>>(tq, tk, tv, tdo, a.mask, a.m, a.l, a.di,
                                                 static_cast<bf16*>(a.dk),
                                                 static_cast<bf16*>(a.dv), a.t, a.heads, a.scale);
   }
@@ -1323,7 +1552,7 @@ cudaError_t bwd_launch(bool dq_pass, const BwdArgs& a, cudaStream_t stream) {
   const T* dout = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (dq_pass) {
-    constexpr int smem = BwdSmem<T, D>::total(1);
+    constexpr int smem = BwdSmem<D>::total(1);
     static_assert(smem <= 232448, "dq kernel: shared memory");
     auto kernel = flash_bwd_dq_kernel<T, D>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1332,7 +1561,7 @@ cudaError_t bwd_launch(bool dq_pass, const BwdArgs& a, cudaStream_t stream) {
                                              a.m, a.l, a.di, static_cast<T*>(a.dq), a.t,
                                              a.heads, a.scale);
   } else {
-    constexpr int smem = BwdSmem<T, D>::total(2);
+    constexpr int smem = BwdSmem<D>::total(2);
     static_assert(smem <= 232448, "dkv kernel: shared memory");
     auto kernel = flash_bwd_dkv_kernel<T, D>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1371,16 +1600,10 @@ int attention_fwd(const void* q, const void* k, const void* v, const float* mask
   if (t <= 0 || batch <= 0 || heads <= 0) return cudaErrorInvalidValue;
   if (!flash) m = l = nullptr;
   if ((m == nullptr) != (l == nullptr)) return cudaErrorInvalidValue;
-  if (is_bf16) {
-    return flash ? dispatch_d<bf16, true>(dim_head, q, k, v, mask, out, m, l, batch, t, heads,
-                                          scale, s)
-                 : dispatch_d<bf16, false>(dim_head, q, k, v, mask, out, m, l, batch, t, heads,
-                                           scale, s);
-  }
-  return flash ? dispatch_d<float, true>(dim_head, q, k, v, mask, out, m, l, batch, t, heads,
-                                         scale, s)
-               : dispatch_d<float, false>(dim_head, q, k, v, mask, out, m, l, batch, t, heads,
-                                          scale, s);
+  return flash ? fwd_dispatch<true>(is_bf16, dim_head, q, k, v, mask, out, m, l, batch, t, heads,
+                                    scale, s)
+               : fwd_dispatch<false>(is_bf16, dim_head, q, k, v, mask, out, m, l, batch, t,
+                                     heads, scale, s);
 }
 
 // The flash backward on `stream`, in this order: attention_bwd_dq writes dq

@@ -23,6 +23,13 @@ dv = p^T do, ds = (do v^T - di) * p * scale with di = rowsum(o * do), dk =
 ds^T q and dq = ds k, each product on operands cast to the input dtype with
 fp32 sums, cast once at the end.
 
+On the card, bf16 runs the sm_90a kernels: the forward (both modes) keeps
+128 query rows per block on `wgmma` and streams 64-key tiles through a TMA
+ring (vmem streams them twice, K alone for the row max and sum, then K and
+V), and the backward is built the same way; fp32 runs FMA kernels (wgmma
+has no fp32).  A bf16 operand whose base is not 16-byte aligned cannot be
+a TMA source: the launch fails and the wrapper raises.
+
 On a CPU tensor each wrapper runs its plain version (the forwards through
 autograd); on a CUDA tensor it launches the kernel or raises.  On the card
 both forwards run in an autograd Function: flash's backward launches the

@@ -3,7 +3,8 @@ against the JAX package, in fp32 on the CPU: the whole-row kernel against
 `vmem_mha_packed` (interpret mode) at every position, padded query rows
 included (atol 1e-5); the flash plain version against upstream's
 `mha_reference` with the same segment ids at every position (atol 1e-5) and
-against the XLA attention on valid rows; the decoder with each forced impl
+against the XLA attention on valid rows; both again at T = 72 and 200 with
+an item of length 0; the decoder with each forced impl
 against the JAX decoder (atol 1e-4): with the same impl on the JAX side at
 every frame (JAX's flash kernels in interpret mode), and flash against the
 XLA decoder on the valid frames; the flash decoder's parameter gradients
@@ -80,6 +81,48 @@ def test_flash_plain_matches_upstream_segment_ids():
     np.testing.assert_allclose(got[0, :37], xla[0, :37], atol=1e-5)
     np.testing.assert_allclose(got[1], xla[1], atol=1e-5)
     assert np.abs(got[0, 37:] - xla[0, 37:]).max() > 1e-2  # padded rows differ
+
+
+# T = 72 and 200 end inside the kernels' 64-key tiles (the card's TMA loads
+# zero-fill the rest, which the kernels mask by segment); an item of length
+# 0 has no valid key.
+EDGE_CASES = [(72, (0, 41, 72)), (200, (200, 0, 131))]
+
+
+@pytest.mark.parametrize("t,lengths", EDGE_CASES)
+def test_vmem_plain_matches_jax_kernel_at_ragged_t(t, lengths):
+    """Every row, padded rows included; the length-0 item's rows attend
+    uniformly over all t keys (each gets the same -1e30)."""
+    q, k, v, mask = _qkv_mask(len(lengths), t, 7, lengths)
+    ref = np.asarray(vmem_mha_packed(*(jnp.asarray(a) for a in (q, k, v, mask)),
+                                     heads=HEADS, sm_scale=SCALE))
+    got = attn_cuda.vmem_mha_plain(*(torch.from_numpy(a) for a in (q, k, v, mask)),
+                                   HEADS, SCALE).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    empty = lengths.index(0)
+    np.testing.assert_allclose(got[empty], np.broadcast_to(v[empty].mean(axis=0), (t, v.shape[-1])),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("t,lengths", EDGE_CASES)
+def test_flash_plain_matches_upstream_at_ragged_t(t, lengths):
+    """Against upstream's `mha_reference` with the segment ids at every row;
+    the length-0 item (every query and key padded, one segment) attends over
+    all t keys, as unmasked attention does."""
+    b = len(lengths)
+    q, k, v, mask = _qkv_mask(b, t, 8, lengths)
+    heads = lambda a: jnp.asarray(a).reshape(b, t, HEADS, DIM_HEAD).transpose(0, 2, 1, 3)  # noqa: E731
+    seg = jnp.asarray((mask == 0).astype(np.int32))
+    ref = mha_reference(heads(q), heads(k), heads(v), None, SegmentIds(q=seg, kv=seg),
+                        sm_scale=SCALE)
+    ref = np.asarray(ref.transpose(0, 2, 1, 3).reshape(b, t, -1))
+    got = attn_cuda.flash_mha_plain(*(torch.from_numpy(a) for a in (q, k, v, mask)),
+                                    HEADS, SCALE).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    empty = lengths.index(0)
+    unmasked = _xla_attention(q[empty:empty + 1], k[empty:empty + 1], v[empty:empty + 1],
+                              np.ones((1, t), np.float32))
+    np.testing.assert_allclose(got[empty], unmasked[0], atol=1e-5)
 
 
 def test_plain_versions_are_differentiable():

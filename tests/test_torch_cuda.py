@@ -1,7 +1,8 @@
 """The port's kernels against their plain versions on a CUDA card (marker
 `gpu`; they skip where there is no card): the MRF levels, MAS (identical
 paths), the fused Block1D / ResnetBlock1D (forward and gradients), the
-attention kernels and the flash backward (dq, dk/dv: fp32 max |diff| <=
+attention kernels (with ragged T, items of length 0, flash's row
+statistics and a misaligned bf16 base) and the flash backward (dq, dk/dv: fp32 max |diff| <=
 1e-5 of each gradient's max |value|, bf16 relative L2 <= 1e-2 against the
 fp32 plain backward on the same rounded operands, bitwise repeatable).  Run
 on a machine with one (`--noconftest`: tests/conftest.py imports JAX, which
@@ -304,11 +305,12 @@ def test_tap_kernel_matches_plain(cuda, t, c):
 # ---------------------------------------------------------------------------
 
 
-def _attn_operands(b, t, heads, d, dtype, dev, seed):
+def _attn_operands(b, t, heads, d, dtype, dev, seed, lengths=None):
     g = torch.Generator(device="cpu").manual_seed(seed)
     q, k, v = (torch.randn(b, t, heads * d, generator=g).to(dev, dtype) for _ in range(3))
-    lengths = torch.linspace(max(1, t // 3), t, b).long()
-    mask = (torch.arange(t)[None] < lengths[:, None]).float().to(dev)
+    if lengths is None:
+        lengths = torch.linspace(max(1, t // 3), t, b).long()
+    mask = (torch.arange(t)[None] < torch.as_tensor(lengths)[:, None]).float().to(dev)
     return q, k, v, mask
 
 
@@ -342,6 +344,64 @@ def test_attention_kernel_matches_plain(cuda, impl, b, t, d):
         kern(qq, k, v, mask, heads, scale).sum().backward()
         torch.cuda.synchronize()
         assert attn_cuda.LAUNCHES["flash_mha_bwd"] == n0 + 1 and torch.isfinite(qq.grad).all()
+
+
+# The bf16 forward takes 128 query rows per block and streams 64-key tiles
+# (vmem twice): T = 72 and 200 end inside a tile, with items of length 0;
+# 320 and 192 give an odd number of key tiles, so the ring's phase crosses
+# vmem's pass boundary mid-round; (9, 1024) and (20, 1024) launch 144 and
+# 320 blocks, more than the card's 132 SMs, the others fewer.
+@pytest.mark.parametrize("impl,b,t,d,lengths", [
+    ("vmem", 3, 72, 64, (0, 41, 72)), ("flash", 3, 72, 64, (0, 41, 72)),
+    ("vmem", 3, 200, 64, (200, 0, 131)), ("flash", 3, 200, 64, (200, 0, 131)),
+    ("vmem", 2, 320, 64, None), ("vmem", 1, 192, 128, (100,)),
+    ("vmem", 2, 200, 128, (0, 77)), ("flash", 2, 384, 128, (0, 384)),
+    ("vmem", 9, 1024, 64, None), ("flash", 20, 1024, 64, None)])
+def test_attention_forward_edges(cuda, impl, b, t, d, lengths):
+    """Both types against the plain version at every row (fp32 max |diff| <=
+    1e-5 of the output's scale, bf16 relative L2 <= 1e-2 against the fp32
+    plain version on the same rounded operands); flash also writes its fp32
+    row statistics m, l within 1e-5 of the plain version's scale, and the
+    same output with or without them."""
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    kern = getattr(attn_cuda, f"{impl}_mha")
+    plain = getattr(attn_cuda, f"{impl}_mha_plain")
+    scale = d ** -0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, mask = _attn_operands(b, t, 2, d, dtype, cuda, t + b, lengths)
+        got = kern(q, k, v, mask, 2, scale)
+        torch.cuda.synchronize()
+        ref = plain(q.float(), k.float(), v.float(), mask, 2, scale)
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        if dtype == torch.float32:
+            assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        else:
+            assert _rel(got.float(), ref) <= 1e-2
+        if impl == "flash":
+            o, m, l = attn_cuda.flash_mha_fwd(q, k, v, mask, 2, scale)
+            _, pm, pl = attn_cuda.flash_mha_plain(q.float(), k.float(), v.float(), mask, 2,
+                                                  scale, return_stats=True)
+            assert torch.equal(o, got)
+            for a, want in ((m, pm), (l, pl)):
+                assert float((a - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_attention_forward_refuses_misaligned_bf16(cuda):
+    """A bf16 operand whose base is not 16-byte aligned cannot be a TMA
+    source: the launch fails and the wrapper raises (no fallback)."""
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    q, k, v, mask = _attn_operands(1, 128, 2, 64, torch.bfloat16, cuda, 0)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    for fn in (attn_cuda.vmem_mha, attn_cuda.flash_mha):
+        n0 = dict(attn_cuda.LAUNCHES)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fn(shifted, k, v, mask, 2, 0.125)
+        assert attn_cuda.LAUNCHES == n0
 
 
 def test_attention_wrapper_rejects_bad_operands(cuda):
