@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (matcha_tts_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                   # a few minutes on an H100, build included
-    python3 chip_smoke.py --attention-only  # phases 1, 2 (attention only) and 11
+    python3 chip_smoke.py --attention-only  # phases 1, 2 (attention only), 11 and 16
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
@@ -86,9 +86,10 @@ Phases, each of which raises on failure (no phase catches and carries on):
    distillation's fp32 (16, 512) and (16, 256), and D = 128, H = 2, ragged
    masks and an output gradient that is not zero at padded rows: fp32 max
    |diff| <= 1e-5 of each gradient's max |value|, bf16 relative L2 <= 1e-2,
-   bitwise repeatable; timed beside the plain version, the bound and the
-   backward of `scaled_dot_product_attention`, with each kernel's TFLOP/s
-   and the whole backward's time over SDPA's (see `check_flash_bwd`);
+   bitwise repeatable; timed beside the plain version, the bound (fp32 also
+   the tensor-core bound of its three TF32 products) and the backward of
+   `scaled_dot_product_attention`, with each kernel's TFLOP/s and the whole
+   backward's time over SDPA's (see `check_flash_bwd`);
 17. training in configuration (c), `DecoderConfig(attention_impl="flash")`,
    inside phase 9's function: six flash forwards per loss pass and six
    flash backwards per step, finite, the loss falling over 20 steps on one
@@ -137,6 +138,7 @@ SENTENCES = [
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12  # dense TF32 tensor cores; the fp32 backward runs three TF32 products
 PEAK_BYTES = 3.35e12
 
 T_Y = 512  # the frame bucket whose level shapes the kernels are checked at
@@ -1429,7 +1431,10 @@ def check_flash_bwd(reps: int) -> dict:
     backward of `scaled_dot_product_attention` with the same additive
     segment mask (a yardstick the port never calls).  Each row also gives
     dq's and dk/dv's TFLOP/s (over 6 and 8 B H T^2 D) and `vs_library`, the
-    whole backward's time over SDPA's."""
+    whole backward's time over SDPA's.  The fp32 rows add `tc_bound_ms`,
+    `dq_tc_bound_ms` and `dkv_tc_bound_ms`: the same operations as three
+    TF32 products at 495 TFLOP/s (what the fp32 kernels run), or the bytes
+    where those take longer; `bound_ms` stays the FMA bound at 67 TFLOP/s."""
     import ctypes
 
     import torch
@@ -1494,6 +1499,11 @@ def check_flash_bwd(reps: int) -> dict:
         bounds = {k_: max(ops / peak, nb / PEAK_BYTES) * 1e3 for k_, (ops, nb) in parts.items()}
         bound_by = {k_: "operations" if ops / peak >= nb / PEAK_BYTES else "bytes"
                     for k_, (ops, nb) in parts.items()}
+        tc = {}
+        if dtype == torch.float32:
+            for k_, (ops, nb) in parts.items():
+                pre = "" if k_ == "all" else f"{k_}_"
+                tc[f"{pre}tc_bound_ms"] = max(3 * ops / PEAK_TF32, nb / PEAK_BYTES) * 1e3
         key = f"{name} {str(dtype).split('.')[-1]}"
         row = dict(shape=key, batch=b, t=t, heads=2, dim_head=d, errors=errs, max_abs_err=max_abs,
                    bitwise_repeat=bitwise, ms=ms, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
@@ -1501,7 +1511,7 @@ def check_flash_bwd(reps: int) -> dict:
                    dkv_bound_ms=bounds["dkv"], bound_by=bound_by["all"],
                    dq_bound_by=bound_by["dq"], dkv_bound_by=bound_by["dkv"],
                    dq_tflops=parts["dq"][0] / dq_ms * 1e-9,
-                   dkv_tflops=parts["dkv"][0] / dkv_ms * 1e-9, vs_library=ms / lib_ms)
+                   dkv_tflops=parts["dkv"][0] / dkv_ms * 1e-9, vs_library=ms / lib_ms, **tc)
         print(f"[flash_bwd] {json.dumps(row)}", flush=True)
         limit = ATTN_FP32 if dtype == torch.float32 else BF16_REL_L2
         if not (bitwise and max(errs.values()) <= limit):
@@ -1733,8 +1743,9 @@ def main() -> int:
 
     from matcha_tts_tpu_torch.config import MatchaConfig
 
-    if attention_only:  # phase 11 alone, for work on the attention kernels
+    if attention_only:  # phases 11 and 16 alone, for work on the attention kernels
         check_attention(REPS)
+        check_flash_bwd(REPS)
         print(card)
         return 0
     table = check_kernels(T_Y, REPS)
@@ -1843,8 +1854,11 @@ def main() -> int:
             "train_step_bound_ms": sum(n * r["bound_ms"] for n, r in per_step),
             "design": "wgmma+tma, PR 6"})
     # the flash backward: one training step of (c), B = 64 in the (256, 1024)
-    # bucket, bf16 (2 launches of each kernel at T = 1024, 4 at T = 512)
+    # bucket, bf16 (2 launches of each kernel at T = 1024, 4 at T = 512); and
+    # one distillation step, B = 16 in the 512-frame bucket, fp32 (2 at T =
+    # 512, 4 at T = 256)
     per_step = [(2, bwd_rows["train T bfloat16"]), (4, bwd_rows["train T/2 bfloat16"])]
+    per_distill = [(2, bwd_rows["distill T float32"]), (4, bwd_rows["distill T/2 float32"])]
     bwd_launches = (train["launches"]["c"]["flash_mha_bwd"]
                     + sum(c["flash_mha_bwd"] for c in dist["launches"].values()))
     for kname, part, line in (("flash_mha_bwd_dkv", "dkv", "941"), ("flash_mha_bwd_dq", "dq", "1287")):
@@ -1860,10 +1874,17 @@ def main() -> int:
             "bound_by": per_step[0][1][f"{part}_bound_by"],
             "library_ms": sum(n * r["library_ms"] for n, r in per_step),
             "plain_and_library_cover": "the whole backward (dq, dk, dv)",
-            "design": "wgmma+tma, PR 5"})
+            "distill_step_ms": sum(n * r[f"{part}_ms"] for n, r in per_distill),
+            "distill_step_plain_ms": sum(n * r["plain_ms"] for n, r in per_distill),
+            "distill_step_library_ms": sum(n * r["library_ms"] for n, r in per_distill),
+            "distill_step_bound_ms": sum(n * r[f"{part}_bound_ms"] for n, r in per_distill),
+            "distill_step_tc_bound_ms": sum(n * r[f"{part}_tc_bound_ms"] for n, r in per_distill),
+            "design": "bf16: wgmma+tma, PR 5; fp32: 3xTF32 mma.sync on a cp.async ring, PR 8"})
+    bwd_shapes = (f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16; "
+                  f"distill_step: 2 x (16, {T_Y}, 2 x 64) + 4 x (16, {T_Y // 2}, 2 x 64) fp32")
     shapes = {
-        "flash_mha_bwd_dkv": f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16",
-        "flash_mha_bwd_dq": f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16",
+        "flash_mha_bwd_dkv": bwd_shapes,
+        "flash_mha_bwd_dq": bwd_shapes,
         "mrf": f"(1, {64 * T_Y}, 128) bf16",
         "mrf_up": f"128 -> 64 at {128 * T_Y}; 64 -> 32 + tail at {256 * T_Y}; bf16",
         "mas": f"{MAS_SHAPE} fp32",

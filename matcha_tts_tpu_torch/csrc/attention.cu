@@ -51,10 +51,11 @@
 // is uniform in the warpgroup: a wgmma behind a data-dependent branch is
 // serialised by ptxas.
 //
-// fp32 forward.  wgmma has no fp32 and TF32 would break the 1e-5 bound, so
-// fp32 keeps the mma-free design: one block of 4 warps per 64 query rows,
-// 16-row warp tiles of FMAs from shared memory, each 64-key tile staged
-// element by element (V transposed), the same two modes.
+// fp32 forward.  wgmma has no fp32, and a single TF32 product would break
+// the 1e-5 bound (a three-term TF32 split keeps it: the fp32 backward
+// below).  The forward still keeps the mma-free design: one block of 4 warps
+// per 64 query rows, 16-row warp tiles of FMAs from shared memory, each
+// 64-key tile staged element by element (V transposed), the same two modes.
 //
 // Backward (flash only).  Replaces the two kernels of JAX's upstream flash
 // attention backward, _flash_attention_bwd_dq and _flash_attention_bwd_dkv
@@ -86,10 +87,30 @@
 // CUDA runtime, so the library needs no -lcuda); a base or stride TMA
 // cannot take fails the launch.
 //
-// fp32 backward.  As the fp32 forward: one block of 4 warps per 64 rows
-// (keys), 16-row warp tiles of FMAs from shared memory, tiles staged element
-// by element (transposed where a product needs it); far from its bound
-// (PERF.md).
+// fp32 backward (flash_bwd_dq_tf32, flash_bwd_dkv_tf32).  Bound by the
+// operations: at distillation's T = 256-512 the least 10 B H T^2 D take 4-8x
+// the bytes' time on FMAs (67 TFLOP/s) and 1.6-3.3x as three TF32 products
+// at 495 TFLOP/s.  Every product runs on the tensor cores as three TF32
+// mma.sync.m16n8k8 products (each operand split into hi = rna(x) and lo =
+// rna(x - hi); lo hi + hi lo + hi hi), which keeps the gradients within 1e-5
+// of their scale where one TF32 product misses by 1e-3
+// (tests/test_torch_tf32_split.py).  wgmma is not used: it reads TF32 from
+// shared memory only K-major, and every accumulating product here (dV += P^T
+// dO, dK += dS^T Q, dQ += dS K) has an MN-major second operand.  One block of
+// 4 warps per 64 query rows (dq) or keys (dk/dv), 16 rows a warp; every tile
+// is staged once, row-major and padded to D + 4 floats, by 16-byte cp.async
+// into a 2-stage ring (rows past t zero-filled), so the next tile loads while
+// this one computes; fragments read the tile K-major or MN-major by index,
+// free of bank conflicts, and no tile is transposed.  P and dS go from the
+// score accumulator straight into the A fragment (the k index relabelled
+// inside each 8-step, see mma_acc).  Each operand is split at its fragment
+// load.  Splitting once at staging, into hi and lo planes, saves the 4 warps'
+// repeated splits but doubles each streamed tile's shared memory, so only
+// one block fits on an SM: built side by side at D = 64, it was faster at
+// (16, 256), where there is one block per SM anyway, and slower at (16,
+// 512) and over a distillation step.  What holds the kernels back is the
+// rate of TF32 mma.sync on this card, well below wgmma's 495 TFLOP/s, and
+// the splitting steps beside it (PERF.md).
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -107,9 +128,6 @@ constexpr float kVmemNeg = -1e30f;
 constexpr float kFlashMask = -0.7f * 3.4028234663852886e38f;
 
 typedef __nv_bfloat16 bf16;
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 
 // Shared memory of the fp32 forward: rows padded by 16 bytes for float4
 // loads (the pad staggers the banks).
@@ -135,10 +153,10 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-// The fp32 kernels keep the accumulator layout of mma.m16n8k16 (and of
-// wgmma, warp by warp): lane = 4 g + qd holds, for n-tile nt, element e in
-// 0..3 at row g + 8 (e / 2) of the warp's 16 rows and column nt * 8 + 2 qd
-// + e % 2.
+// The fp32 kernels keep the accumulator layout of mma.m16n8k8 (the same as
+// m16n8k16's and, warp by warp, wgmma's): lane = 4 g + qd holds, for n-tile
+// nt, element e in 0..3 at row g + 8 (e / 2) of the warp's 16 rows and
+// column nt * 8 + 2 qd + e % 2.
 
 // s[nt][e] = Q[row] . K[key] over the warp's 16 rows and the tile's 64
 // keys, fp32 FMAs from shared memory.
@@ -369,70 +387,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* mas
 }
 
 // ---------------------------------------------------------------------------
-// flash backward
+// flash backward: the rounding steps of both types, and the fp32 kernels
+// (three-term TF32 products on mma.sync)
 // ---------------------------------------------------------------------------
 
-// c[nt][e] = A[row] . B[col] over D for the warp's 16 rows of A (sA points
-// at the warp's first row) and the tile's 64 rows of B, both [.][qs] in
-// shared memory, in the accumulator layout above; fp32 FMAs.
-template <int D>
-__device__ __forceinline__ void dot_nt(float (&c)[kKeys / 8][4], const float* sA, const float* sB,
-                                       int lane) {
-  constexpr int QS = Smem<D>::qs;
-  const int g = lane / 4, qd = lane % 4;
-  const float* a0 = sA + g * QS;
-  const float* a1 = a0 + 8 * QS;
-#pragma unroll
-  for (int nt = 0; nt < kKeys / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
-    const float* b0 = sB + (nt * 8 + 2 * qd) * QS;
-    const float* b1 = b0 + QS;
-    for (int cc = 0; cc < D; cc += 4) {
-      const float4 x0 = *reinterpret_cast<const float4*>(a0 + cc);
-      const float4 x1 = *reinterpret_cast<const float4*>(a1 + cc);
-      const float4 y0 = *reinterpret_cast<const float4*>(b0 + cc);
-      const float4 y1 = *reinterpret_cast<const float4*>(b1 + cc);
-      c[nt][0] = fmaf(x0.x, y0.x, fmaf(x0.y, y0.y, fmaf(x0.z, y0.z, fmaf(x0.w, y0.w, c[nt][0]))));
-      c[nt][1] = fmaf(x0.x, y1.x, fmaf(x0.y, y1.y, fmaf(x0.z, y1.z, fmaf(x0.w, y1.w, c[nt][1]))));
-      c[nt][2] = fmaf(x1.x, y0.x, fmaf(x1.y, y0.y, fmaf(x1.z, y0.z, fmaf(x1.w, y0.w, c[nt][2]))));
-      c[nt][3] = fmaf(x1.x, y1.x, fmaf(x1.y, y1.y, fmaf(x1.z, y1.z, fmaf(x1.w, y1.w, c[nt][3]))));
-    }
-  }
-}
-
-// Shared memory of the fp32 backward kernels: four [64][qs] row tiles, the
-// transposed tiles ([D][vs]; one for dq, two for dk/dv), four 64-entry
-// per-row arrays, and (fp32) the per-warp P tiles of accumulate_pv.
-template <int D>
-struct BwdSmem {
-  static constexpr int qs = Smem<D>::qs;
-  static constexpr int vs = Smem<D>::vs;
-  static constexpr int ps = Smem<D>::ps;
-  static constexpr int row_tile = kRows * qs * 4;
-  static constexpr int col_tile = D * vs * 4;
-  static constexpr int rows_off = 4 * row_tile;  // then n_col col tiles
-  static constexpr int stats_bytes = 4 * kRows * 4;
-  static constexpr int p_bytes = kWarps * 16 * ps * 4;
-  static constexpr int total(int n_col) { return rows_off + n_col * col_tile + stats_bytes + p_bytes; }
-};
-
-// Stages rows [r0, r0 + 64) of a (t, ld) operand at column offset 0 into
-// a row tile [64][qs] and, when tr is not null, its transpose [D][vs];
-// rows past t are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(const T* __restrict__ src, size_t ld, int r0, int t,
-                                      T* rows, T* tr) {
-  constexpr int QS = Smem<D>::qs, VS = Smem<D>::vs;
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const T x = r0 + r < t ? src[(size_t)(r0 + r) * ld + c] : from_f<T>(0.f);
-    rows[r * QS + c] = x;
-    if (tr != nullptr) tr[c * VS + r] = x;
-  }
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // p = exp(s * scale + mask - m) * (1 / l) as upstream forms it (the scale
@@ -449,30 +407,180 @@ __device__ __forceinline__ float p_of(float s, int seg, int other_seg, float m, 
 __device__ __forceinline__ float ds_of(float dp, float p, float di, float scale) {
   return __fmul_rn(__fmul_rn(__fsub_rn(dp, di), p), scale);
 }
-__device__ __forceinline__ void p_ds(float& s, float& dp, int seg, int other_seg, float m,
-                                     float rinv_l, float di, float scale) {
-  s = p_of(s, seg, other_seg, m, rinv_l, scale);
-  dp = ds_of(dp, s, di, scale);
+
+// cvt.rna.tf32.f32 on the bits of a finite x: round the magnitude to 10
+// mantissa bits, ties away from zero.  The instruction itself compiles to a
+// NaN test and selects around this on sm_90a; the two integer steps give the
+// same bits for every finite x, in fewer instructions.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// dq and di, fp32 (T = float).  grid (ceil(t / 64), heads, B), kThreads threads.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ mask, const T* __restrict__ o, const T* __restrict__ dout,
-    const float* __restrict__ m, const float* __restrict__ l, float* __restrict__ di,
-    T* __restrict__ dq, int t, int heads, float scale) {
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = reinterpret_cast<T*>(smem + L::row_tile);
-  T* sK = reinterpret_cast<T*>(smem + 2 * L::row_tile);
-  T* sV = reinterpret_cast<T*>(smem + 3 * L::row_tile);
-  T* sKt = reinterpret_cast<T*>(smem + L::rows_off);
-  int* sSeg = reinterpret_cast<int*>(smem + L::rows_off + L::col_tile);
-  float* sDi = reinterpret_cast<float*>(sSeg + kRows);
-  float* sP = reinterpret_cast<float*>(smem + L::rows_off + L::col_tile + L::stats_bytes);
+// The TF32 halves of an fp32 value: hi = rna(x), lo = rna(x - hi) (x - hi
+// is exact).  hi + lo keeps 21 or more of x's 24 bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
 
+// c += a b on one m16n8k8 TF32 tile.  Fragments (lane = 4 g + qd): a0 (g,
+// qd), a1 (g + 8, qd), a2 (g, qd + 4), a3 (g + 8, qd + 4); b0 (k = qd, n =
+// g), b1 (k = qd + 4, n = g); c as the accumulator layout above.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in three TF32 products, a_lo b_hi + a_hi b_lo + a_hi b_hi, small
+// terms first (the order of CUTLASS's OpMultiplyAddFastF32); a_lo b_lo is
+// dropped.  The B pair is split here, at the fragment load.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4], float a0, float a1,
+                                        float a2, float a3) {
+  split_tf32(a0, hi[0], lo[0]);
+  split_tf32(a1, hi[1], lo[1]);
+  split_tf32(a2, hi[2], lo[2]);
+  split_tf32(a3, hi[3], lo[3]);
+}
+
+// Shared memory of the fp32 backward: every operand tile row-major, [64][D +
+// 4] floats.  Fragments read K-major (row g, column qd) hit bank 4 g + qd and
+// those read MN-major with the permuted k of mma_acc (row 2 qd, column g)
+// bank 8 qd + g: both free of conflicts.  Two fixed tiles (dq: the block's Q
+// and dO; dk/dv: its K and V), then a 2-stage ring of two streamed tiles
+// (dq: K, V; dk/dv: Q, dO) and, per stage, four 64-entry arrays of the
+// streamed rows: segment (-1 past the end), m, 1 / l, di.
+template <int D>
+struct Tf32Smem {
+  static constexpr int ld = D + 4;  // floats per row
+  static constexpr int tile = kRows * ld;
+  static constexpr int ring_off = 2 * tile;
+  static constexpr int stats_off = ring_off + 2 * 2 * tile;
+  static constexpr int stats = 4 * kRows;
+  static constexpr int total = (stats_off + 2 * stats) * 4;  // bytes
+};
+
+// Starts the copy of rows [r0, r0 + 64) of a (t, ld) fp32 operand into a
+// [64][D + 4] tile: 16-byte cp.async, rows past t zero-filled (source size
+// 0, nothing read).  Rows must be 16-byte aligned (the launcher checks).
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, size_t ld,
+                                          int r0, int t) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks of a row
+#pragma unroll
+  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kChunks, c = 4 * (i % kChunks);
+    const bool in = r0 + r < t;
+    const float* from = in ? src + (size_t)(r0 + r) * ld + c : src;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst + r * Tf32Smem<D>::ld + c)),
+                 "l"(from), "r"(in ? 16 : 0)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The tensor cores add each product into the accumulator with a rounding
+// toward zero, so a long chain of products on one accumulator drifts: with
+// one accumulator over all 1024 queries, dk missed the 1e-5 bound on the
+// H100.  So every chain here is short and starts from zero, and its sum is
+// added in fp32 with round to nearest: a score's (mma_nt) per 8-column
+// step, an accumulating product's (mma_acc) per tile.
+
+// c[nt][e] = A[row] . B[col] over D, for the warp's 16 rows of A (sA at the
+// warp's first row) and the tile's 64 rows of B, both read K-major.
+template <int D>
+__device__ __forceinline__ void mma_nt(float (&c)[kKeys / 8][4], const float* sA, const float* sB,
+                                       int g, int qd) {
+  constexpr int LD = Tf32Smem<D>::ld;
+#pragma unroll
+  for (int nt = 0; nt < kKeys / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+  const float* a = sA + g * LD + qd;
+  const float* b = sB + g * LD + qd;
+#pragma unroll 2  // full unrolling holds more loads in flight than registers allow
+  for (int kk = 0; kk < D; kk += 8) {
+    uint32_t ah[4], al[4];
+    split_a(ah, al, a[kk], a[8 * LD + kk], a[kk + 4], a[8 * LD + kk + 4]);
+#pragma unroll
+    for (int nt = 0; nt < kKeys / 8; ++nt) {
+      float step[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_3xtf32(step, ah, al, b[nt * 8 * LD + kk], b[nt * 8 * LD + kk + 4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[nt][e] += step[e];
+    }
+  }
+}
+
+// c[nt][e] += sum over the tile's 64 rows j of A[row][j] B[j][col], A (16 x
+// 64) in registers in the accumulator layout (P or dS), B the tile read
+// MN-major.  The accumulator is used as the A fragment as it stands: k-step
+// j's index qd stands for row 8 j + 2 qd of B and qd + 4 for row 8 j + 2 qd
+// + 1, so a0 = a[j][0], a1 = a[j][2], a2 = a[j][1], a3 = a[j][3], and B's
+// fragment reads the same rows.  A relabelling of k inside a step leaves the
+// sum as it is, so nothing is permuted.  The tile's sum is formed in chunks
+// of NC n-tiles (16 registers at D = 128, where dk/dv's two accumulators
+// already hold 128), each chunk re-splitting A.
+template <int D>
+__device__ __forceinline__ void mma_acc(float (&c)[D / 8][4], const float (&a)[kKeys / 8][4],
+                                        const float* sB, int g, int qd) {
+  constexpr int LD = Tf32Smem<D>::ld;
+  constexpr int NC = D == 64 ? 8 : 4;
+  const float* b = sB + 2 * qd * LD + g;
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += NC) {
+    float part[NC][4];
+#pragma unroll
+    for (int nt = 0; nt < NC; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[nt][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) {
+      uint32_t ah[4], al[4];
+      split_a(ah, al, a[j][0], a[j][2], a[j][1], a[j][3]);
+#pragma unroll
+      for (int nt = 0; nt < NC; ++nt)
+        mma_3xtf32(part[nt], ah, al, b[8 * j * LD + (n0 + nt) * 8],
+                   b[(8 * j + 1) * LD + (n0 + nt) * 8]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NC; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[n0 + nt][e] += part[nt][e];
+  }
+}
+
+// dq and di, fp32.  grid (ceil(t / 64), heads, B), kThreads threads; each
+// warp owns 16 query rows and walks the key tiles.
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_tf32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ mask, const float* __restrict__ o, const float* __restrict__ dout,
+    const float* __restrict__ m, const float* __restrict__ l, float* __restrict__ di,
+    float* __restrict__ dq, int t, int heads, float scale) {
+  using L = Tf32Smem<D>;
+  extern __shared__ __align__(16) float smf[];
   const int bi = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kRows;
   const size_t ld = (size_t)heads * D;
   const size_t off = (size_t)bi * t * ld + h * D;
@@ -481,34 +589,53 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, qd = lane % 4;
   const int wrow = warp * 16;
+  const int n_tiles = (t + kKeys - 1) / kKeys;
+  const float* sQ = smf;
+  const float* sdO = smf + L::tile;
 
-  stage<T, D>(q + off, ld, r0, t, sQ, nullptr);
-  stage<T, D>(dout + off, ld, r0, t, sdO, nullptr);
-  // di = rowsum(o * do) in fp32, one warp per 16 rows
-  for (int rr = 0; rr < 16; ++rr) {
-    const int row = r0 + wrow + rr;
-    float acc = 0.f;
-    if (row < t)
-      for (int c = lane; c < D; c += 32)
-        acc = fmaf(to_f(o[off + row * ld + c]), to_f(dout[off + row * ld + c]), acc);
-#pragma unroll
-    for (int sh = 16; sh > 0; sh >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, sh);
-    if (lane == 0) {
-      sDi[wrow + rr] = acc;
-      if (row < t) di[srow + row] = acc;
-    }
+  // stage kt % 2 of the ring holds K, V and the keys' segments of key tile kt
+  auto issue = [&](int kt) {
+    float* st = smf + L::ring_off + 2 * (kt % 2) * L::tile;
+    load_tile<D>(st, k + off, ld, kt * kKeys, t);
+    load_tile<D>(st + L::tile, v + off, ld, kt * kKeys, t);
+  };
+  auto seg_at = [&](int kt) {
+    return reinterpret_cast<int*>(smf + L::stats_off + (kt % 2) * L::stats);
+  };
+  load_tile<D>(smf, q + off, ld, r0, t);
+  load_tile<D>(smf + L::tile, dout + off, ld, r0, t);
+  for (int kt = 0; kt < 2 && kt < n_tiles; ++kt) {
+    issue(kt);
+    cp_async_commit();
+    const int key = kt * kKeys + threadIdx.x;
+    if (threadIdx.x < kKeys) seg_at(kt)[threadIdx.x] = key < t ? (mb[key] == 0.f ? 1 : 0) : -1;
   }
-  __syncthreads();
+  if (n_tiles == 1) cp_async_commit();  // an empty group keeps the count: tile kt is group kt
+
+  // di = rowsum(o * do) in fp32, while the tiles load: each lane of a quad
+  // sums D / 4 columns of its two rows, then the quad adds its four sums.
   int qseg[2];
   float mrow[2], rinv[2], drow[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = r0 + wrow + g + 8 * hh;
     const bool in = row < t;
+    float acc = 0.f;
+    if (in) {
+      const float4* po = reinterpret_cast<const float4*>(o + off + row * ld + qd * (D / 4));
+      const float4* pd = reinterpret_cast<const float4*>(dout + off + row * ld + qd * (D / 4));
+#pragma unroll
+      for (int i = 0; i < D / 16; ++i) {
+        const float4 x = po[i], y = pd[i];
+        acc = fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, fmaf(x.x, y.x, acc))));
+      }
+    }
+    acc = quad_sum(acc);
+    if (in && qd == 0) di[srow + row] = acc;
     qseg[hh] = in && mb[row] == 0.f ? 1 : 0;
     mrow[hh] = in ? m[srow + row] : 0.f;
     rinv[hh] = in ? __fdiv_rn(1.f, l[srow + row]) : 0.f;
-    drow[hh] = sDi[wrow + g + 8 * hh];
+    drow[hh] = acc;
   }
 
   float acc[D / 8][4];
@@ -517,64 +644,67 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 
-  const int n_tiles = (t + kKeys - 1) / kKeys;
 #pragma unroll 1
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kKeys;
-    __syncthreads();  // the previous tile is consumed
-    stage<T, D>(k + off, ld, k0, t, sK, sKt);
-    stage<T, D>(v + off, ld, k0, t, sV, nullptr);
-    for (int j = threadIdx.x; j < kKeys; j += kThreads)
-      sSeg[j] = k0 + j < t ? (mb[k0 + j] == 0.f ? 1 : 0) : -1;
-    __syncthreads();
-
+    // the mask of key tile kt + 2, read now and written to its stage after
+    // this tile's products
+    const int key_next = (kt + 2) * kKeys + threadIdx.x;
+    const bool next = kt + 2 < n_tiles;
+    const float mask_next = next && threadIdx.x < kKeys && key_next < t ? mb[key_next] : 1.f;
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt has landed, for every thread
+    const float* sK = smf + L::ring_off + 2 * (kt % 2) * L::tile;
+    const float* sV = sK + L::tile;
+    const int* seg = seg_at(kt);
     float s[kKeys / 8][4], dp[kKeys / 8][4];
-    dot_nt<D>(s, sQ + wrow * L::qs, sK, lane);
-    dot_nt<D>(dp, sdO + wrow * L::qs, sV, lane);
+    mma_nt<D>(s, sQ + wrow * L::ld, sK, g, qd);    // S = Q K^T
+    mma_nt<D>(dp, sdO + wrow * L::ld, sV, g, qd);  // dP = dO V^T
 #pragma unroll
     for (int nt = 0; nt < kKeys / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int hh = e / 2;
-        p_ds(s[nt][e], dp[nt][e], sSeg[nt * 8 + 2 * qd + e % 2], qseg[hh], mrow[hh], rinv[hh],
-             drow[hh], scale);
+        s[nt][e] = p_of(s[nt][e], seg[nt * 8 + 2 * qd + e % 2], qseg[hh], mrow[hh], rinv[hh],
+                        scale);
+        dp[nt][e] = ds_of(dp[nt][e], s[nt][e], drow[hh], scale);
       }
-    accumulate_pv<D>(acc, dp, sKt, sP + warp * 16 * L::ps, g, qd);  // dq += ds k
+    mma_acc<D>(acc, dp, sK, g, qd);  // dQ += dS K
+    __syncthreads();  // stage kt % 2 is consumed
+    if (next) {
+      issue(kt + 2);
+      if (threadIdx.x < kKeys)
+        seg_at(kt)[threadIdx.x] = key_next < t ? (mask_next == 0.f ? 1 : 0) : -1;
+    }
+    cp_async_commit();
   }
 
-  T* dqb = dq + off;
+  float* dqb = dq + off;
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + wrow + g + 8 * hh;
+    if (row >= t) continue;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = r0 + wrow + g + 8 * (e / 2);
-      if (row < t) dqb[row * ld + nt * 8 + 2 * qd + e % 2] = from_f<T>(acc[nt][e]);
-    }
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(dqb + row * ld + nt * 8 + 2 * qd) =
+          make_float2(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
+  }
 }
 
-// dk and dv, fp32 (T = float).  grid (ceil(t / 64), heads, B), kThreads threads; each warp
-// owns 16 keys.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ mask, const T* __restrict__ dout, const float* __restrict__ m,
-    const float* __restrict__ l, const float* __restrict__ di, T* __restrict__ dk,
-    T* __restrict__ dv, int t, int heads, float scale) {
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = reinterpret_cast<T*>(smem + L::row_tile);
-  T* sQ = reinterpret_cast<T*>(smem + 2 * L::row_tile);
-  T* sdO = reinterpret_cast<T*>(smem + 3 * L::row_tile);
-  T* sQt = reinterpret_cast<T*>(smem + L::rows_off);
-  T* sdOt = reinterpret_cast<T*>(smem + L::rows_off + L::col_tile);
-  unsigned char* stats = smem + L::rows_off + 2 * L::col_tile;
-  int* sSeg = reinterpret_cast<int*>(stats);
-  float* sM = reinterpret_cast<float*>(stats) + kRows;
-  float* sRinv = sM + kRows;
-  float* sDi = sRinv + kRows;
-  float* sP = reinterpret_cast<float*>(stats + L::stats_bytes);
-
+// dk and dv, fp32.  grid (ceil(t / 64), heads, B), kThreads threads; each
+// warp owns 16 keys (rows of the transposed scores) and walks the query
+// tiles with their statistics.  At D = 128 it walks them twice, dV in the
+// first pass and dK in the second: the two accumulators (128 registers) and
+// a tile's scores do not fit in registers together (ptxas spilled), and the
+// second walk recomputes S^T only: 10 B H T^2 D for dk/dv instead of 8.
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tf32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ mask, const float* __restrict__ dout, const float* __restrict__ m,
+    const float* __restrict__ l, const float* __restrict__ di, float* __restrict__ dk,
+    float* __restrict__ dv, int t, int heads, float scale) {
+  using L = Tf32Smem<D>;
+  constexpr int kPasses = D > 64 ? 2 : 1;
+  extern __shared__ __align__(16) float smf[];
   const int bi = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kKeys;
   const size_t ld = (size_t)heads * D;
   const size_t off = (size_t)bi * t * ld + h * D;
@@ -583,9 +713,28 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, qd = lane % 4;
   const int wrow = warp * 16;
+  const int n_tiles = (t + kRows - 1) / kRows;
+  const float* sK = smf;
+  const float* sV = smf + L::tile;
 
-  stage<T, D>(k + off, ld, k0, t, sK, nullptr);
-  stage<T, D>(v + off, ld, k0, t, sV, nullptr);
+  // stage qt % 2 of the ring holds Q, dO and the rows' statistics of query tile qt
+  auto issue = [&](int qt) {
+    float* st = smf + L::ring_off + 2 * (qt % 2) * L::tile;
+    load_tile<D>(st, q + off, ld, qt * kRows, t);
+    load_tile<D>(st + L::tile, dout + off, ld, qt * kRows, t);
+  };
+  auto stats_at = [&](int qt) { return smf + L::stats_off + (qt % 2) * L::stats; };
+  // one row's segment (-1 past the end), m, 1 / l and di into its stage
+  auto put_stats = [&](int qt, int row, float mk, float mm, float ll, float dd) {
+    float* st = stats_at(qt);
+    const bool in = row < t;
+    reinterpret_cast<int*>(st)[threadIdx.x] = in ? (mk == 0.f ? 1 : 0) : -1;
+    st[kRows + threadIdx.x] = in ? mm : 0.f;
+    st[2 * kRows + threadIdx.x] = in ? __fdiv_rn(1.f, ll) : 0.f;
+    st[3 * kRows + threadIdx.x] = in ? dd : 0.f;
+  };
+  load_tile<D>(smf, k + off, ld, k0, t);
+  load_tile<D>(smf + L::tile, v + off, ld, k0, t);
   int kseg[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -593,53 +742,91 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     kseg[hh] = key < t && mb[key] == 0.f ? 1 : 0;
   }
 
-  float adk[D / 8][4], adv[D / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[nt][e] = adv[nt][e] = 0.f;
-
-  const int n_tiles = (t + kRows - 1) / kRows;
-#pragma unroll 1
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kRows;
-    __syncthreads();  // the previous tile is consumed
-    stage<T, D>(q + off, ld, q0, t, sQ, sQt);
-    stage<T, D>(dout + off, ld, q0, t, sdO, sdOt);
-    for (int r = threadIdx.x; r < kRows; r += kThreads) {
-      const bool in = q0 + r < t;
-      sSeg[r] = in ? (mb[q0 + r] == 0.f ? 1 : 0) : -1;
-      sM[r] = in ? m[srow + q0 + r] : 0.f;
-      sRinv[r] = in ? __fdiv_rn(1.f, l[srow + q0 + r]) : 0.f;
-      sDi[r] = in ? di[srow + q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // transposed scores: row = the warp's key, column = the tile's query
-    float s[kRows / 8][4], dp[kRows / 8][4];
-    dot_nt<D>(s, sK + wrow * L::qs, sQ, lane);
-    dot_nt<D>(dp, sV + wrow * L::qs, sdO, lane);
-#pragma unroll
-    for (int nt = 0; nt < kRows / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * qd + e % 2;
-        p_ds(s[nt][e], dp[nt][e], sSeg[col], kseg[e / 2], sM[col], sRinv[col], sDi[col], scale);
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const bool want_dv = pass == 0, want_dk = pass == kPasses - 1;
+    for (int qt = 0; qt < 2 && qt < n_tiles; ++qt) {
+      issue(qt);
+      cp_async_commit();
+      const int row = qt * kRows + threadIdx.x;
+      if (threadIdx.x < kRows) {
+        const bool in = row < t;
+        put_stats(qt, row, in ? mb[row] : 1.f, in ? m[srow + row] : 0.f,
+                  in ? l[srow + row] : 1.f, in ? di[srow + row] : 0.f);
       }
-    accumulate_pv<D>(adv, s, sdOt, sP + warp * 16 * L::ps, g, qd);  // dv += p^T do
-    accumulate_pv<D>(adk, dp, sQt, sP + warp * 16 * L::ps, g, qd);  // dk += ds^T q
-  }
+    }
+    if (n_tiles == 1) cp_async_commit();  // an empty group keeps the count: tile qt is group qt
+
+    float adk[D / 8][4], adv[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) adk[nt][e] = adv[nt][e] = 0.f;
+
+#pragma unroll 1
+    for (int qt = 0; qt < n_tiles; ++qt) {
+      // the statistics of query tile qt + 2, read now and written to its
+      // stage after this tile's products
+      const int row_next = (qt + 2) * kRows + threadIdx.x;
+      const bool next = qt + 2 < n_tiles;
+      const bool load = next && threadIdx.x < kRows && row_next < t;
+      const float mk = load ? mb[row_next] : 1.f, mm = load ? m[srow + row_next] : 0.f;
+      const float ll = load ? l[srow + row_next] : 1.f, dd = load ? di[srow + row_next] : 0.f;
+      cp_async_wait<1>();
+      __syncthreads();  // tile qt has landed, for every thread
+      const float* sQ = smf + L::ring_off + 2 * (qt % 2) * L::tile;
+      const float* sdO = sQ + L::tile;
+      const float* st = stats_at(qt);
+      float s[kRows / 8][4];
+      mma_nt<D>(s, sK + wrow * L::ld, sQ, g, qd);  // S^T = K Q^T
+#pragma unroll
+      for (int nt = 0; nt < kRows / 8; ++nt) {
+        const int col = nt * 8 + 2 * qd;
+        const int2 sg = *reinterpret_cast<const int2*>(reinterpret_cast<const int*>(st) + col);
+        const float2 sm = *reinterpret_cast<const float2*>(st + kRows + col);
+        const float2 sr = *reinterpret_cast<const float2*>(st + 2 * kRows + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool y = e % 2;
+          s[nt][e] = p_of(s[nt][e], y ? sg.y : sg.x, kseg[e / 2], y ? sm.y : sm.x,
+                          y ? sr.y : sr.x, scale);
+        }
+      }
+      if (want_dv) mma_acc<D>(adv, s, sdO, g, qd);  // dV += P^T dO
+      if (want_dk) {
+        float dp[kRows / 8][4];
+        mma_nt<D>(dp, sV + wrow * L::ld, sdO, g, qd);  // dP^T = V dO^T
+#pragma unroll
+        for (int nt = 0; nt < kRows / 8; ++nt) {
+          const float2 sd = *reinterpret_cast<const float2*>(st + 3 * kRows + nt * 8 + 2 * qd);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[nt][e] = ds_of(dp[nt][e], s[nt][e], e % 2 ? sd.y : sd.x, scale);
+        }
+        mma_acc<D>(adk, dp, sQ, g, qd);  // dK += dS^T Q
+      }
+      __syncthreads();  // stage qt % 2 is consumed
+      if (next) {
+        issue(qt + 2);
+        if (threadIdx.x < kRows) put_stats(qt, row_next, mk, mm, ll, dd);
+      }
+      cp_async_commit();
+    }
 
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = k0 + wrow + g + 8 * (e / 2);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = k0 + wrow + g + 8 * hh;
       if (key >= t) continue;
-      const size_t at = off + key * ld + nt * 8 + 2 * qd + e % 2;
-      dk[at] = from_f<T>(adk[nt][e]);
-      dv[at] = from_f<T>(adv[nt][e]);
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const size_t at = off + key * ld + nt * 8 + 2 * qd;
+        if (want_dk)
+          *reinterpret_cast<float2*>(dk + at) = make_float2(adk[nt][2 * hh], adk[nt][2 * hh + 1]);
+        if (want_dv)
+          *reinterpret_cast<float2*>(dv + at) = make_float2(adv[nt][2 * hh], adv[nt][2 * hh + 1]);
+      }
     }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1543,32 +1730,43 @@ cudaError_t bwd_launch_sm90(bool dq_pass, const BwdArgs& a, cudaStream_t stream)
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t bwd_launch(bool dq_pass, const BwdArgs& a, cudaStream_t stream) {
+template <typename K>
+cudaError_t tf32_attributes(K kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // the largest carveout, so that two D = 64 blocks share an SM
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// The fp32 backward.  Both kernels stage q, k, v and dO with 16-byte
+// cp.async (and dq reads o with 16-byte loads), so a base that is not
+// 16-byte aligned is refused.
+template <int D>
+cudaError_t bwd_launch_tf32(bool dq_pass, const BwdArgs& a, cudaStream_t stream) {
+  const void* bases[5] = {a.q, a.k, a.v, a.dout, dq_pass ? a.o : a.q};
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  constexpr int smem = Tf32Smem<D>::total;
+  static_assert(smem <= 232448, "fp32 backward: shared memory");
   const dim3 grid((a.t + kRows - 1) / kRows, a.heads, a.batch);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
   cudaError_t err;
   if (dq_pass) {
-    constexpr int smem = BwdSmem<D>::total(1);
-    static_assert(smem <= 232448, "dq kernel: shared memory");
-    auto kernel = flash_bwd_dq_kernel<T, D>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, stream>>>(q, k, v, a.mask, static_cast<const T*>(a.o), dout,
-                                             a.m, a.l, a.di, static_cast<T*>(a.dq), a.t,
-                                             a.heads, a.scale);
+    auto kernel = flash_bwd_dq_tf32<D>;
+    if ((err = tf32_attributes(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, stream>>>(q, k, v, a.mask, static_cast<const float*>(a.o),
+                                             dout, a.m, a.l, a.di, static_cast<float*>(a.dq),
+                                             a.t, a.heads, a.scale);
   } else {
-    constexpr int smem = BwdSmem<D>::total(2);
-    static_assert(smem <= 232448, "dkv kernel: shared memory");
-    auto kernel = flash_bwd_dkv_kernel<T, D>;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
+    auto kernel = flash_bwd_dkv_tf32<D>;
+    if ((err = tf32_attributes(kernel, smem)) != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, stream>>>(q, k, v, a.mask, dout, a.m, a.l, a.di,
-                                             static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.t,
-                                             a.heads, a.scale);
+                                             static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+                                             a.t, a.heads, a.scale);
   }
   return cudaGetLastError();
 }
@@ -1579,8 +1777,8 @@ cudaError_t bwd_dispatch(bool dq_pass, int is_bf16, int d, const BwdArgs& a, cud
     if (d == 64) return bwd_launch_sm90<64>(dq_pass, a, s);
     if (d == 128) return bwd_launch_sm90<128>(dq_pass, a, s);
   } else {
-    if (d == 64) return bwd_launch<float, 64>(dq_pass, a, s);
-    if (d == 128) return bwd_launch<float, 128>(dq_pass, a, s);
+    if (d == 64) return bwd_launch_tf32<64>(dq_pass, a, s);
+    if (d == 128) return bwd_launch_tf32<128>(dq_pass, a, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -26,9 +26,12 @@ fp32 sums, cast once at the end.
 On the card, bf16 runs the sm_90a kernels: the forward (both modes) keeps
 128 query rows per block on `wgmma` and streams 64-key tiles through a TMA
 ring (vmem streams them twice, K alone for the row max and sum, then K and
-V), and the backward is built the same way; fp32 runs FMA kernels (wgmma
-has no fp32).  A bf16 operand whose base is not 16-byte aligned cannot be
-a TMA source: the launch fails and the wrapper raises.
+V), and the backward is built the same way.  The fp32 forward runs on FMAs
+(wgmma has no fp32); the fp32 backward runs every product as three TF32
+`mma.sync` products (hi and lo halves of each operand), on tiles staged by
+`cp.async`.  An operand whose base is not 16-byte aligned cannot be a TMA
+source (bf16) or a 16-byte copy's (the fp32 backward): the launch fails
+and the wrapper raises.
 
 On a CPU tensor each wrapper runs its plain version (the forwards through
 autograd); on a CUDA tensor it launches the kernel or raises.  On the card
@@ -106,13 +109,13 @@ def vmem_mha_plain(q, k, v, key_mask, heads: int, sm_scale: float) -> torch.Tens
     return _merge(torch.matmul(p, vh), q.dtype)
 
 
-def _flash_logits(qh, kh, key_mask, sm_scale: float) -> torch.Tensor:
+def _flash_logits(qh, kh, key_mask, sm_scale: float, matmul=torch.matmul) -> torch.Tensor:
     """fp32 q k^T * scale, + (-0.7 * FLT_MAX) where the query's and the key's
     segments differ (padded = segment 1): (B, H, T_q, T_k)."""
     seg = key_mask == 0
     same = seg[:, :, None] == seg[:, None, :]  # (B, T_q, T_k)
     bias = torch.where(same, 0.0, FLASH_MASK).float()
-    return torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale + bias[:, None]
+    return matmul(qh, kh.transpose(-1, -2)) * sm_scale + bias[:, None]
 
 
 def flash_mha_plain(q, k, v, key_mask, heads: int, sm_scale: float,
@@ -132,25 +135,28 @@ def flash_mha_plain(q, k, v, key_mask, heads: int, sm_scale: float,
     return out
 
 
-def flash_mha_bwd_plain(q, k, v, key_mask, o, m, l, do, heads: int, sm_scale: float):
+def flash_mha_bwd_plain(q, k, v, key_mask, o, m, l, do, heads: int, sm_scale: float,
+                        matmul=torch.matmul):
     """Upstream's backward arithmetic (`flash_attention.py:273-275`, the dkv
     kernel `:844-920`, the dq kernel `:1187-1261`) step by step, not
     autograd: p = exp(s - m) * (1 / l) from the saved fp32 statistics;
     dv = (p cast to do's dtype)^T do; dp = do v^T; ds = (dp - di) * p *
     scale with di = rowsum(o * do) in fp32; dk = (ds cast to the input
     dtype)^T q; dq = (ds cast) k; fp32 sums, each gradient cast once to the
-    input dtype.  (B, T, H * D) in and out; m, l (B, H, T) fp32."""
+    input dtype.  (B, T, H * D) in and out; m, l (B, H, T) fp32.  `matmul`
+    takes the five products (a test puts a model of the kernel's fp32
+    tensor-core products there)."""
     qh, kh, vh = _heads(q, heads), _heads(k, heads), _heads(v, heads)
     oh, doh = _heads(o, heads), _heads(do, heads)
     di = torch.sum(oh * doh, dim=-1)  # (B, H, T)
-    s = _flash_logits(qh, kh, key_mask, sm_scale)
+    s = _flash_logits(qh, kh, key_mask, sm_scale, matmul)
     p = torch.exp(s - m[..., None]) * (1 / l)[..., None]
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), doh)
-    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    dv = matmul(p.to(do.dtype).float().transpose(-1, -2), doh)
+    dp = matmul(doh, vh.transpose(-1, -2))
     ds = (dp - di[..., None]) * p * sm_scale
     ds = ds.to(q.dtype).float()
-    dk = torch.matmul(ds.transpose(-1, -2), qh)
-    dq = torch.matmul(ds, kh)
+    dk = matmul(ds.transpose(-1, -2), qh)
+    dq = matmul(ds, kh)
     return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype)
 
 

@@ -2,7 +2,8 @@
 `gpu`; they skip where there is no card): the MRF levels, MAS (identical
 paths), the fused Block1D / ResnetBlock1D (forward and gradients), the
 attention kernels (with ragged T, items of length 0, flash's row
-statistics and a misaligned bf16 base) and the flash backward (dq, dk/dv: fp32 max |diff| <=
+statistics and a misaligned bf16 base) and the flash backward (dq, dk/dv,
+with a misaligned fp32 base: fp32 max |diff| <=
 1e-5 of each gradient's max |value|, bf16 relative L2 <= 1e-2 against the
 fp32 plain backward on the same rounded operands, bitwise repeatable).  Run
 on a machine with one (`--noconftest`: tests/conftest.py imports JAX, which
@@ -433,11 +434,15 @@ def _flash_bwd_case(b, t, d, dtype, dev, seed, lengths=None):
 # 64-row warpgroups and stream 64-row tiles: (2, 1024) is the training
 # shape; 640 gives an odd number of 128-row blocks; 200 ends inside a tile
 # (the wrapper takes it by a direct call); lengths pad one item over whole
-# tiles and leave one unpadded.
+# tiles and leave one unpadded.  The fp32 kernels stream 64-row tiles
+# through a 2-stage cp.async ring that zero-fills rows past t: (16, 256) is
+# distillation's shape with ragged lengths; 100 ends inside the second
+# tile; 40 is a single tile (the ring's second stage stays empty).
 @pytest.mark.parametrize("b,t,d,lengths", [
     (1, 128, 64, None), (3, 384, 64, None), (3, 128, 128, None), (1, 384, 128, None),
     (2, 1024, 64, None), (3, 640, 64, None), (1, 200, 64, None), (2, 512, 128, None),
-    (3, 384, 64, (384, 40, 300)), (2, 640, 128, (100, 640))])
+    (3, 384, 64, (384, 40, 300)), (2, 640, 128, (100, 640)),
+    (16, 256, 64, None), (2, 100, 64, (100, 37)), (2, 40, 128, (40, 17))])
 def test_flash_backward_kernels_match_plain(cuda, b, t, d, lengths):
     from matcha_tts_tpu_torch.ops import attn_cuda
 
@@ -461,6 +466,25 @@ def test_flash_backward_kernels_match_plain(cuda, b, t, d, lengths):
         assert gk.dtype == torch.bfloat16 and _rel(gk.float(), gp) <= 1e-2, name
     again16 = attn_cuda.flash_mha_bwd(*c16, 2, scale)
     assert all(torch.equal(a, b_) for a, b_ in zip(got16, again16))
+
+
+def test_flash_backward_refuses_misaligned_fp32(cuda):
+    """The fp32 backward stages its operands with 16-byte cp.async (and dq
+    reads o with 16-byte loads): an fp32 operand whose base is not 16-byte
+    aligned fails the launch and the wrapper raises (no fallback)."""
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    case = list(_flash_bwd_case(1, 128, 64, torch.float32, cuda, 5))
+    for i, name in ((0, "q"), (2, "v"), (4, "o"), (7, "do")):
+        x = case[i]
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        shifted = buf[1:].view(x.shape)
+        shifted.copy_(x)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        n0 = dict(attn_cuda.LAUNCHES)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            attn_cuda.flash_mha_bwd(*case[:i], shifted, *case[i + 1:], 2, 0.125)
+        assert attn_cuda.LAUNCHES == n0, name
 
 
 def test_flash_autograd_takes_strided_gradients(cuda):
