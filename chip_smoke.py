@@ -66,7 +66,8 @@ Phases, each of which raises on failure (no phase catches and carries on):
    D=64, ragged key masks) against their plain versions: fp32 max |diff| <=
    1e-5 of the output's scale at every row, bf16 relative L2 <= 1e-2, flash's
    fp32 row statistics m, l within 1e-5 of their scale; timed beside the
-   plain version, the bound and `scaled_dot_product_attention` with the same
+   plain version, the bound (fp32 also the tensor-core bound of its three
+   TF32 products) and `scaled_dot_product_attention` with the same
    additive mask (see `check_attention`);
 12. the fp32 level kernel of the tap mode at (1, 65536, 64) and (1, 131072,
    32) against its plain version, max |diff| <= 1e-4, timed;
@@ -138,7 +139,7 @@ SENTENCES = [
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
-PEAK_TF32 = 495e12  # dense TF32 tensor cores; the fp32 backward runs three TF32 products
+PEAK_TF32 = 495e12  # dense TF32 tensor cores; the fp32 attention runs three TF32 products
 PEAK_BYTES = 3.35e12
 
 T_Y = 512  # the frame bucket whose level shapes the kernels are checked at
@@ -185,12 +186,20 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Device ms per call of `fn`, back to back: the card first spins for
+    longer than the host takes to enqueue the calls, so that a call shorter
+    than its own launch on the host is timed on the device, not the host."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * host * reps, 0.5) * 2e9))  # clock cycles, at most ~2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -1123,7 +1132,10 @@ def attention_timing(impl: str, b: int, t: int, dtype, seed: int, reps: int,
     the tensor cores or 67 TFLOP/s fp32 on FMAs, against q, k, v, the mask
     and the output moved once) and `scaled_dot_product_attention` with the
     same additive mask (a yardstick the port never calls; TF32 is off, so
-    fp32 SDPA is fp32)."""
+    fp32 SDPA is fp32).  fp32 rows add `tc_bound_ms`: the same 4 B H T^2 D
+    operations as three TF32 products at 495 TFLOP/s, what the fp32 kernel
+    runs (vmem's second pass recomputes Q K^T, work the function does not
+    need), or the bytes where those take longer."""
     import torch
     import torch.nn.functional as F
 
@@ -1151,10 +1163,13 @@ def attention_timing(impl: str, b: int, t: int, dtype, seed: int, reps: int,
     nbytes = elem * 4 * b * t * heads * d + 4 * b * t
     del q, k, v, mask, qh, kh, vh, bias
     torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=max(ops / peak, nbytes / PEAK_BYTES) * 1e3,
-                bound_by="operations" if ops / peak >= nbytes / PEAK_BYTES else "bytes",
-                tflops=ops / ms * 1e-9, vs_library=ms / lib_ms)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(ops / peak, nbytes / PEAK_BYTES) * 1e3,
+               bound_by="operations" if ops / peak >= nbytes / PEAK_BYTES else "bytes",
+               tflops=ops / ms * 1e-9, vs_library=ms / lib_ms)
+    if dtype == torch.float32:
+        row["tc_bound_ms"] = max(3 * ops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
+    return row
 
 
 def check_attention(reps: int) -> dict:
@@ -1167,7 +1182,7 @@ def check_attention(reps: int) -> dict:
     * "train": (c)'s bf16 shapes (64, 512) and (64, 1024), both modes;
     * "distill": distillation's fp32 shapes (16, 256) and (16, 512), both
       modes (these two groups time flash with its row statistics, as
-      training runs it);
+      training runs it; the fp32 rows add `tc_bound_ms`);
     * "edge": T = 72 and 200 (ends inside a 64-key tile; TMA zero-fills the
       rest) and items of length 0, both modes and types; not timed.
 
@@ -1827,11 +1842,14 @@ def main() -> int:
     # attention: one estimator pass at the 512-frame bucket, batch 1 (2 blocks
     # at T = 512, 4 at T = 256), and one (c) training step's flash forwards (2
     # at (64, 1024), 4 at (64, 512), bf16; vmem at the same shapes beside it)
+    # and one distillation estimator pass, fp32 (2 at (16, 512), 4 at (16, 256))
     for impl, line in (("vmem", "attn_vmem.py:85"), ("flash", "attention.py:44")):
         grid = attn_rows["grid"]
         per_pass = [(2, grid[(impl, 1, T_Y)]), (4, grid[(impl, 1, T_Y // 2)])]
         per_step = [(2, attn_rows["train"][(impl, 64, BLOCK_T)]),
                     (4, attn_rows["train"][(impl, 64, BLOCK_T // 2)])]
+        per_distill = [(2, attn_rows["distill"][(impl, 16, T_Y)]),
+                       (4, attn_rows["distill"][(impl, 16, T_Y // 2)])]
         launches = forced["launches"][impl][f"{impl}_mha"]
         if impl == "flash":
             launches += (train["launches"]["c"]["flash_mha"]
@@ -1852,7 +1870,12 @@ def main() -> int:
             "train_step_ms": sum(n * r["ms"] for n, r in per_step),
             "train_step_library_ms": sum(n * r["library_ms"] for n, r in per_step),
             "train_step_bound_ms": sum(n * r["bound_ms"] for n, r in per_step),
-            "design": "wgmma+tma, PR 6"})
+            "distill_step_ms": sum(n * r["ms"] for n, r in per_distill),
+            "distill_step_plain_ms": sum(n * r["plain_ms"] for n, r in per_distill),
+            "distill_step_library_ms": sum(n * r["library_ms"] for n, r in per_distill),
+            "distill_step_bound_ms": sum(n * r["bound_ms"] for n, r in per_distill),
+            "distill_step_tc_bound_ms": sum(n * r["tc_bound_ms"] for n, r in per_distill),
+            "design": "bf16: wgmma+tma, PR 6; fp32: 3xTF32 mma.sync on a cp.async ring, PR 9"})
     # the flash backward: one training step of (c), B = 64 in the (256, 1024)
     # bucket, bf16 (2 launches of each kernel at T = 1024, 4 at T = 512); and
     # one distillation step, B = 16 in the 512-frame bucket, fp32 (2 at T =
@@ -1894,10 +1917,12 @@ def main() -> int:
         "mrf_up_int8": f"128 -> 64 at {128 * T_Y} bf16; 64 -> 32 + tail at {256 * T_Y} fp32",
         "mrf_tap": f"(1, {128 * T_Y}, 64) and (1, {256 * T_Y}, 32) fp32",
         "vmem_mha": f"2 x (1, {T_Y}, 2 x 64) + 4 x (1, {T_Y // 2}, 2 x 64) bf16; train_step: "
-                    f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16",
+                    f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16; "
+                    f"distill_step: 2 x (16, {T_Y}, 2 x 64) + 4 x (16, {T_Y // 2}, 2 x 64) fp32",
         "flash_mha": f"2 x (1, {T_Y}, 2 x 64) + 4 x (1, {T_Y // 2}, 2 x 64) bf16; train_step: "
                      f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16 "
-                     f"with the row statistics",
+                     f"with the row statistics; distill_step: 2 x (16, {T_Y}, 2 x 64) + "
+                     f"4 x (16, {T_Y // 2}, 2 x 64) fp32 with the row statistics",
     }
     for k in kernels:
         k["shapes"] = shapes[k["name"]]

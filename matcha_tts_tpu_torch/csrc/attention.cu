@@ -51,12 +51,24 @@
 // is uniform in the warpgroup: a wgmma behind a data-dependent branch is
 // serialised by ptxas.
 //
-// fp32 forward.  wgmma has no fp32, and a single TF32 product would break
-// the 1e-5 bound (a three-term TF32 split keeps it: the fp32 backward
-// below).  The forward still keeps the mma-free design: one block of 4 warps
-// per 64 query rows, 16-row warp tiles of FMAs from shared memory, each
-// 64-key tile staged element by element (V transposed), the same two modes.
-//
+// fp32 forward (attention_fwd_tf32), both modes.  The fp32 backward's route
+// (below): every product as three TF32 mma.sync products, which keeps the
+// 1e-5 bound where one TF32 product misses it, and the dq kernel's block:
+// 64 query rows in 4 warps of 16, the Q tile staged once, the key tiles
+// streamed through a 2-stage cp.async ring (K and V for flash; K alone in
+// vmem's first pass, K and V in its second), each stage with a segment word
+// per key (-1 past the end).  S = Q K^T is the backward's mma_nt, so the
+// scores the backward recomputes from m and l are formed by the same
+// arithmetic; then the scale and the mask, each rounded, and exp as the
+// plain versions take them; O += P V is mma_acc, P straight from the score
+// accumulator and V the row-major ring tile read MN-major, nothing
+// transposed.  Flash rescales O by alpha between tiles, apart from the
+// tile's product, whose sum mma_acc adds with round to nearest.  Bound: at
+// distillation's T = 256-512 the 4 B H T^2 D operations take 3.2-6.4x the
+// bytes' time on FMAs and 1.3-2.6x as three TF32 products at 495 TFLOP/s
+// (vmem's second pass recomputes Q K^T: 1.5x that work); mma.sync reaches a
+// fraction of that rate (PERF.md).
+
 // Backward (flash only).  Replaces the two kernels of JAX's upstream flash
 // attention backward, _flash_attention_bwd_dq and _flash_attention_bwd_dkv
 // (jax/experimental/pallas/ops/tpu/flash_attention.py), with their
@@ -129,21 +141,6 @@ constexpr float kFlashMask = -0.7f * 3.4028234663852886e38f;
 
 typedef __nv_bfloat16 bf16;
 
-// Shared memory of the fp32 forward: rows padded by 16 bytes for float4
-// loads (the pad staggers the banks).
-template <int D>
-struct Smem {
-  static constexpr int qs = D + 4;      // sQ, sK: [64][qs]
-  static constexpr int vs = kKeys + 4;  // sVt: [D][vs]
-  static constexpr int ps = kKeys + 4;  // sP: [4][16][ps]
-  static constexpr int q_off = 0;
-  static constexpr int k_off = q_off + kRows * qs * 4;
-  static constexpr int v_off = k_off + kKeys * qs * 4;
-  static constexpr int seg_off = v_off + D * vs * 4;
-  static constexpr int p_off = seg_off + kKeys * 4;
-  static constexpr int total = p_off + kWarps * 16 * ps * 4;
-};
-
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -158,65 +155,6 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // nt, element e in 0..3 at row g + 8 (e / 2) of the warp's 16 rows and
 // column nt * 8 + 2 qd + e % 2.
 
-// s[nt][e] = Q[row] . K[key] over the warp's 16 rows and the tile's 64
-// keys, fp32 FMAs from shared memory.
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[kKeys / 8][4], const float* sK,
-                                       const float* sQ, int row0, int g, int qd) {
-  constexpr int QS = Smem<D>::qs;
-  const float* q0 = sQ + (row0 + g) * QS;
-  const float* q1 = q0 + 8 * QS;
-#pragma unroll
-  for (int nt = 0; nt < kKeys / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    const float* k0 = sK + (nt * 8 + 2 * qd) * QS;
-    const float* k1 = k0 + QS;
-    for (int c = 0; c < D; c += 4) {
-      const float4 a0 = *reinterpret_cast<const float4*>(q0 + c);
-      const float4 a1 = *reinterpret_cast<const float4*>(q1 + c);
-      const float4 b0 = *reinterpret_cast<const float4*>(k0 + c);
-      const float4 b1 = *reinterpret_cast<const float4*>(k1 + c);
-      s[nt][0] = fmaf(a0.x, b0.x, fmaf(a0.y, b0.y, fmaf(a0.z, b0.z, fmaf(a0.w, b0.w, s[nt][0]))));
-      s[nt][1] = fmaf(a0.x, b1.x, fmaf(a0.y, b1.y, fmaf(a0.z, b1.z, fmaf(a0.w, b1.w, s[nt][1]))));
-      s[nt][2] = fmaf(a1.x, b0.x, fmaf(a1.y, b0.y, fmaf(a1.z, b0.z, fmaf(a1.w, b0.w, s[nt][2]))));
-      s[nt][3] = fmaf(a1.x, b1.x, fmaf(a1.y, b1.y, fmaf(a1.z, b1.z, fmaf(a1.w, b1.w, s[nt][3]))));
-    }
-  }
-}
-
-// o[nt][e] += sum over the tile's keys of p[row][key] * V[key][col], fp32
-// FMAs with P through the warp's shared tile sP.
-template <int D>
-__device__ __forceinline__ void accumulate_pv(float (&o)[D / 8][4], const float (&p)[kKeys / 8][4],
-                                              const float* sVt, float* sP, int g, int qd) {
-  constexpr int VS = Smem<D>::vs;
-  constexpr int PS = Smem<D>::ps;
-  __syncwarp();  // the previous tile's reads of sP are done
-#pragma unroll
-  for (int nt = 0; nt < kKeys / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sP[(g + 8 * (e / 2)) * PS + nt * 8 + 2 * qd + e % 2] = p[nt][e];
-  __syncwarp();
-  const float* p0 = sP + g * PS;
-  const float* p1 = p0 + 8 * PS;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    const float* v0 = sVt + (nt * 8 + 2 * qd) * VS;
-    const float* v1 = v0 + VS;
-    for (int j = 0; j < kKeys; j += 4) {
-      const float4 a0 = *reinterpret_cast<const float4*>(p0 + j);
-      const float4 a1 = *reinterpret_cast<const float4*>(p1 + j);
-      const float4 b0 = *reinterpret_cast<const float4*>(v0 + j);
-      const float4 b1 = *reinterpret_cast<const float4*>(v1 + j);
-      o[nt][0] = fmaf(a0.w, b0.w, fmaf(a0.z, b0.z, fmaf(a0.y, b0.y, fmaf(a0.x, b0.x, o[nt][0]))));
-      o[nt][1] = fmaf(a0.w, b1.w, fmaf(a0.z, b1.z, fmaf(a0.y, b1.y, fmaf(a0.x, b1.x, o[nt][1]))));
-      o[nt][2] = fmaf(a1.w, b0.w, fmaf(a1.z, b0.z, fmaf(a1.y, b0.y, fmaf(a1.x, b0.x, o[nt][2]))));
-      o[nt][3] = fmaf(a1.w, b1.w, fmaf(a1.z, b1.z, fmaf(a1.y, b1.y, fmaf(a1.x, b1.x, o[nt][3]))));
-    }
-  }
-}
-
 // max and sum over the 4 lanes of a quad, which together hold a row's keys
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -227,168 +165,9 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The fp32 forward.  q, k, v, out: (B, t, heads * D); mask: (B, t) fp32,
-// 0 = padded.  grid (ceil(t / 64), heads, B), kThreads threads.
-template <int D, bool FLASH>
-__global__ void __launch_bounds__(kThreads) attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ mask, float* __restrict__ out, float* __restrict__ m_out,
-    float* __restrict__ l_out, int t, int heads, float scale) {
-  using L = Smem<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem + L::q_off);
-  float* sK = reinterpret_cast<float*>(smem + L::k_off);
-  float* sVt = reinterpret_cast<float*>(smem + L::v_off);
-  int* sSeg = reinterpret_cast<int*>(smem + L::seg_off);
-  float* sP = reinterpret_cast<float*>(smem + L::p_off);
-
-  const int bi = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kRows;
-  const size_t ld = (size_t)heads * D;
-  const float* qb = q + (size_t)bi * t * ld + h * D;
-  const float* kb = k + (size_t)bi * t * ld + h * D;
-  const float* vb = v + (size_t)bi * t * ld + h * D;
-  const float* mb = mask + (size_t)bi * t;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, qd = lane % 4;
-  const int wrow = warp * 16;  // the warp's first row in the tile
-
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    sQ[r * L::qs + c] = r0 + r < t ? qb[(r0 + r) * ld + c] : 0.f;
-  }
-  // segment of this lane's two rows: 1 = padded (flash only)
-  int qseg[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = r0 + wrow + g + 8 * hh;
-    qseg[hh] = row < t && mb[row] == 0.f ? 1 : 0;
-  }
-  __syncthreads();
-
-  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l_run[2] = {0.f, 0.f};
-  float o[D / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-
-  const int n_tiles = (t + kKeys - 1) / kKeys;
-  constexpr int kPasses = FLASH ? 1 : 2;
-#pragma unroll 1
-  for (int pass = 0; pass < kPasses; ++pass) {
-    const bool pv = FLASH || pass == 1;
-#pragma unroll 1
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int k0 = kt * kKeys;
-      __syncthreads();  // the previous tile is consumed
-      for (int i = threadIdx.x; i < kKeys * D; i += kThreads) {
-        const int j = i / D, c = i % D;
-        const bool in = k0 + j < t;
-        sK[j * L::qs + c] = in ? kb[(k0 + j) * ld + c] : 0.f;
-        if (pv) sVt[c * L::vs + j] = in ? vb[(k0 + j) * ld + c] : 0.f;
-      }
-      for (int j = threadIdx.x; j < kKeys; j += kThreads)
-        sSeg[j] = k0 + j < t ? (mb[k0 + j] == 0.f ? 1 : 0) : -1;  // -1: past the end
-      __syncthreads();
-
-      float s[kKeys / 8][4];
-      scores<D>(s, sK, sQ, wrow, g, qd);
-      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-      for (int nt = 0; nt < kKeys / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int seg = sSeg[nt * 8 + 2 * qd + e % 2];
-          float val = __fmul_rn(s[nt][e], scale);
-          if (seg < 0) {
-            val = -CUDART_INF_F;
-          } else if (FLASH) {
-            val = __fadd_rn(val, seg == qseg[e / 2] ? 0.f : kFlashMask);
-          } else if (seg == 1) {
-            val = __fadd_rn(val, kVmemNeg);
-          }
-          s[nt][e] = val;
-          mx[e / 2] = fmaxf(mx[e / 2], val);
-        }
-      float alpha[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        if (!FLASH && pass == 1) break;
-        // every tile holds key k0 < t, so the new max is finite
-        const float m_new = fmaxf(m_run[hh], quad_max(mx[hh]));
-        alpha[hh] = expf(m_run[hh] - m_new);  // 0 on the first tile
-        m_run[hh] = m_new;
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < kKeys / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float ex = expf(s[nt][e] - m_run[e / 2]);
-          if (!FLASH && pass == 1) {
-            s[nt][e] = __fdiv_rn(ex, l_run[e / 2]);
-          } else {
-            s[nt][e] = ex;
-            rs[e / 2] += ex;
-          }
-        }
-      if (FLASH || pass == 0) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) l_run[hh] = l_run[hh] * alpha[hh] + quad_sum(rs[hh]);
-      }
-      if (FLASH) {
-#pragma unroll
-        for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[nt][e] *= alpha[e / 2];
-      }
-      if (pv) accumulate_pv<D>(o, s, sVt, sP + warp * 16 * L::ps, g, qd);
-    }
-  }
-
-  float* ob = out + (size_t)bi * t * ld + h * D;
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = r0 + wrow + g + 8 * (e / 2);
-      if (row >= t) continue;
-      ob[row * ld + nt * 8 + 2 * qd + e % 2] = FLASH ? __fdiv_rn(o[nt][e], l_run[e / 2])
-                                                     : o[nt][e];
-    }
-  if (FLASH && m_out != nullptr && qd == 0) {
-    // the residuals of the backward: every lane of a quad holds its rows' m, l
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = r0 + wrow + g + 8 * hh;
-      if (row >= t) continue;
-      const size_t at = ((size_t)bi * heads + h) * t + row;
-      m_out[at] = m_run[hh];
-      l_out[at] = l_run[hh];
-    }
-  }
-}
-
-template <int D, bool FLASH>
-cudaError_t launch(const void* q, const void* k, const void* v, const float* mask, void* out,
-                   float* m, float* l, int batch, int t, int heads, float scale,
-                   cudaStream_t stream) {
-  auto kernel = attention_kernel<D, FLASH>;
-  const int smem = Smem<D>::total;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((t + kRows - 1) / kRows, heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      mask, static_cast<float*>(out), m, l, t, heads, scale);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
-// flash backward: the rounding steps of both types, and the fp32 kernels
-// (three-term TF32 products on mma.sync)
+// the flash backward's rounding steps (both types), and the fp32 kernels:
+// the forward and the flash backward, on three-term TF32 products (mma.sync)
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -568,6 +347,170 @@ __device__ __forceinline__ void mma_acc(float (&c)[D / 8][4], const float (&a)[k
     for (int nt = 0; nt < NC; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) c[n0 + nt][e] += part[nt][e];
+  }
+}
+
+// Shared memory of the fp32 forward: the block's Q tile, then a 2-stage ring
+// of a K and a V tile and, per stage, the streamed keys' segments.
+template <int D>
+struct FwdTf32Smem {
+  static constexpr int tile = Tf32Smem<D>::tile;
+  static constexpr int ring_off = tile;
+  static constexpr int seg_off = ring_off + 2 * 2 * tile;
+  static constexpr int total = (seg_off + 2 * kKeys) * 4;  // bytes
+};
+
+// The fp32 forward, both modes.  q, k, v, out: (B, t, heads * D); mask: (B,
+// t) fp32, 0 = padded.  grid (ceil(t / 64), heads, B), kThreads threads;
+// each warp owns 16 query rows and walks the key tiles.  "flash" streams K
+// and V once; "vmem" streams K alone (pass 1: each row's max and sum), then
+// K and V (pass 2: p = exp(s - max) / sum, P V).  The ring's stage and its
+// cp.async groups follow the count n of streamed tiles over both passes:
+// streamed tile n is group n in stage n % 2, whatever the number of key
+// tiles.
+template <int D, bool FLASH>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1) attention_fwd_tf32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ mask, float* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int t, int heads, float scale) {
+  using L = FwdTf32Smem<D>;
+  constexpr int LD = Tf32Smem<D>::ld;
+  extern __shared__ __align__(16) float smf[];
+  const int bi = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * kRows;
+  const size_t ld = (size_t)heads * D;
+  const size_t off = (size_t)bi * t * ld + h * D;
+  const float* mb = mask + (size_t)bi * t;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int wrow = warp * 16;
+  const int n_tiles = (t + kKeys - 1) / kKeys;
+  const int n_stream = (FLASH ? 1 : 2) * n_tiles;
+
+  // stage n % 2 holds K (and V where the pass needs it) of key tile n % n_tiles
+  auto issue = [&](int n) {
+    float* st = smf + L::ring_off + 2 * (n % 2) * L::tile;
+    const int k0 = (n % n_tiles) * kKeys;
+    load_tile<D>(st, k + off, ld, k0, t);
+    if (FLASH || n >= n_tiles) load_tile<D>(st + L::tile, v + off, ld, k0, t);
+  };
+  auto seg_at = [&](int n) { return reinterpret_cast<int*>(smf + L::seg_off + (n % 2) * kKeys); };
+  load_tile<D>(smf, q + off, ld, r0, t);
+  for (int n = 0; n < 2 && n < n_stream; ++n) {
+    issue(n);
+    cp_async_commit();
+    const int key = (n % n_tiles) * kKeys + threadIdx.x;
+    if (threadIdx.x < kKeys) seg_at(n)[threadIdx.x] = key < t ? (mb[key] == 0.f ? 1 : 0) : -1;
+  }
+  if (n_stream == 1) cp_async_commit();  // an empty group keeps the count: tile n is group n
+
+  int qseg[2];  // the segment of this lane's two rows (1 = padded)
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + wrow + g + 8 * hh;
+    qseg[hh] = row < t && mb[row] == 0.f ? 1 : 0;
+  }
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+#pragma unroll 1
+  for (int n = 0; n < n_stream; ++n) {
+    const bool stats = FLASH || n < n_tiles, pv = FLASH || n >= n_tiles;
+    // the mask of streamed tile n + 2, read now and written to its stage
+    // after this tile's products
+    const int key_next = ((n + 2) % n_tiles) * kKeys + threadIdx.x;
+    const bool next = n + 2 < n_stream;
+    const float mask_next = next && threadIdx.x < kKeys && key_next < t ? mb[key_next] : 1.f;
+    cp_async_wait<1>();
+    __syncthreads();  // tile n has landed, for every thread
+    const float* sK = smf + L::ring_off + 2 * (n % 2) * L::tile;
+    const int* seg = seg_at(n);
+    float s[kKeys / 8][4];
+    mma_nt<D>(s, smf + wrow * LD, sK, g, qd);  // S = Q K^T
+    // the scale, then the mask (flash: where the segments differ; vmem: a
+    // padded key), each rounded; -inf past the end
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < kKeys / 8; ++nt) {
+      const int2 sg = *reinterpret_cast<const int2*>(seg + nt * 8 + 2 * qd);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key_seg = e % 2 ? sg.y : sg.x;
+        float val = __fmul_rn(s[nt][e], scale);
+        if (key_seg < 0) {
+          val = -CUDART_INF_F;
+        } else if (FLASH) {
+          val = __fadd_rn(val, key_seg == qseg[e / 2] ? 0.f : kFlashMask);
+        } else if (key_seg == 1) {
+          val = __fadd_rn(val, kVmemNeg);
+        }
+        s[nt][e] = val;
+        mx[e / 2] = fmaxf(mx[e / 2], val);
+      }
+    }
+    if (stats) {  // flash, vmem pass 1: the running max and sum (key 0 is
+                  // always in range, so the max is finite from the first tile)
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float m_new = fmaxf(m_run[hh], quad_max(mx[hh]));
+        alpha[hh] = expf(m_run[hh] - m_new);  // 0 on the first tile
+        m_run[hh] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kKeys / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = expf(s[nt][e] - m_run[e / 2]);
+          rs[e / 2] += s[nt][e];
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) l_run[hh] = l_run[hh] * alpha[hh] + quad_sum(rs[hh]);
+      if (FLASH) {
+        // rescaled apart from the tile's product, whose sum mma_acc adds
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nt][e] *= alpha[e / 2];
+      }
+    } else {  // vmem pass 2: p correctly rounded, as the plain softmax forms it
+#pragma unroll
+      for (int nt = 0; nt < kKeys / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = __fdiv_rn(expf(s[nt][e] - m_run[e / 2]), l_run[e / 2]);
+    }
+    if (pv) mma_acc<D>(o, s, sK + L::tile, g, qd);  // O += P V
+    __syncthreads();  // stage n % 2 is consumed
+    if (next) {
+      issue(n + 2);
+      if (threadIdx.x < kKeys)
+        seg_at(n)[threadIdx.x] = key_next < t ? (mask_next == 0.f ? 1 : 0) : -1;
+    }
+    cp_async_commit();
+  }
+
+  float* ob = out + off;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = r0 + wrow + g + 8 * hh;
+    if (row >= t) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      float2 x = make_float2(o[nt][2 * hh], o[nt][2 * hh + 1]);
+      if (FLASH) x = make_float2(__fdiv_rn(x.x, l_run[hh]), __fdiv_rn(x.y, l_run[hh]));
+      *reinterpret_cast<float2*>(ob + row * ld + nt * 8 + 2 * qd) = x;
+    }
+    if (FLASH && m_out != nullptr && qd == 0) {
+      // the residuals of the backward: every lane of a quad holds its rows' m, l
+      const size_t at = ((size_t)bi * heads + h) * t + row;
+      m_out[at] = m_run[hh];
+      l_out[at] = l_run[hh];
+    }
   }
 }
 
@@ -1674,8 +1617,38 @@ cudaError_t fwd_launch_sm90(const void* q, const void* k, const void* v, const f
   return cudaGetLastError();
 }
 
-// The forward, by type, mode and head dim: bf16 on the sm_90a kernel, fp32
-// on the FMA kernel.
+template <typename K>
+cudaError_t tf32_attributes(K kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // the largest carveout, so that two D = 64 blocks share an SM
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// The fp32 forward stages q, k and v with 16-byte cp.async and writes its
+// output in 8-byte pairs, so a base that is not 16-byte aligned is refused.
+template <int D, bool FLASH>
+cudaError_t fwd_launch_tf32(const void* q, const void* k, const void* v, const float* mask,
+                            void* out, float* m, float* l, int batch, int t, int heads,
+                            float scale, cudaStream_t stream) {
+  const void* bases[4] = {q, k, v, out};
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorMisalignedAddress;
+  constexpr int smem = FwdTf32Smem<D>::total;
+  static_assert(smem <= 232448, "fp32 forward: shared memory");
+  auto kernel = attention_fwd_tf32<D, FLASH>;
+  cudaError_t err = tf32_attributes(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + kRows - 1) / kRows, heads, batch);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      mask, static_cast<float*>(out), m, l, t, heads, scale);
+  return cudaGetLastError();
+}
+
+// The forward, by type, mode and head dim: bf16 on the wgmma kernel, fp32
+// on the three-term TF32 one.
 template <bool FLASH>
 cudaError_t fwd_dispatch(int is_bf16, int d, const void* q, const void* k, const void* v,
                          const float* mask, void* out, float* m, float* l, int batch, int t,
@@ -1684,8 +1657,8 @@ cudaError_t fwd_dispatch(int is_bf16, int d, const void* q, const void* k, const
     if (d == 64) return fwd_launch_sm90<64, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
     if (d == 128) return fwd_launch_sm90<128, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
   } else {
-    if (d == 64) return launch<64, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
-    if (d == 128) return launch<128, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
+    if (d == 64) return fwd_launch_tf32<64, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
+    if (d == 128) return fwd_launch_tf32<128, FLASH>(q, k, v, mask, out, m, l, batch, t, heads, scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1728,15 +1701,6 @@ cudaError_t bwd_launch_sm90(bool dq_pass, const BwdArgs& a, cudaStream_t stream)
                                                 static_cast<bf16*>(a.dv), a.t, a.heads, a.scale);
   }
   return cudaGetLastError();
-}
-
-template <typename K>
-cudaError_t tf32_attributes(K kernel, int smem) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  // the largest carveout, so that two D = 64 blocks share an SM
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
 }
 
 // The fp32 backward.  Both kernels stage q, k, v and dO with 16-byte

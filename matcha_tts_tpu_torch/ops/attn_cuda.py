@@ -26,12 +26,14 @@ fp32 sums, cast once at the end.
 On the card, bf16 runs the sm_90a kernels: the forward (both modes) keeps
 128 query rows per block on `wgmma` and streams 64-key tiles through a TMA
 ring (vmem streams them twice, K alone for the row max and sum, then K and
-V), and the backward is built the same way.  The fp32 forward runs on FMAs
-(wgmma has no fp32); the fp32 backward runs every product as three TF32
-`mma.sync` products (hi and lo halves of each operand), on tiles staged by
-`cp.async`.  An operand whose base is not 16-byte aligned cannot be a TMA
-source (bf16) or a 16-byte copy's (the fp32 backward): the launch fails
-and the wrapper raises.
+V), and the backward is built the same way.  fp32 (wgmma has no fp32) runs
+every product, forward and backward, as three TF32 `mma.sync` products (hi
+and lo halves of each operand) on tiles staged by a 2-stage `cp.async` ring:
+the forward keeps 64 query rows per block and streams the 64-key tiles as
+the bf16 forward does, P going from the score accumulator straight into the
+P V product and V read MN-major from its row-major tile.  An operand whose
+base is not 16-byte aligned cannot be a TMA source (bf16) or a 16-byte
+copy's (fp32): the launch fails and the wrapper raises.
 
 On a CPU tensor each wrapper runs its plain version (the forwards through
 autograd); on a CUDA tensor it launches the kernel or raises.  On the card
@@ -97,16 +99,18 @@ def _merge(o: torch.Tensor, dtype) -> torch.Tensor:
     return o.transpose(1, 2).reshape(b, t, h * d).to(dtype)
 
 
-def vmem_mha_plain(q, k, v, key_mask, heads: int, sm_scale: float) -> torch.Tensor:
+def vmem_mha_plain(q, k, v, key_mask, heads: int, sm_scale: float,
+                   matmul=torch.matmul) -> torch.Tensor:
     """The whole-row kernel's arithmetic: fp32 scores from the operands as
     given, * scale, + (-1e30 at masked keys), exp(s - max) / sum, p rounded
-    to v's dtype, fp32 P V, cast to q's dtype."""
+    to v's dtype, fp32 P V, cast to q's dtype.  `matmul` takes the two
+    products (a test puts a model of the fp32 kernel's products there)."""
     qh, kh, vh = _heads(q, heads), _heads(k, heads), _heads(v, heads)
     bias = torch.where(key_mask == 0, VMEM_NEG, 0.0).float()
-    s = torch.matmul(qh, kh.transpose(-1, -2)) * sm_scale + bias[:, None, None, :]
+    s = matmul(qh, kh.transpose(-1, -2)) * sm_scale + bias[:, None, None, :]
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype).float()
-    return _merge(torch.matmul(p, vh), q.dtype)
+    return _merge(matmul(p, vh), q.dtype)
 
 
 def _flash_logits(qh, kh, key_mask, sm_scale: float, matmul=torch.matmul) -> torch.Tensor:
@@ -119,17 +123,18 @@ def _flash_logits(qh, kh, key_mask, sm_scale: float, matmul=torch.matmul) -> tor
 
 
 def flash_mha_plain(q, k, v, key_mask, heads: int, sm_scale: float,
-                    return_stats: bool = False):
+                    return_stats: bool = False, matmul=torch.matmul):
     """Upstream `mha_reference` with segment ids from the key mask: the
     logits of `_flash_logits`, softmax, fp32 weights times v.  With
     `return_stats`, also the row statistics the backward reads, fp32
-    (B, H, T): m, the row max of the logits, and l, the sum of exp(s - m)."""
+    (B, H, T): m, the row max of the logits, and l, the sum of exp(s - m).
+    `matmul` takes the two products, as in `vmem_mha_plain`."""
     qh, kh, vh = _heads(q, heads), _heads(k, heads), _heads(v, heads)
-    s = _flash_logits(qh, kh, key_mask, sm_scale)
+    s = _flash_logits(qh, kh, key_mask, sm_scale, matmul)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
-    out = _merge(torch.matmul(e / l, vh), q.dtype)
+    out = _merge(matmul(e / l, vh), q.dtype)
     if return_stats:
         return out, m[..., 0], l[..., 0]
     return out

@@ -2,7 +2,7 @@
 `gpu`; they skip where there is no card): the MRF levels, MAS (identical
 paths), the fused Block1D / ResnetBlock1D (forward and gradients), the
 attention kernels (with ragged T, items of length 0, flash's row
-statistics and a misaligned bf16 base) and the flash backward (dq, dk/dv,
+statistics and a misaligned bf16 or fp32 base) and the flash backward (dq, dk/dv,
 with a misaligned fp32 base: fp32 max |diff| <=
 1e-5 of each gradient's max |value|, bf16 relative L2 <= 1e-2 against the
 fp32 plain backward on the same rounded operands, bitwise repeatable).  Run
@@ -351,13 +351,23 @@ def test_attention_kernel_matches_plain(cuda, impl, b, t, d):
 # (vmem twice): T = 72 and 200 end inside a tile, with items of length 0;
 # 320 and 192 give an odd number of key tiles, so the ring's phase crosses
 # vmem's pass boundary mid-round; (9, 1024) and (20, 1024) launch 144 and
-# 320 blocks, more than the card's 132 SMs, the others fewer.
+# 320 blocks, more than the card's 132 SMs, the others fewer.  The fp32
+# forward takes 64 query rows per block and streams the same tiles through a
+# 2-stage cp.async ring: with an odd tile count (T = 320, 192, 40) vmem's
+# second pass starts on the other stage; T = 40 is one tile (flash leaves
+# the second stage empty); at T = 24 and 16 most of the only tile lies past
+# the end; (16, 512) and (16, 256) are distillation's shapes.
 @pytest.mark.parametrize("impl,b,t,d,lengths", [
     ("vmem", 3, 72, 64, (0, 41, 72)), ("flash", 3, 72, 64, (0, 41, 72)),
     ("vmem", 3, 200, 64, (200, 0, 131)), ("flash", 3, 200, 64, (200, 0, 131)),
     ("vmem", 2, 320, 64, None), ("vmem", 1, 192, 128, (100,)),
     ("vmem", 2, 200, 128, (0, 77)), ("flash", 2, 384, 128, (0, 384)),
-    ("vmem", 9, 1024, 64, None), ("flash", 20, 1024, 64, None)])
+    ("vmem", 9, 1024, 64, None), ("flash", 20, 1024, 64, None),
+    ("flash", 2, 320, 64, (0, 250)), ("flash", 2, 200, 128, (0, 77)),
+    ("vmem", 2, 40, 64, (0, 17)), ("flash", 2, 40, 128, (40, 0)),
+    ("flash", 2, 24, 64, (24, 0)), ("vmem", 2, 16, 128, (9, 16)),
+    ("vmem", 16, 512, 64, None), ("flash", 16, 512, 64, None),
+    ("vmem", 16, 256, 64, None), ("flash", 16, 256, 64, None)])
 def test_attention_forward_edges(cuda, impl, b, t, d, lengths):
     """Both types against the plain version at every row (fp32 max |diff| <=
     1e-5 of the output's scale, bf16 relative L2 <= 1e-2 against the fp32
@@ -403,6 +413,28 @@ def test_attention_forward_refuses_misaligned_bf16(cuda):
         with pytest.raises(RuntimeError, match="launch failed"):
             fn(shifted, k, v, mask, 2, 0.125)
         assert attn_cuda.LAUNCHES == n0
+
+
+def test_attention_forward_refuses_misaligned_fp32(cuda):
+    """The fp32 forward stages q, k and v with 16-byte cp.async: an fp32
+    operand whose base is not 16-byte aligned fails the launch and the
+    wrapper raises (no fallback), in both modes."""
+    from matcha_tts_tpu_torch.ops import attn_cuda
+
+    q, k, v, mask = _attn_operands(1, 128, 2, 64, torch.float32, cuda, 0)
+    for i in range(3):
+        x = (q, k, v)[i]
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        shifted = buf[1:].view(x.shape)
+        shifted.copy_(x)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        ops = [q, k, v]
+        ops[i] = shifted
+        for fn in (attn_cuda.vmem_mha, attn_cuda.flash_mha):
+            n0 = dict(attn_cuda.LAUNCHES)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fn(*ops, mask, 2, 0.125)
+            assert attn_cuda.LAUNCHES == n0
 
 
 def test_attention_wrapper_rejects_bad_operands(cuda):
