@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                   # a few minutes on an H100, build included
     python3 chip_smoke.py --attention-only  # phases 1, 2 (attention only), 11 and 16
+    python3 chip_smoke.py --mrf-only        # phases 1, 2 (mrf only), 3, 10 and 12
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
@@ -143,6 +144,8 @@ PEAK_TF32 = 495e12  # dense TF32 tensor cores; the fp32 attention runs three TF3
 PEAK_BYTES = 3.35e12
 
 T_Y = 512  # the frame bucket whose level shapes the kernels are checked at
+MRF_DESIGN = ("bf16: mma.sync, 16 warps, weights once per block through a 2-stage "
+              "cp.async ring in shared memory")
 REPS = 5  # timed launches per kernel and version
 FP32_ATOL = 1e-4
 BF16_REL_L2 = 1e-2
@@ -1745,8 +1748,10 @@ def main() -> int:
     from matcha_tts_tpu_torch.ops import cuda_build, mrf_cuda
 
     attention_only = "--attention-only" in sys.argv[1:]
+    mrf_only = "--mrf-only" in sys.argv[1:]
     t0 = time.perf_counter()
-    paths = cuda_build.build_all(["attention"] if attention_only else cuda_build.SOURCES)
+    paths = cuda_build.build_all(["attention"] if attention_only
+                                 else ["mrf"] if mrf_only else cuda_build.SOURCES)
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s: "
           f"{[p.name for p in paths.values()]}", flush=True)
     for name in paths:
@@ -1761,6 +1766,12 @@ def main() -> int:
     if attention_only:  # phases 11 and 16 alone, for work on the attention kernels
         check_attention(REPS)
         check_flash_bwd(REPS)
+        print(card)
+        return 0
+    if mrf_only:  # phases 3, 10 and 12 alone: every kernel of csrc/mrf.cu
+        check_kernels(T_Y, REPS)
+        check_int8_kernels(T_Y, REPS)
+        check_tap(REPS)
         print(card)
         return 0
     table = check_kernels(T_Y, REPS)
@@ -1788,7 +1799,8 @@ def main() -> int:
          "max_abs_err": table["level1"]["fp32_max_abs_err"],
          "ms": table["level1"]["bf16_ms"], "plain_ms": table["level1"]["bf16_plain_ms"],
          "bound_ms": table["level1"]["bf16_bound_ms"],
-         "bound_by": table["level1"]["bound_by"], "library_ms": None},
+         "bound_by": table["level1"]["bound_by"], "library_ms": None,
+         "design": MRF_DESIGN},
         {"name": "mrf_up", "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/mrf.cu",
          "replaces": "matcha_tts_tpu/ops/pallas/mrf_packed.py:648",
          "launches": launches["mrf_up"],
@@ -1796,7 +1808,7 @@ def main() -> int:
          "ms": sum(r["bf16_ms"] for r in up),
          "plain_ms": sum(r["bf16_plain_ms"] for r in up),
          "bound_ms": sum(r["bf16_bound_ms"] for r in up),
-         "bound_by": up[0]["bound_by"], "library_ms": None},
+         "bound_by": up[0]["bound_by"], "library_ms": None, "design": MRF_DESIGN},
         {"name": "mas", "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/mas.cu",
          "replaces": "matcha_tts_tpu/ops/pallas/mas.py:162",
          "launches": sum(c["mas"] for c in train["launches"].values()),

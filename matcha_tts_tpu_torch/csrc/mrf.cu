@@ -14,12 +14,15 @@
 // Design.  One block owns a tile of `tile` output frames of one batch row.
 // Branch k needs a halo of R_k = 12 * (k - 1) / 2 frames on each side
 // (12, 36, 60).  The block keeps the branch's residual state (fp32), two
-// conv-input buffers (in the working type) and the running branch sum
-// (fp32) in shared memory, so none of the level's intermediates reach
-// device memory.  Each conv computes only the rows that later convs still
-// need: the valid window shrinks by the conv's reach at every step.  Every
-// conv input is multiplied by the in-sequence mask before the conv, so
-// frames outside [0, T) read as the reference's zero padding at both ends.
+// conv-input buffers (in the working type) and the running branch sum (fp32)
+// on chip, so none of the level's intermediates reach device memory.  The
+// branch sum lives in shared memory in fp32 and in registers in bf16 (tile *
+// C / 512 values a thread, one more with the tail's 2 * 3 rows), which caps
+// the tile at 8192 / C frames (64, 128, 256 at C = 128, 64, 32).  Each conv
+// computes only the rows that later convs still need: the valid window
+// shrinks by the conv's reach at every step.  Every conv input is
+// multiplied by the in-sequence mask before the conv, so frames outside
+// [0, T) read as the reference's zero padding at both ends.
 //
 // Rounding follows the TPU kernel: the residual chain and the branch sum
 // stay fp32; only conv inputs (and weights, biases) are in the working type;
@@ -31,14 +34,38 @@
 // 4 * C bytes in and out: far above the card's ridge point, so it is bound by
 // operations.  In bf16 each conv is a product of (rows x k*C) shifted
 // activation rows and (k*C x C) weights on the tensor cores: mma.sync
-// m16n8k16 with fp32 sums, A fragments loaded with ldmatrix from the shared
-// conv-input buffer (each tap is the same buffer shifted by tap * d rows),
-// B fragments read once per warp from L2 and held across the warp's row
-// tiles.  fp32 runs FMAs on the CUDA cores (a register tile of 8 rows x 4
-// channels per thread).  The transpose conv of the up levels runs the same
-// way, one product per output parity; conv_post (7 C MACs per frame) stays
-// on the CUDA cores.  The halo is recomputed per tile; PERF.md writes down
-// what that and the tile size cost.
+// m16n8k16 with fp32 sums, 16 warps a block (16 registers of branch sum a
+// thread).  The warps split C into slices of 32 channels (WN = C / 32) and
+// the rows into WM = 16 / WN interleaved sets of 16-row m-tiles, every row
+// of a conv in one pass.  A fragments come by ldmatrix from the shared
+// conv-input buffer (each tap is the same buffer shifted by tap * d rows).
+// The weights stream through a shared-memory ring of 2 stages.  A slab is KC
+// input channels of one tap for all C output channels ([C][KC] bf16, its
+// 16-byte vectors XOR-swizzled by row so that ldmatrix reads of 8 rows are
+// conflict-free); a chunk is up to U slabs of one conv or of one upsample
+// parity, loaded once per block by all its threads with 16-byte
+// cp.async.cg, and every warp reads its B fragments from it with ldmatrix.
+// The level's chunks (per branch: the upsample's two parities, then the 6
+// convs) form one sequence: while chunk n is multiplied, chunk n + 1 is in
+// flight, across conv and branch boundaries, with one barrier per chunk.
+// C = 128: KC = 64, U = 1 (16 KB stages, 252 chunks a block); C = 64: KC =
+// 64, U = 4 (32 KB, 42 chunks with the upsample); C = 32: KC = 32, U = 11
+// (22 KB, a whole conv a chunk: 24 chunks).  So a block reads the level's
+// weights from L2 once, 126 C^2 * 2 bytes (+ 3 x 16 C^2 with the upsample),
+// where each of the WM warps of a slice of the 8-warp design before read it
+// again: at the 512-frame bucket (512 blocks a level) 2.11, 0.63 and 0.16 GB
+// per launch at C = 128, 64, 32 against 4.23, 2.52 and 1.26 GB (WM = 2, 4,
+// 8 then).  Shared memory per block in bf16 (xb + two conv inputs + ring):
+// 94,208 + 2 x 50,048 + 32,768 = 227,072 bytes at C = 128, tile 64;
+// 63,488 + 2 x 35,712 + 65,536 = 200,448 at C = 64, tile 128 with the
+// upsample; 48,896 + 2 x 30,560 + 45,056 = 155,072 at C = 32, tile 256 with
+// upsample and tail.  Level 1 has no room for a deeper ring.
+// fp32 runs FMAs on the CUDA cores (8 warps a block, a register tile of 8
+// rows x 4 channels per thread, weights read through the read-only path).
+// The transpose conv of the up levels runs the same way, one product per
+// output parity; conv_post (7 C MACs per frame) stays on the CUDA cores.
+// The halo is recomputed per tile; PERF.md writes down what that and the
+// tile size cost.
 //
 // The fp32 level entry also replaces matcha_tts_tpu/ops/pallas/mrf.py::
 // mrf_fused (the tap-unrolled fp32 level of mrf_kernel="tap"): the same
@@ -79,13 +106,28 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // threads of the fp32 level kernel
+constexpr int kThreadsBf16 = 512;  // and of the bf16 one
 constexpr int kRows = 8;        // output rows per thread per pass
 constexpr int kMaxReach = 60;   // branch k = 11: 5 * (1 + 3 + 5) + 5 * 3
 constexpr float kSlope = 0.1f;  // LeakyReLU inside the resblocks
 constexpr float kPostSlope = 0.01f;  // LeakyReLU before conv_post
 constexpr int kPostK = 7;
 constexpr int kPostPad = 3;
+constexpr int kTileElems = 8192;  // tile * C at most: the branch sum lives in registers
+
+// The largest tile (frames) the level kernel takes at C channels.
+__host__ __device__ constexpr int max_tile(int c) { return kTileElems / c; }
+
+// The bf16 weight ring at C channels: slabs of KC input channels of one tap
+// for all C outputs, up to U slabs a chunk, kRingStages stages of one chunk.
+constexpr int kRingStages = 2;
+__host__ __device__ constexpr int ring_kc(int c) { return c >= 64 ? 64 : 32; }
+__host__ __device__ constexpr int ring_slabs(int c) { return c >= 128 ? 1 : c >= 64 ? 4 : 11; }
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int ring_bytes(int c) {
+  return kRingStages * ring_slabs(c) * c * ring_kc(c) * 2;
+}
 
 typedef __nv_bfloat16 bf16;
 
@@ -130,7 +172,7 @@ enum Epilogue { kToAct = 0, kAddRes = 1 };
 // Shared-memory layout of one block, in bytes; the host asks for the same
 // numbers through mrf_smem_bytes().
 struct Layout {
-  int ext, ss, ss_in, xb, acc, act_a, act_b, total;
+  int ext, ss, ss_in, xb, acc, act_a, act_b, ring, total;
 };
 
 __host__ __device__ inline int align16(int v) { return (v + 15) & ~15; }
@@ -150,10 +192,11 @@ __host__ __device__ inline Layout layout(int c, bool up, bool post, int tile, in
     if (n_in * l.ss_in > a_elems) a_elems = n_in * l.ss_in;
   }
   l.xb = 0;
-  l.acc = l.xb + align16(l.ext * c * 4);
-  l.act_a = l.acc + align16((tile + 2 * p) * c * 4);
+  l.acc = l.xb + align16(l.ext * c * 4);  // fp32's branch sum; bf16 keeps it in registers
+  l.act_a = l.acc + (elem == 4 ? align16((tile + 2 * p) * c * 4) : 0);
   l.act_b = l.act_a + align16(a_elems * elem);
-  l.total = l.act_b + align16(l.ext * l.ss * elem);
+  l.ring = l.act_b + align16(l.ext * l.ss * elem);
+  l.total = l.ring + (elem == 2 ? ring_bytes(c) : 0);  // the ring is bf16's alone
   return l;
 }
 
@@ -253,104 +296,262 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-constexpr int kNTiles = 4;  // 8-channel n-tiles per warp in the mma conv
-constexpr int kMTiles = 6;  // 16-row m-tiles per warp per pass
+// The bf16 path's warp grid at C channels: WN warps across the channels (NT
+// 8-channel n-tiles each) and WM across the rows, each with MT 16-row
+// m-tiles: enough for every row of a conv at the largest tile in one pass.
+template <int C>
+struct Grid {
+  static constexpr int NT = 4;
+  static constexpr int WN = C / (8 * NT);
+  static constexpr int WM = kThreadsBf16 / 32 / WN;
+  static constexpr int MT =
+      (max_tile(C) + 2 * kPostPad + 2 * kMaxReach + 16 * WM - 1) / (16 * WM);
+  static_assert(WN >= 1 && WM >= 1 && WN * WM * 32 == kThreadsBf16, "warp grid");
+};
 
-// conv_rows on the tensor cores, bf16 in, fp32 sums (same function and
-// epilogues).  The warps split C into slices of 32 channels and the rows
-// into interleaved 16-row m-tiles; a warp holds up to kMTiles m-tiles of
-// sums, so each B fragment it reads is used for all of them.  At the main
-// path's tiles every warp's rows fit in one pass.
-template <int C, int MODE>
-__device__ __forceinline__ void conv_rows_mma(
-    const bf16* src, int ss, int lo, int hi, const bf16* __restrict__ w,
-    const bf16* __restrict__ bias, int k, int d, float* res, bf16* dst, int dst_ss,
-    int g0, int t_len) {
-  constexpr int WN = C / (8 * kNTiles);     // warps across channels
-  constexpr int WM = kThreads / 32 / WN;    // warps across rows
-  static_assert(WN >= 1 && WM >= 1 && WN * WM * 32 == kThreads, "warp grid");
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4;
-  const int n0 = (warp % WN) * 8 * kNTiles;
-  const int half = (k - 1) / 2 * d;
-  const int n_mt = (hi - lo + 15) / 16;
-  for (int mt0 = warp / WN; mt0 < n_mt; mt0 += WM * kMTiles) {
-    float acc[kMTiles][kNTiles][4];
-    unsigned a_row[kMTiles];  // this lane's A row at tap 0
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of 16-byte vector v of row r in a [C][KC] bf16 slab: the
+// vectors are XOR-swizzled by row (KC = 64: 8 vectors, r & 7; KC = 32: 4
+// vectors, (r >> 1) & 3), so the 8 rows of an ldmatrix read hit 8 distinct
+// bank groups.
+template <int KC>
+__device__ __forceinline__ unsigned ring_offset(int r, int v) {
+  const int swz = KC == 64 ? (r & 7) : ((r >> 1) & 3);
+  return r * KC * 2 + ((v ^ swz) << 4);
+}
+
+// The level's bf16 weights as one sequence of chunks through a ring of S
+// shared-memory stages.  A slab is KC input channels of one tap for all C
+// output channels; a chunk is up to U consecutive slabs of one segment: one
+// conv (k taps x C / KC slabs, tap-major) or one parity of the upsample (2
+// steps x 2C / KC slabs, step-major).  Order, per branch: with UP the
+// upsample's two parities, then the branch's 6 convs, as the products
+// consume them.  Every thread calls next() once per chunk, in that order.
+template <int C, bool UP>
+struct WeightRing {
+  static constexpr int KC = ring_kc(C), U = ring_slabs(C), S = kRingStages;
+  static constexpr int kSlab = C * KC * 2;  // bytes
+  static constexpr int kStage = U * kSlab;
+  static constexpr int NB = C / KC;         // slabs per conv tap
+  static constexpr int NB2 = 2 * C / KC;    // slabs per upsample tap (2C inputs)
+  static constexpr int NUP = ceil_div(2 * NB2, U);  // chunks per upsample parity
+  static constexpr int kTotal = (UP ? 6 * NUP : 0) +
+                                6 * (ceil_div(3 * NB, U) + ceil_div(7 * NB, U) + ceil_div(11 * NB, U));
+  static_assert(S >= 2 && C % KC == 0 && (KC == 32 || KC == 64) && NB <= 2 && (!UP || NB2 <= 2),
+                "weight ring");
+
+  unsigned base;  // shared address of stage 0
+  const bf16* w;
+  const bf16* wup;
+  int n;  // the chunk next() hands out
+
+  // starts the copy of chunk j into stage j % S (16-byte cp.async, L2 only)
+  __device__ __forceinline__ void fetch(int j) const {
+    const unsigned dst = base + (j % S) * kStage;
+    // the chunk's segment: its slab s is input channels KC (s & lg) .. of tap
+    // s >> lg (lg = 1 where a tap is two slabs), taps tap_stride apart from
+    // src, rows ld apart
+    const bf16* src = w;
+    int tap_stride = C * C, ld = C, lg = NB == 2, s0 = 0, n_slabs = NB;
+    // one slab a chunk and no upsample: chunk j is slab j of w's 126 taps.
+    // (The integer work here sits between the barrier and the products:
+    // the general search below made level 1 16% slower.)
+    if constexpr (U == 1 && !UP) {
+      src = w + (size_t)(j / NB) * C * C;
+      s0 = j % NB;
+    } else {
+      int tap0 = 0;  // the first tap in w of the branch's convs
 #pragma unroll
-    for (int m = 0; m < kMTiles; ++m) {
-      int r = lo + (mt0 + m * WM) * 16 + (lane & 15);
-      r = r < hi ? r : hi - 1;  // ragged m-tile: read a valid row
-      a_row[m] = smem_addr(src + (r - half) * ss + (lane >> 4) * 8);
-#pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0.f;
-    }
-    for (int tap = 0; tap < k; ++tap) {
-      const unsigned a_tap = tap * d * ss * 2;  // bytes
-      // b0 = w[tap, n, k0 + 2q .. +1], b1 = the same 8 further along ci
-      const bf16* wt = w + (size_t)tap * C * C + (size_t)(n0 + g) * C + 2 * q;
-#pragma unroll 2
-      for (int kk = 0; kk < C; kk += 16) {
-        unsigned b[kNTiles][2];
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt) {
-          const unsigned* p = reinterpret_cast<const unsigned*>(wt + nt * 8 * C + kk);
-          b[nt][0] = __ldg(p);
-          b[nt][1] = __ldg(p + 4);
+      for (int br = 0; br < 3; ++br) {
+        const int k = 3 + 4 * br;
+        if (UP) {
+          if (j < 2 * NUP) {  // parity p: taps p and p + 2 of the flipped transpose conv
+            src = wup + (size_t)(j / NUP) * 2 * C * C;
+            tap_stride = 4 * C * C;
+            ld = 2 * C;
+            lg = NB2 == 2;
+            s0 = j % NUP * U;
+            n_slabs = 2 * NB2;
+            break;
+          }
+          j -= 2 * NUP;
         }
-#pragma unroll
-        for (int m = 0; m < kMTiles; ++m) {
-          if (mt0 + m * WM >= n_mt) break;
-          unsigned a[4];
-          ldmatrix_x4(a_row[m] + a_tap + kk * 2, a);
-#pragma unroll
-          for (int nt = 0; nt < kNTiles; ++nt) mma_bf16(acc[m][nt], a, b[nt][0], b[nt][1]);
+        const int per_conv = ceil_div(k * NB, U);
+        if (j < 6 * per_conv) {
+          src = w + (size_t)(tap0 + j / per_conv * k) * C * C;
+          s0 = j % per_conv * U;
+          n_slabs = k * NB;
+          break;
         }
+        j -= 6 * per_conv;
+        tap0 += 6 * k;
       }
     }
-    // c[0..1] are row g, channels 2q, 2q+1 of the n-tile; c[2..3] row g + 8
+    constexpr int kVecs = C * KC / 8;  // 16-byte vectors a slab
 #pragma unroll
-    for (int m = 0; m < kMTiles; ++m) {
-      if (mt0 + m * WM >= n_mt) break;
-      const int rbase = lo + (mt0 + m * WM) * 16 + g;
+    for (int it = 0; it < ceil_div(U * kVecs, kThreadsBf16); ++it) {
+      const int i = threadIdx.x + it * kThreadsBf16;
+      const int slab = i / kVecs, r = i % kVecs / (KC / 8), v = i % (KC / 8);
+      const int sl = s0 + slab;
+      if ((U * kVecs % kThreadsBf16 == 0 || slab < U) && (U == 1 || sl < n_slabs))
+        cp_async16(dst + slab * kSlab + ring_offset<KC>(r, v),
+                   src + (size_t)(sl >> lg) * tap_stride + (sl & lg) * KC + (size_t)r * ld + v * 8);
+    }
+  }
+
+  // puts chunks 0 .. S - 2 in flight
+  __device__ __forceinline__ void start(unsigned smem, const bf16* w_, const bf16* wup_) {
+    base = smem;
+    w = w_;
+    wup = wup_;
+    n = 0;
 #pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        const int col = n0 + nt * 8 + 2 * q;
-        const float2 bv = ldg2(bias + col);
+    for (int j = 0; j < S - 1; ++j) {
+      fetch(j);
+      cp_async_commit();
+    }
+  }
+
+  // Waits until chunk n has landed (every thread's copies) and returns its
+  // stage; first starts chunk n + S - 1 into the stage that every thread
+  // has finished with.  One cp.async group per chunk, empty past the end.
+  __device__ __forceinline__ unsigned next() {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (n + S - 1 < kTotal) fetch(n + S - 1);
+    cp_async_commit();
+    return base + (n++ % S) * kStage;
+  }
+};
+
+// acc[m] += (m-tile m of this warp) x (one weight slab) for the warp's n_live
+// live m-tiles: a_row[m] + a_off is this lane's A address at the slab's
+// first input channel, slab the slab's shared address.
+template <int C>
+__device__ __forceinline__ void mma_slab(float (&acc)[Grid<C>::MT][Grid<C>::NT][4],
+                                         const unsigned (&a_row)[Grid<C>::MT],
+                                         unsigned a_off, unsigned slab, int n0, int n_live) {
+  constexpr int KC = ring_kc(C);
+  const int lane = threadIdx.x % 32;
+  // one ldmatrix.x4 gives n-tiles 2 pr and 2 pr + 1 (b0, b1 each): lane l
+  // addresses row l % 8 of matrix l / 8 (k half l / 8 % 2, n-tile l / 16)
+  const int row = n0 + (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int khalf = (lane >> 3) & 1;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = rbase + 8 * h;
-          if (row >= hi) continue;
-          const float v0 = acc[m][nt][2 * h] + bv.x;
-          const float v1 = acc[m][nt][2 * h + 1] + bv.y;
-          if (MODE == kToAct) {
-            const int t = g0 + row;
-            const float msk = (t >= 0 && t < t_len) ? 1.f : 0.f;
-            *reinterpret_cast<__nv_bfloat162*>(dst + row * dst_ss + col) =
-                __floats2bfloat162_rn(lrelu(v0, kSlope) * msk, lrelu(v1, kSlope) * msk);
-          } else {
-            float2* o = reinterpret_cast<float2*>(res + row * C + col);
-            float2 cur = *o;
-            cur.x += v0;
-            cur.y += v1;
-            *o = cur;
-          }
+  for (int kk = 0; kk < KC; kk += 16) {
+    unsigned b[Grid<C>::NT][2];
+#pragma unroll
+    for (int pr = 0; pr < Grid<C>::NT / 2; ++pr) {
+      unsigned r[4];
+      ldmatrix_x4(slab + ring_offset<KC>(row + 16 * pr, kk / 8 + khalf), r);
+      b[2 * pr][0] = r[0];
+      b[2 * pr][1] = r[1];
+      b[2 * pr + 1][0] = r[2];
+      b[2 * pr + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int m = 0; m < Grid<C>::MT; ++m) {
+      if (m >= n_live) break;
+      unsigned a[4];
+      ldmatrix_x4(a_row[m] + a_off + kk * 2, a);
+#pragma unroll
+      for (int nt = 0; nt < Grid<C>::NT; ++nt) mma_bf16(acc[m][nt], a, b[nt][0], b[nt][1]);
+    }
+  }
+}
+
+// conv_rows on the tensor cores, bf16 in, fp32 sums (same function and
+// epilogues), its weights from the ring.  Warp w takes the 8 NT channels
+// from 8 NT (w % WN) and the m-tiles w / WN + m WM, m < MT.
+template <int C, bool UP, int MODE>
+__device__ __forceinline__ void conv_rows_mma(
+    const bf16* src, int ss, int lo, int hi, WeightRing<C, UP>& ring,
+    const bf16* __restrict__ bias, int k, int d, float* res, bf16* dst, int dst_ss,
+    int g0, int t_len) {
+  using G = Grid<C>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int n0 = (warp % G::WN) * 8 * G::NT;
+  const int mt0 = warp / G::WN;
+  const int half = (k - 1) / 2 * d;
+  const int n_mt = (hi - lo + 15) / 16;
+  const int n_live = n_mt > mt0 ? (n_mt - mt0 + G::WM - 1) / G::WM : 0;
+  float acc[G::MT][G::NT][4];
+  unsigned a_row[G::MT];  // this lane's A row at tap 0
+#pragma unroll
+  for (int m = 0; m < G::MT; ++m) {
+    int r = lo + (mt0 + m * G::WM) * 16 + (lane & 15);
+    r = r < hi ? r : hi - 1;  // ragged or idle m-tile: read a valid row
+    a_row[m] = smem_addr(src + (r - half) * ss + (lane >> 4) * 8);
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0.f;
+  }
+  using R = WeightRing<C, UP>;
+  for (int s0 = 0; s0 < k * R::NB; s0 += R::U) {
+    const unsigned stage = ring.next();
+#pragma unroll
+    for (int i = 0; i < R::U; ++i) {
+      const int sl = s0 + i;  // tap sl / NB, input channels KC (sl % NB) ..
+      if (sl >= k * R::NB) break;
+      mma_slab<C>(acc, a_row, (sl / R::NB * d * ss + sl % R::NB * R::KC) * 2,
+                  stage + i * R::kSlab, n0, n_live);
+    }
+  }
+  // c[0..1] are row g, channels 2q, 2q+1 of the n-tile; c[2..3] row g + 8
+#pragma unroll
+  for (int m = 0; m < G::MT; ++m) {
+    if (m >= n_live) break;
+    const int rbase = lo + (mt0 + m * G::WM) * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt) {
+      const int col = n0 + nt * 8 + 2 * q;
+      const float2 bv = ldg2(bias + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rbase + 8 * h;
+        if (row >= hi) continue;
+        const float v0 = acc[m][nt][2 * h] + bv.x;
+        const float v1 = acc[m][nt][2 * h + 1] + bv.y;
+        if (MODE == kToAct) {
+          const int t = g0 + row;
+          const float msk = (t >= 0 && t < t_len) ? 1.f : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(dst + row * dst_ss + col) =
+              __floats2bfloat162_rn(lrelu(v0, kSlope) * msk, lrelu(v1, kSlope) * msk);
+        } else {
+          float2* o = reinterpret_cast<float2*>(res + row * C + col);
+          float2 cur = *o;
+          cur.x += v0;
+          cur.y += v1;
+          *o = cur;
         }
       }
     }
   }
 }
 
-// One conv of the chain: tensor cores in bf16, CUDA cores in fp32.
-template <typename T, int C, int MODE>
+// One conv of the chain: tensor cores in bf16 (weights from the ring), CUDA
+// cores in fp32 (weights w).
+template <typename T, int C, bool UP, int MODE>
 __device__ __forceinline__ void conv(const T* src, int ss, int lo, int hi,
-                                     const T* __restrict__ w, const T* __restrict__ bias,
-                                     int k, int d, float* res, T* dst, int dst_ss,
-                                     int g0, int t_len) {
+                                     const T* __restrict__ w, WeightRing<C, UP>& ring,
+                                     const T* __restrict__ bias, int k, int d, float* res,
+                                     T* dst, int dst_ss, int g0, int t_len) {
   if constexpr (sizeof(T) == 2) {
-    conv_rows_mma<C, MODE>(src, ss, lo, hi, w, bias, k, d, res, dst, dst_ss, g0, t_len);
+    conv_rows_mma<C, UP, MODE>(src, ss, lo, hi, ring, bias, k, d, res, dst, dst_ss, g0,
+                               t_len);
   } else {
     conv_rows<C, C, MODE>(src, ss, lo, hi, w, bias, k, d, res, dst, dst_ss, g0, t_len);
   }
@@ -427,75 +628,62 @@ __device__ __forceinline__ void upsample_rows(
 // upsample_rows on the tensor cores, bf16 in, fp32 out.  The output rows of
 // one parity p form a 2-tap conv over consecutive input rows (output frame
 // 2s + p reads input frames s + p - 1 and s + p with taps p and p + 2), so
-// each parity is a product like conv_rows_mma's, with its own B.  Warps split
-// C into slices of 32 channels and each parity's rows into 16-row m-tiles.
+// each parity is a product like conv_rows_mma's, with its own weights from
+// the ring.  Warps split C into slices of 32 channels and each parity's rows
+// into 16-row m-tiles.
 template <int C>
 __device__ __forceinline__ void upsample_rows_mma(
-    const bf16* src, int ss_in, int n, int g0, int in0, const bf16* __restrict__ w,
+    const bf16* src, int ss_in, int n, int g0, int in0, WeightRing<C, true>& ring,
     const bf16* __restrict__ bias, float* xb) {
-  constexpr int CIN = 2 * C;
-  constexpr int WN = C / (8 * kNTiles);
-  constexpr int WM = kThreads / 32 / WN;
-  static_assert(WN >= 1 && WM >= 1 && WN * WM * 32 == kThreads, "warp grid");
+  using G = Grid<C>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;
-  const int n0 = (warp % WN) * 8 * kNTiles;
+  const int n0 = (warp % G::WN) * 8 * G::NT;
+  const int mt0 = warp / G::WN;
 #pragma unroll 1
   for (int p = 0; p < 2; ++p) {
     const int r0 = (p - g0) & 1;         // first row of parity p
     const int n_p = (n - r0 + 1) / 2;    // rows r0, r0 + 2, ...
     const int n_mt = (n_p + 15) / 16;
-    for (int mt0 = warp / WN; mt0 < n_mt; mt0 += WM * kMTiles) {
-      float acc[kMTiles][kNTiles][4];
-      unsigned a_row[kMTiles];  // this lane's input row at step 0
+    const int n_live = n_mt > mt0 ? (n_mt - mt0 + G::WM - 1) / G::WM : 0;
+    float acc[G::MT][G::NT][4];
+    unsigned a_row[G::MT];  // this lane's input row at step 0
 #pragma unroll
-      for (int m = 0; m < kMTiles; ++m) {
-        int i = (mt0 + m * WM) * 16 + (lane & 15);
-        i = i < n_p ? i : n_p - 1;
-        const int s = (g0 + r0 + 2 * i - p) >> 1;  // output frame 2s + p
-        a_row[m] = smem_addr(src + (s + p - 1 - in0) * ss_in + (lane >> 4) * 8);
+    for (int m = 0; m < G::MT; ++m) {
+      int i = (mt0 + m * G::WM) * 16 + (lane & 15);
+      i = i < n_p ? i : n_p - 1;
+      const int s = (g0 + r0 + 2 * i - p) >> 1;  // output frame 2s + p
+      a_row[m] = smem_addr(src + (s + p - 1 - in0) * ss_in + (lane >> 4) * 8);
 #pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt)
+      for (int nt = 0; nt < G::NT; ++nt)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0.f;
+        for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0.f;
+    }
+    using R = WeightRing<C, true>;
+#pragma unroll 1
+    for (int s0 = 0; s0 < 2 * R::NB2; s0 += R::U) {
+      const unsigned stage = ring.next();
+#pragma unroll
+      for (int i = 0; i < R::U; ++i) {
+        const int sl = s0 + i;  // step sl / NB2, input channels KC (sl % NB2) ..
+        if (sl >= 2 * R::NB2) break;
+        mma_slab<C>(acc, a_row, (sl / R::NB2 * ss_in + sl % R::NB2 * R::KC) * 2,
+                    stage + i * R::kSlab, n0, n_live);
       }
+    }
 #pragma unroll
-      for (int step = 0; step < 2; ++step) {
-        const unsigned a_step = step * ss_in * 2;  // bytes
-        const bf16* wt = w + (size_t)(p + 2 * step) * C * CIN + (size_t)(n0 + g) * CIN + 2 * q;
-#pragma unroll 2
-        for (int kk = 0; kk < CIN; kk += 16) {
-          unsigned b[kNTiles][2];
+    for (int m = 0; m < G::MT; ++m) {
+      if (m >= n_live) break;
 #pragma unroll
-          for (int nt = 0; nt < kNTiles; ++nt) {
-            const unsigned* bp = reinterpret_cast<const unsigned*>(wt + nt * 8 * CIN + kk);
-            b[nt][0] = __ldg(bp);
-            b[nt][1] = __ldg(bp + 4);
-          }
+      for (int nt = 0; nt < G::NT; ++nt) {
+        const int col = n0 + nt * 8 + 2 * q;
+        const float2 bv = ldg2(bias + col);
 #pragma unroll
-          for (int m = 0; m < kMTiles; ++m) {
-            if (mt0 + m * WM >= n_mt) break;
-            unsigned a[4];
-            ldmatrix_x4(a_row[m] + a_step + kk * 2, a);
-#pragma unroll
-            for (int nt = 0; nt < kNTiles; ++nt) mma_bf16(acc[m][nt], a, b[nt][0], b[nt][1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < kMTiles; ++m) {
-        if (mt0 + m * WM >= n_mt) break;
-#pragma unroll
-        for (int nt = 0; nt < kNTiles; ++nt) {
-          const int col = n0 + nt * 8 + 2 * q;
-          const float2 bv = ldg2(bias + col);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int i = (mt0 + m * WM) * 16 + g + 8 * h;
-            if (i >= n_p) continue;
-            *reinterpret_cast<float2*>(xb + (r0 + 2 * i) * C + col) =
-                make_float2(acc[m][nt][2 * h] + bv.x, acc[m][nt][2 * h + 1] + bv.y);
-          }
+        for (int h = 0; h < 2; ++h) {
+          const int i = (mt0 + m * G::WM) * 16 + g + 8 * h;
+          if (i >= n_p) continue;
+          *reinterpret_cast<float2*>(xb + (r0 + 2 * i) * C + col) =
+              make_float2(acc[m][nt][2 * h] + bv.x, acc[m][nt][2 * h + 1] + bv.y);
         }
       }
     }
@@ -508,7 +696,7 @@ __device__ __forceinline__ void upsample_rows_mma(
 // wup: (4, C, 2C) flipped transpose-conv taps [tap][co][ci]; bup: (C,).
 // wpost: (7, C); bpost: (1,).  out: (B, t_out, C) unless POST; wav: (B, t_out).
 template <typename T, int C, bool UP, bool POST>
-__global__ void __launch_bounds__(kThreads, 1) mrf_level_kernel(
+__global__ void __launch_bounds__(sizeof(T) == 2 ? kThreadsBf16 : kThreads, 1) mrf_level_kernel(
     const T* __restrict__ x, int t_in, int t_out, int tile,
     const T* __restrict__ wup, const T* __restrict__ bup,
     const T* __restrict__ w, const T* __restrict__ b,
@@ -517,17 +705,31 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_level_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(C, UP, POST, tile, sizeof(T));
   float* xb = reinterpret_cast<float*>(smem + L.xb);
-  float* accb = reinterpret_cast<float*>(smem + L.acc);
   T* act_a = reinterpret_cast<T*>(smem + L.act_a);
   T* act_b = reinterpret_cast<T*>(smem + L.act_b);
   constexpr int CIN = UP ? 2 * C : C;
   constexpr int P = POST ? kPostPad : 0;
+  constexpr int NTH = sizeof(T) == 2 ? kThreadsBf16 : kThreads;
   const int bi = blockIdx.y;
   const int t0 = blockIdx.x * tile;
   const int n_acc = (tile + 2 * P) * C;
   const T* xrow = x + (size_t)bi * t_in * CIN;
 
-  for (int i = threadIdx.x; i < n_acc; i += kThreads) accb[i] = 0.f;
+  WeightRing<C, UP> ring;  // bf16 only
+  if constexpr (sizeof(T) == 2) ring.start(smem_addr(smem + L.ring), w, wup);
+
+  // the branch sum of the (tile + 2P, C) output rows: bf16 keeps element
+  // threadIdx.x + j * NTH in accb[j] (registers), fp32 element i in acc_s[i]
+  constexpr bool kRegSum = sizeof(T) == 2;
+  constexpr int kAcc = ceil_div((max_tile(C) + 2 * P) * C, NTH);
+  float accb[kAcc];
+  float* acc_s = reinterpret_cast<float*>(smem + L.acc);
+  if constexpr (kRegSum) {
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) accb[j] = 0.f;
+  } else {
+    for (int i = threadIdx.x; i < n_acc; i += NTH) acc_s[i] = 0.f;
+  }
 
   size_t w_off = 0;
   int n_conv = 0;
@@ -539,12 +741,12 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_level_kernel(
     const int ext = tile + 2 * P + 2 * reach;
     const int g0 = t0 - P - reach;  // frame of smem row 0
     __syncthreads();
-    if (UP) {
+    if constexpr (UP) {
       // stage lrelu(x) (rounded to T, zero outside [0, t_in)) for the
       // input frames the upsample reads
       const int in0 = floor_div2(g0 - 2);
       const int n_in = floor_div2(g0 + ext + 1) - in0 + 1;
-      for (int i = threadIdx.x; i < n_in * CIN; i += kThreads) {
+      for (int i = threadIdx.x; i < n_in * CIN; i += NTH) {
         const int s = i / CIN, c = i % CIN;
         const int t = in0 + s;
         float v = 0.f;
@@ -553,12 +755,12 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_level_kernel(
       }
       __syncthreads();
       if constexpr (sizeof(T) == 2) {
-        upsample_rows_mma<C>(act_a, L.ss_in, ext, g0, in0, wup, bup, xb);
+        upsample_rows_mma<C>(act_a, L.ss_in, ext, g0, in0, ring, bup, xb);
       } else {
         upsample_rows<C>(act_a, L.ss_in, ext, g0, in0, wup, bup, xb);
       }
     } else {
-      for (int i = threadIdx.x; i < ext * C; i += kThreads) {
+      for (int i = threadIdx.x; i < ext * C; i += NTH) {
         const int r = i / C, c = i % C;
         const int t = g0 + r;
         xb[i] = (t >= 0 && t < t_out) ? to_f(xrow[(size_t)t * C + c]) : 0.f;
@@ -569,7 +771,7 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_level_kernel(
 #pragma unroll 1
     for (int m = 0; m < 3; ++m) {
       const int d = 2 * m + 1;
-      for (int i = threadIdx.x; i < (hi - lo) * C; i += kThreads) {
+      for (int i = threadIdx.x; i < (hi - lo) * C; i += NTH) {
         const int r = lo + i / C, c = i % C;
         const int t = g0 + r;
         const float v = (t >= 0 && t < t_out) ? lrelu(xb[r * C + c], kSlope) : 0.f;
@@ -578,45 +780,70 @@ __global__ void __launch_bounds__(kThreads, 1) mrf_level_kernel(
       __syncthreads();
       lo += h * d;
       hi -= h * d;
-      conv<T, C, kToAct>(act_a, L.ss, lo, hi, w + w_off, b + n_conv * C, k, d, nullptr,
-                         act_b, L.ss, g0, t_out);
+      conv<T, C, UP, kToAct>(act_a, L.ss, lo, hi, w + w_off, ring, b + n_conv * C, k, d,
+                             nullptr, act_b, L.ss, g0, t_out);
       w_off += (size_t)k * C * C;
       ++n_conv;
       __syncthreads();
       lo += h;
       hi -= h;
-      conv<T, C, kAddRes>(act_b, L.ss, lo, hi, w + w_off, b + n_conv * C, k, 1, xb,
-                          nullptr, 0, g0, t_out);
+      conv<T, C, UP, kAddRes>(act_b, L.ss, lo, hi, w + w_off, ring, b + n_conv * C, k, 1,
+                              xb, nullptr, 0, g0, t_out);
       w_off += (size_t)k * C * C;
       ++n_conv;
       __syncthreads();
     }
     // lo == reach: rows [reach, reach + tile + 2P) are the branch's output
-    for (int i = threadIdx.x; i < n_acc; i += kThreads) accb[i] += xb[reach * C + i];
+    if constexpr (kRegSum) {
+#pragma unroll
+      for (int j = 0; j < kAcc; ++j) {
+        const int i = threadIdx.x + j * NTH;
+        if (i < n_acc) accb[j] += xb[reach * C + i];
+      }
+    } else {
+      for (int i = threadIdx.x; i < n_acc; i += NTH) acc_s[i] += xb[reach * C + i];
+    }
   }
   __syncthreads();
 
   if (!POST) {
     T* orow = out + (size_t)bi * t_out * C;
-    for (int i = threadIdx.x; i < tile * C; i += kThreads) {
-      const int t = t0 + i / C;
-      if (t < t_out) orow[(size_t)t0 * C + i] = from_f<T>(accb[i] / 3.f);
+    auto store = [&](int i, float sum) {
+      if (t0 + i / C < t_out) orow[(size_t)t0 * C + i] = from_f<T>(sum / 3.f);
+    };
+    if constexpr (kRegSum) {
+#pragma unroll
+      for (int j = 0; j < kAcc; ++j) {
+        const int i = threadIdx.x + j * NTH;
+        if (i < n_acc) store(i, accb[j]);
+      }
+    } else {
+      for (int i = threadIdx.x; i < n_acc; i += NTH) store(i, acc_s[i]);
     }
     return;
   }
 
   // tail: LeakyReLU(0.01) -> conv_post (k=7, C -> 1, padding 3) -> tanh
-  for (int i = threadIdx.x; i < n_acc; i += kThreads) {
+  auto stage = [&](int i, float sum) {
     const int r = i / C, c = i % C;
     const int t = t0 - P + r;
-    const float v = (t >= 0 && t < t_out) ? lrelu(accb[i] / 3.f, kPostSlope) : 0.f;
+    const float v = (t >= 0 && t < t_out) ? lrelu(sum / 3.f, kPostSlope) : 0.f;
     act_a[r * L.ss + c] = from_f<T>(v);
+  };
+  if constexpr (kRegSum) {
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) {
+      const int i = threadIdx.x + j * NTH;
+      if (i < n_acc) stage(i, accb[j]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n_acc; i += NTH) stage(i, acc_s[i]);
   }
   __syncthreads();
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const float bias_post = to_f(bpost[0]);
-  for (int r = warp; r < tile; r += kThreads / 32) {
+  for (int r = warp; r < tile; r += NTH / 32) {
     float s = 0.f;
     for (int tap = 0; tap < kPostK; ++tap)
       for (int c = lane; c < C; c += 32)
@@ -634,12 +861,13 @@ cudaError_t launch(const void* x, int batch, int t_in, int t_out, int tile,
                    const void* wpost, const void* bpost, void* out, void* wav,
                    cudaStream_t stream) {
   const int smem = layout(C, UP, POST, tile, sizeof(T)).total;
+  constexpr int threads = sizeof(T) == 2 ? kThreadsBf16 : kThreads;
   auto kernel = mrf_level_kernel<T, C, UP, POST>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t_out + tile - 1) / tile, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(x), t_in, t_out, tile, static_cast<const T*>(wup),
       static_cast<const T*>(bup), static_cast<const T*>(w), static_cast<const T*>(b),
       static_cast<const T*>(wpost), static_cast<const T*>(bpost), static_cast<T*>(out),
@@ -1053,13 +1281,21 @@ int mrf_smem_bytes(int c, int up, int post, int tile, int elem_size) {
   return layout(c, up != 0, post != 0, tile, elem_size).total;
 }
 
+// The largest tile (frames) of the level kernel at C channels (the bf16
+// branch sum lives in registers).
+int mrf_max_tile(int c) { return c > 0 ? max_tile(c) : 0; }
+
 // Launches one MRF level on `stream`.  Returns a cudaError_t (0 = success).
+// The bf16 weight ring copies 16-byte units: w and wup must be 16-byte
+// aligned.
 int mrf_level(const void* x, int batch, int t_in, int t_out, int c, int up, int post,
               int is_bf16, int tile, const void* wup, const void* bup, const void* w,
               const void* b, const void* wpost, const void* bpost, void* out,
               void* wav, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile <= 0 || tile % 8 != 0) return cudaErrorInvalidValue;
+  if (c <= 0 || tile <= 0 || tile % 8 != 0 || tile > max_tile(c)) return cudaErrorInvalidValue;
+  if (is_bf16 && ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(wup)) & 15))
+    return cudaErrorMisalignedAddress;
   if (is_bf16)
     return dispatch<bf16>(c, up, post, x, batch, t_in, t_out, tile, wup, bup, w, b,
                           wpost, bpost, out, wav, s);

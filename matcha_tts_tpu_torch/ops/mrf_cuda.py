@@ -10,11 +10,12 @@ Replaces the TPU kernels `matcha_tts_tpu/ops/pallas/mrf_packed.py`:
   tanh, returned as the wav `(B, 2 T_in)` instead of the level output.
 
 The kernel (`csrc/mrf.cu`) keeps a time tile and its halo in shared memory
-through all 18 convs, so the level's intermediates never reach device
-memory.  It is bound by operations (126 C^2 MACs per output frame at C=128):
-in bf16 the convs run on the tensor cores (mma.sync), in fp32 as FMAs on the
-CUDA cores, and the halo is recomputed per tile (see the source note in
-`csrc/mrf.cu` and PERF.md).
+(in bf16 the branch sum in registers) through all 18 convs, so the level's
+intermediates never reach device memory.  It is bound by operations (126
+C^2 MACs per output frame at C=128): in bf16 the convs run on the tensor
+cores (mma.sync) with the weights streamed once per block through a
+shared-memory cp.async ring, in fp32 as FMAs on the CUDA cores, and the halo
+is recomputed per tile (see the source note in `csrc/mrf.cu` and PERF.md).
 
 Weights are per tap, packed once from the modules' torch layouts:
 `w (126, C, C)` as [tap][c_out][c_in] in chain order (branch, sub-block,
@@ -299,6 +300,8 @@ def _lib() -> ctypes.CDLL:
         lib.mrf_level.restype = i32
         lib.mrf_smem_bytes.argtypes = [i32] * 5
         lib.mrf_smem_bytes.restype = i32
+        lib.mrf_max_tile.argtypes = [i32]
+        lib.mrf_max_tile.restype = i32
         lib.mrf_error_string.argtypes = [i32]
         lib.mrf_error_string.restype = ctypes.c_char_p
         lib.mrf_level_int8.argtypes = [ptr] + [i32] * 9 + [ptr] * 11
@@ -315,9 +318,11 @@ def smem_bytes(c: int, up: bool, post: bool, tile: int, dtype) -> int:
 
 
 def pick_tile(c: int, up: bool, post: bool, dtype, t_out: int) -> int:
-    """Largest tile whose block fits in shared memory and, where possible,
-    not longer than the sequence."""
-    fits = [t for t in TILES if smem_bytes(c, up, post, t, dtype) <= cuda_build.SMEM_LIMIT]
+    """Largest tile the kernel takes (at most `mrf_max_tile`, its block
+    within shared memory) and, where possible, not longer than the sequence."""
+    most = _lib().mrf_max_tile(c)
+    fits = [t for t in TILES
+            if t <= most and smem_bytes(c, up, post, t, dtype) <= cuda_build.SMEM_LIMIT]
     if not fits:
         raise ValueError(f"no MRF tile fits shared memory at C={c}, {dtype}")
     short = [t for t in fits if t <= t_out]

@@ -1,5 +1,6 @@
 """The port's kernels against their plain versions on a CUDA card (marker
-`gpu`; they skip where there is no card): the MRF levels, MAS (identical
+`gpu`; they skip where there is no card): the MRF levels (with T around
+the tile, batch 3 and a misaligned bf16 weight base), MAS (identical
 paths), the fused Block1D / ResnetBlock1D (forward and gradients), the
 attention kernels (with ragged T, items of length 0, flash's row
 statistics and a misaligned bf16 or fp32 base) and the flash backward (dq, dk/dv,
@@ -73,6 +74,54 @@ def test_kernel_matches_plain(cuda, c_in, t_in, c, up, post):
     got16 = _run(kern, a16, up).float()
     ref16 = _run(plain, {k: v.float() for k, v in a16.items()}, up)
     assert float((got16 - ref16).norm() / ref16.norm()) <= 1e-2
+
+
+# The exact levels around the tile the kernel picks at each C (64, 128 and 256
+# frames at C = 128, 64, 32; mrf_up takes C in {64, 32}): T one frame above
+# and below a multiple of it (two frames for mrf_up, whose T is even), T
+# shorter than the smallest tile, batch 3, and the conv_post tail.
+@pytest.mark.parametrize("up,c,t_out,batch,post", [
+    (False, 128, 3 * 64 + 1, 1, False), (False, 128, 3 * 64 - 1, 1, False),
+    (False, 128, 10, 1, False), (False, 128, 130, 3, False),
+    (False, 64, 2 * 128 + 1, 1, False), (False, 64, 2 * 128 - 1, 1, False),
+    (False, 64, 10, 1, False), (False, 64, 250, 3, False),
+    (False, 32, 2 * 256 + 1, 1, False), (False, 32, 2 * 256 - 1, 1, False),
+    (False, 32, 10, 1, False), (False, 32, 300, 3, False),
+    (True, 64, 2 * 128 + 2, 1, False), (True, 64, 2 * 128 - 2, 1, False),
+    (True, 64, 10, 1, False), (True, 64, 260, 3, False), (True, 64, 2 * 128 + 2, 1, True),
+    (True, 32, 2 * 256 + 2, 1, False), (True, 32, 2 * 256 - 2, 1, True),
+    (True, 32, 2 * 256 + 2, 1, True), (True, 32, 10, 1, True), (True, 32, 520, 3, True)])
+def test_level_kernel_tile_edges(cuda, up, c, t_out, batch, post):
+    c_in = 2 * c if up else c
+    a = _operands(c_in, t_out // 2 if up else t_out, c, up, post, cuda)
+    a["x"] = torch.randn(batch, *a["x"].shape[1:], generator=torch.Generator(device=cuda)
+                         .manual_seed(t_out), device=cuda)
+    kern, plain = ((mrf_cuda.mrf_up, mrf_cuda.mrf_up_plain) if up
+                   else (mrf_cuda.mrf, mrf_cuda.mrf_plain))
+    key = "mrf_up" if up else "mrf"
+    for dtype in (torch.float32, torch.bfloat16):
+        ad = {k: v.to(dtype) for k, v in a.items()}
+        n0 = dict(mrf_cuda.LAUNCHES)
+        got = _run(kern, ad, up).float()
+        torch.cuda.synchronize()
+        assert mrf_cuda.LAUNCHES[key] == n0[key] + 1
+        assert sum(mrf_cuda.LAUNCHES.values()) == sum(n0.values()) + 1
+        ref = _run(plain, {k: v.float() for k, v in ad.items()}, up)
+        assert got.shape == ref.shape == ((batch, t_out) if post else (batch, t_out, c))
+        if dtype == torch.float32:
+            assert float((got - ref).abs().max()) <= 1e-4
+        else:
+            assert float((got - ref).norm() / ref.norm()) <= 1e-2
+
+
+def test_level_kernel_refuses_misaligned_bf16_weights(cuda):
+    a = {k: v.bfloat16() for k, v in _operands(64, 64, 64, False, False, cuda).items()}
+    w = torch.empty(a["w"].numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(a["w"].shape)
+    w.copy_(a["w"])
+    n0 = mrf_cuda.LAUNCHES["mrf"]
+    with pytest.raises(RuntimeError, match="misaligned"):
+        mrf_cuda.mrf(a["x"], w, a["b"])
+    assert mrf_cuda.LAUNCHES["mrf"] == n0
 
 
 def test_wrapper_rejects_bad_operands(cuda):
