@@ -4,6 +4,7 @@
     python3 chip_smoke.py                   # a few minutes on an H100, build included
     python3 chip_smoke.py --attention-only  # phases 1, 2 (attention only), 11 and 16
     python3 chip_smoke.py --mrf-only        # phases 1, 2 (mrf only), 3, 10 and 12
+    python3 chip_smoke.py --blocks-only     # phases 1, 2 (unet_blocks only) and 8
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
@@ -40,7 +41,9 @@ Phases, each of which raises on failure (no phase catches and carries on):
    fp32 max |diff| <= 1e-4 of the output's max |value|; bf16 vs fp32 plain on
    the same rounded operands, relative L2 <= 1e-2; the input and weight
    gradients of one fp32 backward vs the plain composition's, relative L2
-   <= 1e-4; timed beside the plain version and the bound;
+   <= 1e-4; timed beside the plain version, the bound and, as a yardstick,
+   the shape's convs alone as bf16 cuDNN calls (two k=3 and one 1x1 for a
+   resnet, one k=3 for a block), with the tile and launch layout used;
 9. training at full width (`MatchaConfig()`, `TrainConfig()` defaults: batch
    64, bf16, lr 1e-4, clip 5) on a corpus synthesised from a seed (22050 Hz
    harmonic tones plus noise, 2-10 s, texts from SENTENCES; every batch lands
@@ -146,6 +149,9 @@ PEAK_BYTES = 3.35e12
 T_Y = 512  # the frame bucket whose level shapes the kernels are checked at
 MRF_DESIGN = ("bf16: mma.sync, 16 warps, weights once per block through a 2-stage "
               "cp.async ring in shared memory")
+BLOCKS_DESIGN = ("bf16: a 128-frame tile across all output channels, mma.sync, weights "
+                 "through a cp.async ring, GroupNorm partials merged in tile order, "
+                 "h1 built in conv 2's staging; fp32: per-group FMA kernel")
 REPS = 5  # timed launches per kernel and version
 FP32_ATOL = 1e-4
 BF16_REL_L2 = 1e-2
@@ -621,10 +627,33 @@ def block_shapes(cfg):
             ("final_block", "block", ch, ch, t, 1)]
 
 
+def block_inputs(idx: int, kind: str, c_in: int, c_out: int, t: int, b: int, dev):
+    """Phase 8's operands of shape `idx` of `block_shapes`: x (b, t, c_in),
+    a ragged 0/1 mask, the parameters in the modules' layouts (the block's
+    four, or the resnet's ten) and, for a resnet, the time row."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(100 + idx)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    x = rnd(b, t, c_in)
+    lengths = torch.linspace(t // 2, t, b, device=dev).long()
+    mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).float()
+    p = [rnd(c_out, c_in, 3) / (3 * c_in) ** 0.5, rnd(c_out) * 0.1,
+         1 + 0.1 * rnd(c_out), 0.1 * rnd(c_out)]
+    temb = None
+    if kind == "resnet":
+        p += [rnd(c_out, c_out, 3) / (3 * c_out) ** 0.5, rnd(c_out) * 0.1,
+              1 + 0.1 * rnd(c_out), 0.1 * rnd(c_out),
+              rnd(c_out, c_in, 1) / c_in ** 0.5, rnd(c_out) * 0.1]
+        temb = rnd(b, c_out)
+    return x, mask, p, temb
+
+
 def check_blocks(cfg, reps: int) -> dict:
     """Phase 8: the Block1D / ResnetBlock1D kernels against their plain
     versions, forward (fp32, bf16) and gradients (fp32), with timings."""
     import torch
+    import torch.nn.functional as F
 
     from matcha_tts_tpu_torch.ops import unet_cuda as U
 
@@ -632,24 +661,13 @@ def check_blocks(cfg, reps: int) -> dict:
     b = BLOCK_B
     rows = []
     for idx, (name, kind, c_in, c_out, t, per_pass) in enumerate(block_shapes(cfg)):
-        g = torch.Generator(device=dev).manual_seed(100 + idx)
-        rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
-        x = rnd(b, t, c_in)
-        lengths = torch.linspace(t // 2, t, b, device=dev).long()
-        mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).float()
-        p = [rnd(c_out, c_in, 3) / (3 * c_in) ** 0.5, rnd(c_out) * 0.1,
-             1 + 0.1 * rnd(c_out), 0.1 * rnd(c_out)]
+        x, mask, p, temb = block_inputs(idx, kind, c_in, c_out, t, b, dev)
         if kind == "resnet":
-            p += [rnd(c_out, c_out, 3) / (3 * c_out) ** 0.5, rnd(c_out) * 0.1,
-                  1 + 0.1 * rnd(c_out), 0.1 * rnd(c_out),
-                  rnd(c_out, c_in, 1) / c_in ** 0.5, rnd(c_out) * 0.1]
-            temb = rnd(b, c_out)
             kern = lambda xx, tt, *w: U.resnet1d(xx, mask, tt, *w)  # noqa: E731
             plain = lambda xx, tt, *w: U.resnet1d_plain(xx, mask, tt, *w)  # noqa: E731
             macs = t * (3 * c_in * c_out + 3 * c_out * c_out + c_in * c_out)
             n_w = 3 * c_in * c_out + 3 * c_out * c_out + c_in * c_out + 7 * c_out
         else:
-            temb = None
             kern = lambda xx, tt, *w: U.block1d(xx, mask, *w)  # noqa: E731
             plain = lambda xx, tt, *w: U.block1d_plain(xx, mask, *w)  # noqa: E731
             macs = t * 3 * c_in * c_out
@@ -669,7 +687,8 @@ def check_blocks(cfg, reps: int) -> dict:
         rel16 = rel_l2(got16.float(), ref16)
 
         # one fp32 backward: input, time row and every weight
-        gout = rnd(b, t, c_out)
+        gout = torch.randn(b, t, c_out, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(200 + idx))
         leaves = [x] + ([] if temb is None else [temb]) + p
 
         def grads(fn):
@@ -682,13 +701,29 @@ def check_blocks(cfg, reps: int) -> dict:
 
         ms = cuda_ms(lambda: kern(x16, t16, *p), reps)
         plain_ms = cuda_ms(lambda: plain(x16, t16, *p), reps)
+        # yardstick: the shape's convs alone as bf16 cuDNN calls on (B, C, T)
+        xc = x16.transpose(1, 2).contiguous()
+        w16 = [w.bfloat16() for w in p]
+        if kind == "resnet":
+            hc = torch.randn(b, c_out, t, device=dev).bfloat16()
+            convs = lambda: (F.conv1d(xc, w16[0], w16[1], padding=1),  # noqa: E731
+                             F.conv1d(hc, w16[4], w16[5], padding=1), F.conv1d(xc, w16[8], w16[9]))
+        else:
+            convs = lambda: F.conv1d(xc, w16[0], w16[1], padding=1)  # noqa: E731
+        convs_ms = cuda_ms(convs, reps)
+        tile = U.tile_frames(c_in, c_out, torch.bfloat16)
+        ns = min(c_out, 256)
+        layout = (f"tiled: {-(-t // tile)} x {b} x {c_out // ns} blocks of {2 * ns} threads "
+                  f"({tile} frames x {ns} channels), {3 if kind == 'resnet' else 2} launches"
+                  if tile else f"per-group: {U.GROUPS} x {b} blocks of 256 threads, "
+                  f"{2 if kind == 'resnet' else 1} launches")
         ops = 2 * b * macs
         nbytes = 2 * (b * t * c_in + b * t * c_out + n_w) + 4 * b * t
         bound = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
         row = dict(name=name, kind=kind, c_in=c_in, c_out=c_out, t=t, batch=b,
                    per_pass=per_pass, fp32_max_abs_err=err32, fp32_scaled_err=scaled,
                    bf16_rel_l2=rel16, grad_rel_l2=grad_rel, bf16_ms=ms, bf16_plain_ms=plain_ms,
-                   bf16_bound_ms=bound,
+                   bf16_bound_ms=bound, cudnn_convs_ms=convs_ms, layout=layout,
                    bound_by="operations" if ops / PEAK_BF16 >= nbytes / PEAK_BYTES else "bytes")
         print(f"[blocks] {json.dumps(row)}", flush=True)
         if not scaled <= FP32_ATOL:
@@ -698,7 +733,7 @@ def check_blocks(cfg, reps: int) -> dict:
         if not grad_rel <= GRAD_REL_L2:
             raise AssertionError(f"{name}: gradient rel L2 {grad_rel} > {GRAD_REL_L2}")
         rows.append(row)
-        del x, x16, got, ref, got16, ref16
+        del x, x16, got, ref, got16, ref16, xc
         torch.cuda.empty_cache()
     for k in U.LAUNCHES:
         U.LAUNCHES[k] = 0
@@ -857,8 +892,7 @@ def training(syn) -> dict:
                 raise AssertionError(f"({name}): the loss did not fall on a repeated batch")
             out[f"step_ms_{name}"] = step_ms
             out[f"frames_per_s_{name}"] = frames / step_ms * 1e3
-            if name != "b":
-                profile_step(state, batch, cfg, tcfg, out, step_ms, name)
+            profile_step(state, batch, cfg, tcfg, out, step_ms, name)
             if name == "a":
                 with torch.no_grad():
                     mu_x, _, x_mask = state.model.encoder(batch["x"], batch["x_lengths"])
@@ -936,6 +970,7 @@ def profile_step(state, batch, cfg, tcfg, out, step_ms: float, name: str) -> Non
     share = print_busy("train", f"({name}) one step", prof, wall)
     if share is not None:
         out[f"busy_share_{name}"] = share
+        out[f"busy_ms_{name}"] = share * wall * 1e3
         out[f"busy_share_vs_step_{name}"] = share * wall * 1e3 / step_ms
         print(f"[train] ({name}) device busy over the unprofiled median step ({step_ms:.2f} "
               f"ms): {out[f'busy_share_vs_step_{name}']:.3f}", flush=True)
@@ -1749,9 +1784,10 @@ def main() -> int:
 
     attention_only = "--attention-only" in sys.argv[1:]
     mrf_only = "--mrf-only" in sys.argv[1:]
+    blocks_only = "--blocks-only" in sys.argv[1:]
     t0 = time.perf_counter()
-    paths = cuda_build.build_all(["attention"] if attention_only
-                                 else ["mrf"] if mrf_only else cuda_build.SOURCES)
+    paths = cuda_build.build_all(["attention"] if attention_only else ["mrf"] if mrf_only
+                                 else ["unet_blocks"] if blocks_only else cuda_build.SOURCES)
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s: "
           f"{[p.name for p in paths.values()]}", flush=True)
     for name in paths:
@@ -1772,6 +1808,10 @@ def main() -> int:
         check_kernels(T_Y, REPS)
         check_int8_kernels(T_Y, REPS)
         check_tap(REPS)
+        print(card)
+        return 0
+    if blocks_only:  # phase 8 alone: the kernels of csrc/unet_blocks.cu
+        check_blocks(MatchaConfig(), REPS)
         print(card)
         return 0
     table = check_kernels(T_Y, REPS)
@@ -1831,7 +1871,9 @@ def main() -> int:
             "ms": sum(r["bf16_ms"] * r["per_pass"] for r in rows),
             "plain_ms": sum(r["bf16_plain_ms"] * r["per_pass"] for r in rows),
             "bound_ms": sum(r["bf16_bound_ms"] * r["per_pass"] for r in rows),
-            "bound_by": rows[0]["bound_by"], "library_ms": None})
+            "bound_by": rows[0]["bound_by"], "library_ms": None,
+            "cudnn_convs_ms": sum(r["cudnn_convs_ms"] * r["per_pass"] for r in rows),
+            "design": BLOCKS_DESIGN})
     int8_up = [int8_table["level2"], int8_table["level3"]]
     for kname, rows, line in (("mrf_int8", [int8_table["level1"]], "mrf_packed.py:525"),
                               ("mrf_up_int8", int8_up, "mrf_packed.py:648")):

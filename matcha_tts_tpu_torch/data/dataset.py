@@ -8,7 +8,7 @@
 
 WAVs are read with `scipy.io.wavfile` (int16 PCM / 32768).  The JAX
 package's native multithreaded WAV reader is not ported (ROADMAP Queue 1,
-item 14).
+"The rest of interop and the host utilities").
 """
 
 from __future__ import annotations

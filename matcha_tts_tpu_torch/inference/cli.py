@@ -43,7 +43,7 @@ def load_models(checkpoint=None, vocoder=None, cfg=None, hcfg=None,
     if vocoder_family != "hifigan":
         raise NotImplementedError(
             f"--vocoder-family {vocoder_family}: the Vocos vocoder is not ported "
-            f"yet (ROADMAP.md Queue 1, item 10)")
+            f"yet (ROADMAP.md Queue 1, \"Vocos family\")")
     hcfg = hcfg or HiFiGANConfig()
     if checkpoint:
         print(f"Loading Matcha checkpoint from {checkpoint} ...")
@@ -112,7 +112,8 @@ def main(argv=None):
     if args.long_form or "|" in args.text:
         raise NotImplementedError(
             "long-form synthesis (--long-form, or '|' in the text) needs "
-            "Synthesizer.synthesize_long, not ported yet (ROADMAP.md Queue 1, item 13)")
+            "Synthesizer.synthesize_long, not ported yet (ROADMAP.md Queue 1, "
+            "\"Streaming and long form\")")
     model, cfg, vocoder, hcfg = load_models(args.checkpoint, args.vocoder,
                                             vocoder_family=args.vocoder_family,
                                             device=args.device)

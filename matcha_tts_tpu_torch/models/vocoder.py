@@ -12,7 +12,7 @@ def _no_vocos(cfg) -> None:
     if isinstance(cfg, VocosConfig):
         raise NotImplementedError(
             "VocosConfig: the Vocos vocoder is not ported yet "
-            "(ROADMAP.md Queue 1, item 10)")
+            "(ROADMAP.md Queue 1, \"Vocos family\")")
 
 
 def init_vocoder(cfg, *, seed: int = 1, device="cuda") -> HiFiGANGenerator:

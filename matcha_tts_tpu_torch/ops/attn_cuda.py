@@ -276,7 +276,7 @@ class _Attention(torch.autograd.Function):
         if not ctx.flash:
             raise NotImplementedError(
                 "attention_impl='vmem' has no gradient: the JAX package's whole-row "
-                "kernel has none either (ROADMAP.md Queue 2, item 7)")
+                "kernel has none either (ROADMAP.md Queue 2, \"The bf16 vmem forward\")")
         q, k, v, key_mask, out, m, l = ctx.saved_tensors
         # the incoming gradient may be a strided view; the kernels take dense rows
         dq, dk, dv = _launch_bwd(q, k, v, key_mask, out, m, l, grad.contiguous(),

@@ -16,6 +16,13 @@ fp32 masters); inputs, weights and biases are rounded to the working dtype,
 products are summed in fp32, the norm and Mish run in fp32 and the output is
 cast once.  The plain versions round at the same points.
 
+On the card, bf16 at the U-Net's widths runs the tiled kernels: a tile of
+frames across all output channels, the weights through a `cp.async` ring,
+GroupNorm statistics merged from per-tile partials; a ResnetBlock1D is three
+launches (h1 never reaches device memory), a Block1D two.  fp32, and shapes
+the tiled kernels do not take (`tile_frames` is 0), run the per-group
+kernel.  The source note of `csrc/unet_blocks.cu` gives the design.
+
 Gradients: each kernel sits in a `torch.autograd.Function` whose forward
 saves only its inputs and whose backward recomputes the plain composition
 under `torch.enable_grad()` and returns its `torch.autograd.grad`: the
@@ -38,10 +45,10 @@ from matcha_tts_tpu_torch.ops import cuda_build
 
 GROUPS = 8
 EPS = 1e-5
-MODE_BLOCK, MODE_RES1, MODE_RES2 = 0, 1, 2
 
-# Kernel launches, counted where each wrapper launches its kernel (one
-# `resnet1d` call is two grid launches of the same kernel, counted once).
+# Kernel launches, counted where each wrapper launches its kernels (one
+# count per call: a `resnet1d` call is three grid launches on the tiled path,
+# two on the per-group one; a `block1d` call two or one).
 LAUNCHES = {"block1d": 0, "resnet1d": 0}
 
 
@@ -102,12 +109,23 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("unet_blocks")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.unet_block.argtypes = [ptr] * 12 + [i32] * 6 + [ctypes.c_float, i32, i32, ptr]
-        lib.unet_block.restype = i32
+        lib.unet_tile_frames.argtypes = [i32] * 4
+        lib.unet_tile_frames.restype = i32
+        lib.unet_block1d.argtypes = [ptr] * 9 + [i32] * 5 + [ctypes.c_float, i32, ptr]
+        lib.unet_block1d.restype = i32
+        lib.unet_resnet1d.argtypes = [ptr] * 20 + [i32] * 5 + [ctypes.c_float, i32, ptr]
+        lib.unet_resnet1d.restype = i32
         lib.unet_block_error_string.argtypes = [i32]
         lib.unet_block_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def tile_frames(c_in: int, c_out: int, dtype: torch.dtype) -> int:
+    """Frames per tile of the tiled kernels for this shape, or 0 where the
+    per-group kernel runs it (fp32, and bf16 shapes the tiled kernels do not
+    take; see the source note of `csrc/unet_blocks.cu`)."""
+    return _lib().unet_tile_frames(c_in, c_out, GROUPS, int(dtype == torch.bfloat16))
 
 
 def _check_operands(x: torch.Tensor, mask: torch.Tensor, weights: Sequence[torch.Tensor]):
@@ -125,6 +143,13 @@ def _check_operands(x: torch.Tensor, mask: torch.Tensor, weights: Sequence[torch
         raise ValueError(f"C_out={c_out} must split into {GROUPS} groups of at most 256")
 
 
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous, on a 16-byte aligned base (the tiled kernels copy its
+    rows in 16-byte pieces): a view at an odd offset is copied."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def _conv_weight(w: torch.Tensor, dtype) -> torch.Tensor:
     """(C_out, C_in, k) -> the kernel's (k, C_out, C_in) in `dtype`."""
     return w.detach().permute(2, 0, 1).to(dtype).contiguous()
@@ -134,59 +159,83 @@ def _vec(v: torch.Tensor, dtype) -> torch.Tensor:
     return v.detach().to(dtype).contiguous()
 
 
-def _launch(x, maskf, w, b, g, be, out, y, mode, temb=None, xres=None, wr=None, br=None):
-    lib = _lib()
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    bsz, t_len, c_in = x.shape
-    c_out = out.shape[-1]
-    err = lib.unet_block(
-        ptr(x), ptr(maskf), ptr(w), ptr(b), ptr(g), ptr(be), ptr(temb), ptr(xres),
-        ptr(wr), ptr(br), ptr(y), ptr(out), bsz, t_len, c_in, c_out,
-        0 if xres is None else xres.shape[-1], GROUPS, EPS, mode,
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
+def _raise_on(err: int, lib) -> None:
     if err != 0:
         raise RuntimeError(f"unet_block kernel launch failed: "
                            f"{lib.unet_block_error_string(err).decode()}")
 
 
+def _fp32_rows(x: torch.Tensor, c_out: int) -> torch.Tensor:
+    return torch.empty(x.shape[:2] + (c_out,), dtype=torch.float32, device=x.device)
+
+
+def _partials(x: torch.Tensor, tile: int) -> torch.Tensor:
+    """The tiled kernels' (mean, M2) of each (item, tile, group), fp32."""
+    b, t = x.shape[:2]
+    return torch.empty((b, -(-t // tile), GROUPS, 2), dtype=torch.float32, device=x.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def block1d_kernel(x, mask, weight, bias, gamma, beta) -> torch.Tensor:
-    """The Block1D kernel on CUDA tensors; no autograd."""
+    """The Block1D kernels on CUDA tensors; no autograd."""
     _check_operands(x, mask, (weight, bias, gamma, beta))
     dt = x.dtype
-    x = x.contiguous()
+    x = _dense(x)
+    bsz, t_len, c_in = x.shape
     c_out = weight.shape[0]
-    if tuple(weight.shape) != (c_out, x.shape[-1], 3):
-        raise ValueError(f"weight {tuple(weight.shape)} must be (C_out, {x.shape[-1]}, 3)")
-    out = torch.empty(x.shape[:2] + (c_out,), dtype=dt, device=x.device)
-    y = torch.empty(out.shape, dtype=torch.float32, device=x.device)
-    _launch(x, mask.float().contiguous(), _conv_weight(weight, dt), _vec(bias, dt),
-            _vec(gamma, torch.float32), _vec(beta, torch.float32), out, y, MODE_BLOCK)
+    if tuple(weight.shape) != (c_out, c_in, 3):
+        raise ValueError(f"weight {tuple(weight.shape)} must be (C_out, {c_in}, 3)")
+    lib = _lib()
+    tile = tile_frames(c_in, c_out, dt)
+    out = torch.empty((bsz, t_len, c_out), dtype=dt, device=x.device)
+    y = _fp32_rows(x, c_out)
+    part = _partials(x, tile) if tile else None
+    # every operand is held here until the launch is enqueued
+    ops = (x, mask.float().contiguous(), _conv_weight(weight, dt), _vec(bias, dt),
+           _vec(gamma, torch.float32), _vec(beta, torch.float32), y, part, out)
+    err = lib.unet_block1d(*map(_ptr, ops), bsz, t_len, c_in, c_out, GROUPS, EPS,
+                           int(dt == torch.bfloat16),
+                           torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib)
     LAUNCHES["block1d"] += 1
     return out
 
 
 def resnet1d_kernel(x, mask, temb_row, w1, b1, g1, be1, w2, b2, g2, be2, wr, br) -> torch.Tensor:
-    """The ResnetBlock1D kernel on CUDA tensors; no autograd."""
+    """The ResnetBlock1D kernels on CUDA tensors; no autograd."""
     _check_operands(x, mask, (w1, b1, g1, be1, w2, b2, g2, be2, wr, br, temb_row))
     dt = x.dtype
-    x = x.contiguous()
-    c_in, c_out = x.shape[-1], w1.shape[0]
+    x = _dense(x)
+    bsz, t_len, c_in = x.shape
+    c_out = w1.shape[0]
     for name, w, shape in (("w1", w1, (c_out, c_in, 3)), ("w2", w2, (c_out, c_out, 3)),
                            ("wr", wr, (c_out, c_in, 1))):
         if tuple(w.shape) != shape:
             raise ValueError(f"{name} {tuple(w.shape)} must be {shape}")
-    if tuple(temb_row.shape) != (x.shape[0], c_out):
-        raise ValueError(f"temb_row {tuple(temb_row.shape)} must be ({x.shape[0]}, {c_out})")
-    maskf = mask.float().contiguous()
-    shape = x.shape[:2] + (c_out,)
-    y = torch.empty(shape, dtype=torch.float32, device=x.device)
-    h1 = torch.empty(shape, dtype=dt, device=x.device)
-    out = torch.empty(shape, dtype=dt, device=x.device)
+    if tuple(temb_row.shape) != (bsz, c_out):
+        raise ValueError(f"temb_row {tuple(temb_row.shape)} must be ({bsz}, {c_out})")
+    lib = _lib()
+    tile = tile_frames(c_in, c_out, dt)
+    out = torch.empty((bsz, t_len, c_out), dtype=dt, device=x.device)
+    y1 = _fp32_rows(x, c_out)
+    if tile:  # y2, res and the partials of both blocks; no h1
+        y2, res, part1, part2, h1 = (_fp32_rows(x, c_out), _fp32_rows(x, c_out),
+                                     _partials(x, tile), _partials(x, tile), None)
+    else:
+        y2 = res = part1 = part2 = None
+        h1 = torch.empty_like(out)
     f32 = torch.float32
-    _launch(x, maskf, _conv_weight(w1, dt), _vec(b1, dt), _vec(g1, f32), _vec(be1, f32),
-            h1, y, MODE_RES1, temb=_vec(temb_row, dt))
-    _launch(h1, maskf, _conv_weight(w2, dt), _vec(b2, dt), _vec(g2, f32), _vec(be2, f32),
-            out, y, MODE_RES2, xres=x, wr=_vec(wr[..., 0], dt), br=_vec(br, dt))
+    ops = (x, mask.float().contiguous(), _vec(temb_row, dt),
+           _conv_weight(w1, dt), _vec(b1, dt), _vec(g1, f32), _vec(be1, f32),
+           _conv_weight(w2, dt), _vec(b2, dt), _vec(g2, f32), _vec(be2, f32),
+           _vec(wr[..., 0], dt), _vec(br, dt), y1, y2, res, part1, part2, h1, out)
+    err = lib.unet_resnet1d(*map(_ptr, ops), bsz, t_len, c_in, c_out, GROUPS, EPS,
+                            int(dt == torch.bfloat16),
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib)
     LAUNCHES["resnet1d"] += 1
     return out
 

@@ -26,7 +26,7 @@ Randomness: step `s` draws from a `torch.Generator` seeded with
 `row_seed(seed, s)`: z0 ~ N(0, I) * temperature, then t (reflow) or the
 grid index (consistency).  `distill_step` takes z0, t and idx as optional
 arguments, so a test can inject the values that the JAX package draws from
-its key.  One device; no data parallelism (ROADMAP Queue 1, item 15).
+its key.  One device; no data parallelism (ROADMAP Queue 1, "Parallelism").
 """
 
 from __future__ import annotations

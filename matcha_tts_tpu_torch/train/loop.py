@@ -5,7 +5,7 @@ log-mel features on the device, runs `train_step`, logs, evaluates and keeps
 checkpoints (the `keep` best by validation loss plus the latest; a run
 resumes from the latest).  A SIGTERM or SIGINT checkpoints after the current
 step and returns.  One device; data parallelism is not ported (ROADMAP
-Queue 1, item 15).
+Queue 1, "Parallelism").
 """
 
 from __future__ import annotations

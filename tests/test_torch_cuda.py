@@ -1,7 +1,9 @@
 """The port's kernels against their plain versions on a CUDA card (marker
 `gpu`; they skip where there is no card): the MRF levels (with T around
 the tile, batch 3 and a misaligned bf16 weight base), MAS (identical
-paths), the fused Block1D / ResnetBlock1D (forward and gradients), the
+paths), the fused Block1D / ResnetBlock1D (forward and gradients; the
+tiled bf16 kernels at T over several tiles, ragged C_in, batch 1, two
+channel slices, bitwise repeatable), the
 attention kernels (with ragged T, items of length 0, flash's row
 statistics and a misaligned bf16 or fp32 base) and the flash backward (dq, dk/dv,
 with a misaligned fp32 base: fp32 max |diff| <=
@@ -207,8 +209,17 @@ def _rel(a, b):
     return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
 
 
+# The tiled kernels (bf16): T over several 128-frame tiles with a ragged last
+# one, C_in not a multiple of the 32-channel chunk (24, 40), batch 1, C_out
+# 64 / 128 / 256 and 512 (two 256-channel slices); (2, 50, 24, 16) runs the
+# per-group kernel.
+BLOCK_EDGE_SHAPES = [(3, 1000, 256, 256), (2, 333, 512, 256), (2, 100, 24, 64),
+                     (2, 130, 40, 128), (1, 300, 160, 256), (2, 150, 256, 512)]
+
+
 @pytest.mark.parametrize("b,t,c_in,c_out", [(2, 77, 160, 256), (3, 200, 64, 64),
-                                            (2, 33, 512, 256), (2, 50, 24, 16)])
+                                            (2, 33, 512, 256), (2, 50, 24, 16)]
+                         + BLOCK_EDGE_SHAPES)
 def test_block1d_kernel_matches_plain(cuda, b, t, c_in, c_out):
     from matcha_tts_tpu_torch.ops import unet_cuda as U
 
@@ -228,7 +239,7 @@ def test_block1d_kernel_matches_plain(cuda, b, t, c_in, c_out):
 
 
 @pytest.mark.parametrize("b,t,c_in,c_out", [(2, 77, 160, 256), (2, 45, 512, 256),
-                                            (3, 130, 64, 64)])
+                                            (3, 130, 64, 64)] + BLOCK_EDGE_SHAPES)
 def test_resnet1d_kernel_matches_plain(cuda, b, t, c_in, c_out):
     from matcha_tts_tpu_torch.ops import unet_cuda as U
 
@@ -248,6 +259,28 @@ def test_resnet1d_kernel_matches_plain(cuda, b, t, c_in, c_out):
     ref16 = U.resnet1d_plain(x16.float(), mask, temb.bfloat16().float(),
                              *(a.bfloat16().float() for a in args))
     assert _rel(got16.float(), ref16) <= 1e-2
+
+
+def test_tiled_resnet1d_is_bitwise_repeatable(cuda):
+    """The GroupNorm partials are merged in a fixed order (no atomics)."""
+    from matcha_tts_tpu_torch.ops import unet_cuda as U
+
+    b, t, c_in, c_out = 2, 333, 512, 256
+    assert U.tile_frames(c_in, c_out, torch.bfloat16) > 0
+    p = _block_params(c_in, c_out, cuda, 9)
+    x, mask = _x_mask(b, t, c_in, cuda, 10)
+    temb = torch.randn(b, c_out, device=cuda).bfloat16()
+    names = ("w1", "b1", "g1", "be1", "w2", "b2", "g2", "be2", "wr", "br")
+    runs = [U.resnet1d(x.bfloat16(), mask, temb, *(p[k] for k in names)) for _ in range(2)]
+    blocks = [U.block1d(x.bfloat16(), mask, p["w1"], p["b1"], p["g1"], p["be1"])
+              for _ in range(2)]
+    # a view at an odd offset: the wrapper copies it to an aligned base
+    xv = torch.empty(b * t * c_in + 1, dtype=torch.bfloat16, device=cuda)[1:].view(b, t, c_in)
+    xv.copy_(x)
+    runs.append(U.resnet1d(xv, mask, temb, *(p[k] for k in names)))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    assert torch.equal(blocks[0], blocks[1])
 
 
 def test_fused_block_gradients_match_plain(cuda):

@@ -1,6 +1,7 @@
 """The fused Block1D / ResnetBlock1D (`ops/unet_cuda.py`) against the JAX
 package's Pallas kernels `block1d_fused` / `resnet1d_fused` (interpret mode
-on the CPU), forward and gradients, in fp32.
+on the CPU), forward and gradients, in fp32; and the gradients with bf16
+operands.
 
 On the CPU the port runs the kernels' plain versions, so this holds the
 function the CUDA kernels are held to on the card (tests/test_torch_cuda.py,
@@ -88,12 +89,25 @@ def test_resnet1d_matches_jax_kernel(b, t, c_in, c_out):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=FWD_ATOL)
 
 
-def _grad_pairs(kind):
-    b, t, c_in, c_out = 2, 16, 24, 16
+def _grad_pairs(kind, shape=(2, 16, 24, 16), bf16=False, jax_in_bf16=True):
+    """(name, port's gradient, JAX custom VJP's) for x and every weight.
+    With bf16, x and the gradient of the output are bf16 (the port keeps fp32
+    masters and rounds them inside) and JAX gets every operand rounded to
+    bf16: as bf16 arrays, or with jax_in_bf16=False as fp32 arrays (so that
+    its VJP recomputes its reference in fp32)."""
+    b, t, c_in, c_out = shape
     x, mask, p = _inputs(b, t, c_in, c_out, 7)
     gout = np.random.default_rng(8).standard_normal((b, t, c_out)).astype(np.float32)
     names = BLOCK_NAMES if kind == "block" else RES_NAMES
-    jmask = jnp.asarray(mask)
+
+    def jarr(a):
+        if not bf16:
+            return jnp.asarray(a)
+        r = jnp.asarray(a, jnp.bfloat16)
+        return r if jax_in_bf16 else r.astype(jnp.float32)
+
+    jmask = jarr(mask)
+    jgout = jarr(gout)
 
     def jloss(xx, ws):
         pp = dict(p, **{k: v for k, v in zip(names, ws)})
@@ -101,19 +115,22 @@ def _grad_pairs(kind):
             out = _jax_block(xx, jmask, *ws, vjp=True)
         else:
             out = _jax_resnet(xx, jmask, pp["temb"], pp, vjp=True)
-        return jnp.sum(out * gout)
+        return jnp.sum((out * jgout).astype(jnp.float32))
 
-    jg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), [jnp.asarray(p[k]) for k in names])
+    jg = jax.grad(jloss, argnums=(0, 1))(jarr(x), [jarr(p[k]) for k in names])
     tw = _torch_weights(p)
-    leaves = [torch.from_numpy(x).requires_grad_()] + [tw[k].requires_grad_() for k in names]
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    leaves = ([torch.from_numpy(x).to(tdt).requires_grad_()]
+              + [tw[k].requires_grad_() for k in names])
     fn = unet_cuda.block1d if kind == "block" else unet_cuda.resnet1d
     out = fn(leaves[0], torch.from_numpy(mask), *leaves[1:])
-    tg = torch.autograd.grad(out, leaves, torch.from_numpy(gout))
+    tg = torch.autograd.grad(out, leaves, torch.from_numpy(gout).to(tdt))
     to_jax = {"w1": lambda a: a.transpose(2, 1, 0), "w2": lambda a: a.transpose(2, 1, 0),
               "wr": lambda a: a[..., 0].T}
-    pairs = [("x", tg[0].numpy(), np.asarray(jg[0]))]
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    pairs = [("x", tg[0].float().numpy(), f32(jg[0]))]
     for k, g_t, g_j in zip(names, tg[1:], jg[1]):
-        pairs.append((k, to_jax.get(k, lambda a: a)(g_t.numpy()), np.asarray(g_j)))
+        pairs.append((k, to_jax.get(k, lambda a: a)(g_t.float().numpy()), f32(g_j)))
     return pairs
 
 
@@ -121,6 +138,28 @@ def _grad_pairs(kind):
 def test_gradients_match_jax_custom_vjp(kind):
     for name, got, want in _grad_pairs(kind):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def _rel(a, b):
+    return np.linalg.norm((a - b).astype(np.float64)) / np.linalg.norm(b.astype(np.float64))
+
+
+@pytest.mark.parametrize("kind", ["block", "resnet"])
+def test_bf16_gradients_match_jax_custom_vjp(kind):
+    """bf16 operands.  The port's backward recomputes the plain composition
+    in fp32 on the rounded operands: within relative L2 1e-2 per gradient of
+    the JAX custom VJP on the same rounded operands evaluated in fp32
+    (4.8e-4 - 4.5e-3 at this shape: the rounding of the port's bf16 x
+    gradient and weight gradients, and the order of the sums).  JAX's VJP on
+    bf16 arrays recomputes its reference in bf16, 1.7e-3 - 2.6e-2 away from
+    that evaluation (most on the bias gradients, which GroupNorm's mean
+    subtraction nearly cancels): the port is never further from it than
+    JAX's own bf16 VJP."""
+    shape = (2, 32, 64, 64)
+    ref = _grad_pairs(kind, shape=shape, bf16=True, jax_in_bf16=False)
+    for (name, got, jax16), (_, _, want) in zip(_grad_pairs(kind, shape=shape, bf16=True), ref):
+        assert _rel(got, want) <= 1e-2, (name, _rel(got, want))
+        assert _rel(got, want) <= _rel(jax16, want), (name, _rel(got, want), _rel(jax16, want))
 
 
 def test_wrappers_refuse_non_cuda_devices():
