@@ -74,7 +74,9 @@ Phases, each of which raises on failure (no phase catches and carries on):
    TF32 products) and `scaled_dot_product_attention` with the same
    additive mask (see `check_attention`);
 12. the fp32 level kernel of the tap mode at (1, 65536, 64) and (1, 131072,
-   32) against its plain version, max |diff| <= 1e-4, timed;
+   32) against its plain version, max |diff| <= 1e-4, timed beside the
+   plain version, the fp32 FMA bound and the tensor-core bound of its three
+   TF32 products (`tc_bound_ms`);
 13. serving at full width in the four forced modes (int8, tap, vmem, flash),
    three sentences each, launch counts asserted per call and each held to
    the default configuration on the same weights and noise (see
@@ -143,12 +145,13 @@ SENTENCES = [
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
-PEAK_TF32 = 495e12  # dense TF32 tensor cores; the fp32 attention runs three TF32 products
+PEAK_TF32 = 495e12  # dense TF32 tensor cores; fp32 attention and MRF run three TF32 products
 PEAK_BYTES = 3.35e12
 
 T_Y = 512  # the frame bucket whose level shapes the kernels are checked at
 MRF_DESIGN = ("bf16: mma.sync, 16 warps, weights once per block through a 2-stage "
-              "cp.async ring in shared memory")
+              "cp.async ring in shared memory; fp32 at C <= 64 the same with three TF32 "
+              "products, at C = 128 FMAs")
 BLOCKS_DESIGN = ("bf16: a 128-frame tile across all output channels, mma.sync, weights "
                  "through a cp.async ring, GroupNorm partials merged in tile order, "
                  "h1 built in conv 2's staging; fp32: per-group FMA kernel")
@@ -306,6 +309,8 @@ def check_kernels(t_y: int, reps: int) -> dict:
                    fp32_bound_ms=bound32,
                    bound_by="operations" if ops / PEAK_BF16 >= nbytes / PEAK_BYTES
                    else "bytes")
+        if c <= 64:  # fp32 on the tensor cores: three TF32 products
+            row["fp32_tc_bound_ms"] = max(3 * ops32 / PEAK_TF32, nbytes32 / PEAK_BYTES) * 1e3
         print(f"[kernels] {lvl} {json.dumps(row)}", flush=True)
         if not err32 <= FP32_ATOL:
             raise AssertionError(f"{lvl}: fp32 kernel max |diff| {err32} > {FP32_ATOL}")
@@ -1256,7 +1261,9 @@ def check_attention(reps: int) -> dict:
 def check_tap(reps: int) -> dict:
     """Phase 12: the fp32 level kernel under `mrf_tap` at the tap levels'
     shapes for the 512-frame bucket, against its plain version (max |diff| <=
-    1e-4), timed beside it and the bound (fp32 FMAs at 67 TFLOP/s)."""
+    1e-4), timed beside it and the bound (fp32 FMAs at 67 TFLOP/s), with
+    `tc_bound_ms`: the same operations as three TF32 tensor-core products at
+    495 TFLOP/s, as the kernel computes them."""
     import torch
 
     from matcha_tts_tpu_torch.ops import mrf_cuda
@@ -1273,7 +1280,8 @@ def check_tap(reps: int) -> dict:
                    ms=cuda_ms(lambda: mrf_cuda.mrf_tap(a["x"], a["w"], a["b"]), reps),
                    plain_ms=cuda_ms(lambda: mrf_cuda.mrf_plain(a["x"], a["w"], a["b"]), 1),
                    bound_ms=max(ops / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3,
-                   bound_by="operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES else "bytes")
+                   bound_by="operations" if ops / PEAK_FP32 >= nbytes / PEAK_BYTES else "bytes",
+                   tc_bound_ms=max(3 * ops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3)
         print(f"[tap] {json.dumps(row)}", flush=True)
         if not err <= TAP_ATOL:
             raise AssertionError(f"tap C={c} T={t}: max |diff| {err} > {TAP_ATOL}")
@@ -1874,17 +1882,20 @@ def main() -> int:
             "bound_by": rows[0]["bound_by"], "library_ms": None,
             "cudnn_convs_ms": sum(r["cudnn_convs_ms"] * r["per_pass"] for r in rows),
             "design": BLOCKS_DESIGN})
-    int8_up = [int8_table["level2"], int8_table["level3"]]
-    for kname, rows, line in (("mrf_int8", [int8_table["level1"]], "mrf_packed.py:525"),
-                              ("mrf_up_int8", int8_up, "mrf_packed.py:648")):
+    # the int8 rows: the levels the int8 serving path launches quantised
+    # (level 1, and level 2 as `mrf_up_int8`; level 3 stays exact there);
+    # the fp32 level 3 of the int8 kernel in fields of its own
+    for kname, lvl, line in (("mrf_int8", "level1", "mrf_packed.py:525"),
+                             ("mrf_up_int8", "level2", "mrf_packed.py:648")):
+        row = int8_table[lvl]
         kernels.append({
             "name": kname, "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/mrf.cu",
             "replaces": f"matcha_tts_tpu/ops/pallas/{line}",
             "launches": forced["launches"]["int8"][kname],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": rows[0]["bound_by"],
-            "library_ms": None})
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None})
+    kernels[-1].update({f"fp32_level3_{k}": int8_table["level3"][k]
+                        for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
     kernels.append({
         "name": "mrf_tap", "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/mrf.cu",
         "replaces": "matcha_tts_tpu/ops/pallas/mrf.py:170",
@@ -1892,7 +1903,8 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err"] for r in tap_rows),
         "ms": sum(r["ms"] for r in tap_rows), "plain_ms": sum(r["plain_ms"] for r in tap_rows),
         "bound_ms": sum(r["bound_ms"] for r in tap_rows), "bound_by": tap_rows[0]["bound_by"],
-        "library_ms": None})
+        "tc_bound_ms": sum(r["tc_bound_ms"] for r in tap_rows),
+        "library_ms": None, "design": "3xTF32 mma.sync on the cp.async weight ring, PR 13"})
     # attention: one estimator pass at the 512-frame bucket, batch 1 (2 blocks
     # at T = 512, 4 at T = 256), and one (c) training step's flash forwards (2
     # at (64, 1024), 4 at (64, 512), bf16; vmem at the same shapes beside it)
@@ -1968,7 +1980,8 @@ def main() -> int:
         "block1d": f"({BLOCK_B}, {BLOCK_T}, 256 -> 256) bf16",
         "resnet1d": f"one estimator pass at B={BLOCK_B}, T={BLOCK_T}, bf16",
         "mrf_int8": f"(1, {64 * T_Y}, 128) bf16",
-        "mrf_up_int8": f"128 -> 64 at {128 * T_Y} bf16; 64 -> 32 + tail at {256 * T_Y} fp32",
+        "mrf_up_int8": f"128 -> 64 at {128 * T_Y} bf16 (level 2); fp32_level3_*: 64 -> 32 + "
+                       f"tail at {256 * T_Y} fp32",
         "mrf_tap": f"(1, {128 * T_Y}, 64) and (1, {256 * T_Y}, 32) fp32",
         "vmem_mha": f"2 x (1, {T_Y}, 2 x 64) + 4 x (1, {T_Y // 2}, 2 x 64) bf16; train_step: "
                     f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16; "

@@ -16,9 +16,10 @@
 // (12, 36, 60).  The block keeps the branch's residual state (fp32), two
 // conv-input buffers (in the working type) and the running branch sum (fp32)
 // on chip, so none of the level's intermediates reach device memory.  The
-// branch sum lives in shared memory in fp32 and in registers in bf16 (tile *
-// C / 512 values a thread, one more with the tail's 2 * 3 rows), which caps
-// the tile at 8192 / C frames (64, 128, 256 at C = 128, 64, 32).  Each conv
+// branch sum lives in registers on the tensor-core path (tile * C / 512
+// values a thread, one more with the tail's 2 * 3 rows), which caps the tile
+// at 8192 / C frames (64, 128, 256 at C = 128, 64, 32), and in shared memory
+// on the fp32 CUDA-core path (C = 128).  Each conv
 // computes only the rows that later convs still need: the valid window
 // shrinks by the conv's reach at every step.  Every conv input is
 // multiplied by the in-sequence mask before the conv, so frames outside
@@ -60,16 +61,40 @@
 // 63,488 + 2 x 35,712 + 65,536 = 200,448 at C = 64, tile 128 with the
 // upsample; 48,896 + 2 x 30,560 + 45,056 = 155,072 at C = 32, tile 256 with
 // upsample and tail.  Level 1 has no room for a deeper ring.
-// fp32 runs FMAs on the CUDA cores (8 warps a block, a register tile of 8
-// rows x 4 channels per thread, weights read through the read-only path).
-// The transpose conv of the up levels runs the same way, one product per
-// output parity; conv_post (7 C MACs per frame) stays on the CUDA cores.
+//
+// fp32 at C in {32, 64} takes the same structure (16 warps, the ring, the
+// branch sum in registers) with TF32 products: mma.sync m16n8k8, each
+// product three terms a_lo b_hi + a_hi b_lo + a_hi b_hi (hi = rna(x), lo =
+// rna(x - hi); a_lo b_lo dropped), the JAX kernel's HIGHEST-precision dots
+// on this card.  Each A fragment (ldmatrix .b16 from the fp32 rows: an 8 x 8
+// b16 matrix is 8 rows x 4 fp32, the TF32 fragment layout) is split once and
+// used for the warp's 4 n-tiles, each B pair once at its load from the ring
+// and used for the warp's m-tiles.  The tensor cores truncate their fp32
+// sums, so each chain starts at zero for one slab (KC = 64 or 32 input
+// channels of one tap: 24 or 12 mma) and is added into the conv's running
+// fp32 sum with a round-to-nearest add.  fp32 conv-input rows are C + 4
+// floats (16-byte rows for ldmatrix, 8-row reads conflict-free); slabs are
+// [C][KC] fp32 with the same XOR swizzle of 16-byte vectors.  C = 64: KC =
+// 64, U = 1 (a chunk is one tap, 16 KB stages, 126 chunks); C = 32: KC = 32,
+// U = 8 (a conv or 8 taps of one, 32 KB stages, 24 chunks).  Shared memory:
+// 63,488 + 2 x 67,456 + 32,768 = 231,168 bytes at C = 64, tile 128 (with
+// the upsample too); 48,896 + 2 x 55,008 + 65,536 = 224,448 at C = 32, tile
+// 256 with upsample and tail.  Bound: three TF32 products at 495 TFLOP/s,
+// against 67 TFLOP/s of fp32 FMAs.
+// On the CUDA cores stay: the fp32 transpose conv of the up levels (one
+// product per output parity, weights through the read-only path; about 3%
+// of a level's MACs; its 2C-channel input rows keep a pad of 2 floats, where
+// neighbouring rows' float2 reads are conflict-free), conv_post (7 C MACs
+// per frame), and fp32 at C = 128 (8 warps, a register tile of 8 rows x 4
+// channels per thread, weights through the read-only path, the branch sum
+// in shared memory): there shared memory forces a tile of 16 frames and
+// leaves no room for a ring.
 // The halo is recomputed per tile; PERF.md writes down what that and the
 // tile size cost.
 //
 // The fp32 level entry also replaces matcha_tts_tpu/ops/pallas/mrf.py::
 // mrf_fused (the tap-unrolled fp32 level of mrf_kernel="tap"): the same
-// function at C in {32, 64}.
+// function at C in {32, 64}, on the tensor cores as above.
 //
 // int8 mode (mrf_level_int8; replaces the `ws` mode of both TPU kernels,
 // pack_packed_weights_int8 and quantize_act in mrf_packed.py).  The chain's
@@ -106,8 +131,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // threads of the fp32 level kernel
-constexpr int kThreadsBf16 = 512;  // and of the bf16 one
+constexpr int kThreads = 256;     // threads of the fp32 CUDA-core level kernel (C = 128)
+constexpr int kThreadsMma = 512;  // and of the tensor-core ones (bf16; fp32 at C <= 64)
 constexpr int kRows = 8;        // output rows per thread per pass
 constexpr int kMaxReach = 60;   // branch k = 11: 5 * (1 + 3 + 5) + 5 * 3
 constexpr float kSlope = 0.1f;  // LeakyReLU inside the resblocks
@@ -119,14 +144,21 @@ constexpr int kTileElems = 8192;  // tile * C at most: the branch sum lives in r
 // The largest tile (frames) the level kernel takes at C channels.
 __host__ __device__ constexpr int max_tile(int c) { return kTileElems / c; }
 
-// The bf16 weight ring at C channels: slabs of KC input channels of one tap
-// for all C outputs, up to U slabs a chunk, kRingStages stages of one chunk.
+// Whether the level runs on the tensor cores at C channels of `elem` bytes:
+// bf16 always, fp32 at C <= 64.
+__host__ __device__ constexpr bool on_tc(int c, int elem) { return elem == 2 || c <= 64; }
+
+// The weight ring at C channels of `elem` bytes: slabs of KC input channels
+// of one tap for all C outputs, up to U slabs a chunk, kRingStages stages of
+// one chunk.
 constexpr int kRingStages = 2;
 __host__ __device__ constexpr int ring_kc(int c) { return c >= 64 ? 64 : 32; }
-__host__ __device__ constexpr int ring_slabs(int c) { return c >= 128 ? 1 : c >= 64 ? 4 : 11; }
+__host__ __device__ constexpr int ring_slabs(int c, int elem) {
+  return elem == 2 ? (c >= 128 ? 1 : c >= 64 ? 4 : 11) : (c >= 64 ? 1 : 8);
+}
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
-__host__ __device__ constexpr int ring_bytes(int c) {
-  return kRingStages * ring_slabs(c) * c * ring_kc(c) * 2;
+__host__ __device__ constexpr int ring_bytes(int c, int elem) {
+  return kRingStages * ring_slabs(c, elem) * c * ring_kc(c) * elem;
 }
 
 typedef __nv_bfloat16 bf16;
@@ -179,24 +211,26 @@ __host__ __device__ inline int align16(int v) { return (v + 15) & ~15; }
 
 __host__ __device__ inline Layout layout(int c, bool up, bool post, int tile, int elem) {
   Layout l;
+  const bool tc = on_tc(c, elem);
   const int p = post ? kPostPad : 0;
   l.ext = tile + 2 * p + 2 * kMaxReach;
-  // conv-input row strides (elements), staggered across banks: bf16 rows
-  // are 16-byte aligned for ldmatrix (+8), fp32 rows +2
-  const int pad = elem == 2 ? 8 : 2;
-  l.ss = c + pad;
-  l.ss_in = 2 * c + pad;  // upsample input: 2C channels
+  // conv-input row strides (elements), staggered across banks: rows that
+  // ldmatrix reads are 16-byte aligned (bf16 +8, fp32 +4); the fp32 CUDA
+  // cores' rows, and the fp32 upsample input that they read, +2
+  l.ss = c + (elem == 2 ? 8 : tc ? 4 : 2);
+  l.ss_in = 2 * c + (elem == 2 ? 8 : 2);  // upsample input: 2C channels
   int a_elems = l.ext * l.ss;
   if (up) {
     const int n_in = l.ext / 2 + 4;
     if (n_in * l.ss_in > a_elems) a_elems = n_in * l.ss_in;
   }
   l.xb = 0;
-  l.acc = l.xb + align16(l.ext * c * 4);  // fp32's branch sum; bf16 keeps it in registers
-  l.act_a = l.acc + (elem == 4 ? align16((tile + 2 * p) * c * 4) : 0);
+  // the CUDA cores' branch sum; the tensor-core path keeps it in registers
+  l.acc = l.xb + align16(l.ext * c * 4);
+  l.act_a = l.acc + (tc ? 0 : align16((tile + 2 * p) * c * 4));
   l.act_b = l.act_a + align16(a_elems * elem);
   l.ring = l.act_b + align16(l.ext * l.ss * elem);
-  l.total = l.ring + (elem == 2 ? ring_bytes(c) : 0);  // the ring is bf16's alone
+  l.total = l.ring + (tc ? ring_bytes(c, elem) : 0);
   return l;
 }
 
@@ -296,17 +330,67 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The bf16 path's warp grid at C channels: WN warps across the channels (NT
-// 8-channel n-tiles each) and WM across the rows, each with MT 16-row
-// m-tiles: enough for every row of a conv at the largest tile in one pass.
+// The tensor-core TF32 pieces of the fp32 path (as in csrc/attention.cu).
+//
+// cvt.rna.tf32.f32 on the bits of a finite x: round the magnitude to 10
+// mantissa bits, ties away from zero.  The instruction itself compiles to a
+// NaN test and selects around this on sm_90a; the two integer steps give the
+// same bits for every finite x, in fewer instructions.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// The TF32 halves of an fp32 value: hi = rna(x), lo = rna(x - hi) (x - hi
+// is exact).  hi + lo keeps 21 or more of x's 24 bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c (16 x 8, fp32) += a (16 x 8, tf32, row-major) * b (8 x 8, tf32,
+// k-major).  Fragments (lane = 4 g + qd): a0 (g, qd), a1 (g + 8, qd), a2 (g,
+// qd + 4), a3 (g + 8, qd + 4); b0 (k = qd, n = g), b1 (k = qd + 4, n = g);
+// c0, c1 row g, c2, c3 row g + 8, columns 2 qd, 2 qd + 1.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in three TF32 products, a_lo b_hi + a_hi b_lo + a_hi b_hi, small
+// terms first (the order of CUTLASS's OpMultiplyAddFastF32); a_lo b_lo is
+// dropped.  Both operands come split: A once per m-tile and k-step, the B
+// pair once per n-tile and k-step.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh[0], bh[1]);
+  mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4], float a0, float a1,
+                                        float a2, float a3) {
+  split_tf32(a0, hi[0], lo[0]);
+  split_tf32(a1, hi[1], lo[1]);
+  split_tf32(a2, hi[2], lo[2]);
+  split_tf32(a3, hi[3], lo[3]);
+}
+
+// The tensor-core path's warp grid at C channels: WN warps across the
+// channels (NT 8-channel n-tiles each) and WM across the rows, each with MT
+// 16-row m-tiles: enough for every row of a conv at the largest tile in one
+// pass.
 template <int C>
 struct Grid {
   static constexpr int NT = 4;
   static constexpr int WN = C / (8 * NT);
-  static constexpr int WM = kThreadsBf16 / 32 / WN;
+  static constexpr int WM = kThreadsMma / 32 / WN;
   static constexpr int MT =
       (max_tile(C) + 2 * kPostPad + 2 * kMaxReach + 16 * WM - 1) / (16 * WM);
-  static_assert(WN >= 1 && WM >= 1 && WN * WM * 32 == kThreadsBf16, "warp grid");
+  static_assert(WN >= 1 && WM >= 1 && WN * WM * 32 == kThreadsMma, "warp grid");
 };
 
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
@@ -321,27 +405,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Byte offset of 16-byte vector v of row r in a [C][KC] bf16 slab: the
-// vectors are XOR-swizzled by row (KC = 64: 8 vectors, r & 7; KC = 32: 4
-// vectors, (r >> 1) & 3), so the 8 rows of an ldmatrix read hit 8 distinct
-// bank groups.
-template <int KC>
+// Byte offset of 16-byte vector v of row r in a [C][KC] slab of E-byte
+// elements: the vectors are XOR-swizzled by row (8 or more vectors a row:
+// r & 7; 4 vectors: (r >> 1) & 3), so the 8 rows of an ldmatrix read hit 8
+// distinct bank groups.
+template <int KC, int E>
 __device__ __forceinline__ unsigned ring_offset(int r, int v) {
-  const int swz = KC == 64 ? (r & 7) : ((r >> 1) & 3);
-  return r * KC * 2 + ((v ^ swz) << 4);
+  const int swz = KC * E >= 128 ? (r & 7) : ((r >> 1) & 3);
+  return r * KC * E + ((v ^ swz) << 4);
 }
 
-// The level's bf16 weights as one sequence of chunks through a ring of S
-// shared-memory stages.  A slab is KC input channels of one tap for all C
-// output channels; a chunk is up to U consecutive slabs of one segment: one
-// conv (k taps x C / KC slabs, tap-major) or one parity of the upsample (2
-// steps x 2C / KC slabs, step-major).  Order, per branch: with UP the
-// upsample's two parities, then the branch's 6 convs, as the products
-// consume them.  Every thread calls next() once per chunk, in that order.
-template <int C, bool UP>
+// The level's weights (T: bf16 or fp32) as one sequence of chunks through a
+// ring of S shared-memory stages.  A slab is KC input channels of one tap
+// for all C output channels; a chunk is up to U consecutive slabs of one
+// segment: one conv (k taps x C / KC slabs, tap-major) or one parity of the
+// upsample (2 steps x 2C / KC slabs, step-major).  Order, per branch: with
+// UP the upsample's two parities, then the branch's 6 convs, as the
+// products consume them.  Every thread calls next() once per chunk, in that
+// order.
+template <typename T, int C, bool UP>
 struct WeightRing {
-  static constexpr int KC = ring_kc(C), U = ring_slabs(C), S = kRingStages;
-  static constexpr int kSlab = C * KC * 2;  // bytes
+  static constexpr int E = sizeof(T);
+  static constexpr int KC = ring_kc(C), U = ring_slabs(C, E), S = kRingStages;
+  static constexpr int kSlab = C * KC * E;  // bytes
   static constexpr int kStage = U * kSlab;
   static constexpr int NB = C / KC;         // slabs per conv tap
   static constexpr int NB2 = 2 * C / KC;    // slabs per upsample tap (2C inputs)
@@ -352,8 +438,8 @@ struct WeightRing {
                 "weight ring");
 
   unsigned base;  // shared address of stage 0
-  const bf16* w;
-  const bf16* wup;
+  const T* w;
+  const T* wup;
   int n;  // the chunk next() hands out
 
   // starts the copy of chunk j into stage j % S (16-byte cp.async, L2 only)
@@ -362,7 +448,7 @@ struct WeightRing {
     // the chunk's segment: its slab s is input channels KC (s & lg) .. of tap
     // s >> lg (lg = 1 where a tap is two slabs), taps tap_stride apart from
     // src, rows ld apart
-    const bf16* src = w;
+    const T* src = w;
     int tap_stride = C * C, ld = C, lg = NB == 2, s0 = 0, n_slabs = NB;
     // one slab a chunk and no upsample: chunk j is slab j of w's 126 taps.
     // (The integer work here sits between the barrier and the products:
@@ -398,20 +484,22 @@ struct WeightRing {
         tap0 += 6 * k;
       }
     }
-    constexpr int kVecs = C * KC / 8;  // 16-byte vectors a slab
+    constexpr int VE = 16 / E;         // elements a 16-byte vector
+    constexpr int VR = KC / VE;        // vectors a row
+    constexpr int kVecs = C * VR;      // vectors a slab
 #pragma unroll
-    for (int it = 0; it < ceil_div(U * kVecs, kThreadsBf16); ++it) {
-      const int i = threadIdx.x + it * kThreadsBf16;
-      const int slab = i / kVecs, r = i % kVecs / (KC / 8), v = i % (KC / 8);
+    for (int it = 0; it < ceil_div(U * kVecs, kThreadsMma); ++it) {
+      const int i = threadIdx.x + it * kThreadsMma;
+      const int slab = i / kVecs, r = i % kVecs / VR, v = i % VR;
       const int sl = s0 + slab;
-      if ((U * kVecs % kThreadsBf16 == 0 || slab < U) && (U == 1 || sl < n_slabs))
-        cp_async16(dst + slab * kSlab + ring_offset<KC>(r, v),
-                   src + (size_t)(sl >> lg) * tap_stride + (sl & lg) * KC + (size_t)r * ld + v * 8);
+      if ((U * kVecs % kThreadsMma == 0 || slab < U) && (U == 1 || sl < n_slabs))
+        cp_async16(dst + slab * kSlab + ring_offset<KC, E>(r, v),
+                   src + (size_t)(sl >> lg) * tap_stride + (sl & lg) * KC + (size_t)r * ld + v * VE);
     }
   }
 
   // puts chunks 0 .. S - 2 in flight
-  __device__ __forceinline__ void start(unsigned smem, const bf16* w_, const bf16* wup_) {
+  __device__ __forceinline__ void start(unsigned smem, const T* w_, const T* wup_) {
     base = smem;
     w = w_;
     wup = wup_;
@@ -435,13 +523,13 @@ struct WeightRing {
   }
 };
 
-// acc[m] += (m-tile m of this warp) x (one weight slab) for the warp's n_live
-// live m-tiles: a_row[m] + a_off is this lane's A address at the slab's
-// first input channel, slab the slab's shared address.
+// acc[m] += (m-tile m of this warp) x (one bf16 weight slab) for the warp's
+// n_live live m-tiles: a_row[m] + a_off is this lane's A address at the
+// slab's first input channel, slab the slab's shared address.
 template <int C>
-__device__ __forceinline__ void mma_slab(float (&acc)[Grid<C>::MT][Grid<C>::NT][4],
-                                         const unsigned (&a_row)[Grid<C>::MT],
-                                         unsigned a_off, unsigned slab, int n0, int n_live) {
+__device__ __forceinline__ void mma_slab_bf16(float (&acc)[Grid<C>::MT][Grid<C>::NT][4],
+                                              const unsigned (&a_row)[Grid<C>::MT],
+                                              unsigned a_off, unsigned slab, int n0, int n_live) {
   constexpr int KC = ring_kc(C);
   const int lane = threadIdx.x % 32;
   // one ldmatrix.x4 gives n-tiles 2 pr and 2 pr + 1 (b0, b1 each): lane l
@@ -454,7 +542,7 @@ __device__ __forceinline__ void mma_slab(float (&acc)[Grid<C>::MT][Grid<C>::NT][
 #pragma unroll
     for (int pr = 0; pr < Grid<C>::NT / 2; ++pr) {
       unsigned r[4];
-      ldmatrix_x4(slab + ring_offset<KC>(row + 16 * pr, kk / 8 + khalf), r);
+      ldmatrix_x4(slab + ring_offset<KC, 2>(row + 16 * pr, kk / 8 + khalf), r);
       b[2 * pr][0] = r[0];
       b[2 * pr][1] = r[1];
       b[2 * pr + 1][0] = r[2];
@@ -471,14 +559,77 @@ __device__ __forceinline__ void mma_slab(float (&acc)[Grid<C>::MT][Grid<C>::NT][
   }
 }
 
-// conv_rows on the tensor cores, bf16 in, fp32 sums (same function and
-// epilogues), its weights from the ring.  Warp w takes the 8 NT channels
-// from 8 NT (w % WN) and the m-tiles w / WN + m WM, m < MT.
-template <int C, bool UP, int MODE>
+// The same for one fp32 slab in three TF32 terms: an ldmatrix .b16 of fp32
+// rows reads 8 rows x 4 fp32 a matrix, the m16n8k8 TF32 fragments, so the
+// addressing is bf16's with k-steps of 8.  The chain starts at zero for the
+// slab and is added into acc with round-to-nearest adds (the tensor cores
+// truncate their sums).
+template <int C>
+__device__ __forceinline__ void mma_slab_tf32(float (&acc)[Grid<C>::MT][Grid<C>::NT][4],
+                                              const unsigned (&a_row)[Grid<C>::MT],
+                                              unsigned a_off, unsigned slab, int n0, int n_live) {
+  using G = Grid<C>;
+  constexpr int KC = ring_kc(C);
+  const int lane = threadIdx.x % 32;
+  const int row = n0 + (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int khalf = (lane >> 3) & 1;
+  float part[G::MT][G::NT][4];
+#pragma unroll
+  for (int m = 0; m < G::MT; ++m)
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[m][nt][j] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KC; kk += 8) {
+    uint32_t bh[G::NT][2], bl[G::NT][2];
+#pragma unroll
+    for (int pr = 0; pr < G::NT / 2; ++pr) {
+      unsigned r[4];
+      ldmatrix_x4(slab + ring_offset<KC, 4>(row + 16 * pr, kk / 4 + khalf), r);
+      split_tf32(__uint_as_float(r[0]), bh[2 * pr][0], bl[2 * pr][0]);
+      split_tf32(__uint_as_float(r[1]), bh[2 * pr][1], bl[2 * pr][1]);
+      split_tf32(__uint_as_float(r[2]), bh[2 * pr + 1][0], bl[2 * pr + 1][0]);
+      split_tf32(__uint_as_float(r[3]), bh[2 * pr + 1][1], bl[2 * pr + 1][1]);
+    }
+#pragma unroll
+    for (int m = 0; m < G::MT; ++m) {
+      if (m >= n_live) break;
+      unsigned a[4];
+      ldmatrix_x4(a_row[m] + a_off + kk * 4, a);
+      uint32_t ah[4], al[4];
+      split_a(ah, al, __uint_as_float(a[0]), __uint_as_float(a[1]), __uint_as_float(a[2]),
+              __uint_as_float(a[3]));
+#pragma unroll
+      for (int nt = 0; nt < G::NT; ++nt) mma_3xtf32(part[m][nt], ah, al, bh[nt], bl[nt]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < G::MT; ++m) {
+    if (m >= n_live) break;
+#pragma unroll
+    for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][nt][j] = __fadd_rn(acc[m][nt][j], part[m][nt][j]);
+  }
+}
+
+// two consecutive conv outputs into a conv-input row
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// conv_rows on the tensor cores, fp32 sums (same function and epilogues):
+// bf16 products, or fp32 as three TF32 terms; the weights from the ring.
+// Warp w takes the 8 NT channels from 8 NT (w % WN) and the m-tiles w / WN
+// + m WM, m < MT.
+template <typename T, int C, typename Ring, int MODE>
 __device__ __forceinline__ void conv_rows_mma(
-    const bf16* src, int ss, int lo, int hi, WeightRing<C, UP>& ring,
-    const bf16* __restrict__ bias, int k, int d, float* res, bf16* dst, int dst_ss,
-    int g0, int t_len) {
+    const T* src, int ss, int lo, int hi, Ring& ring, const T* __restrict__ bias, int k, int d,
+    float* res, T* dst, int dst_ss, int g0, int t_len) {
   using G = Grid<C>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, q = lane % 4;
@@ -493,21 +644,24 @@ __device__ __forceinline__ void conv_rows_mma(
   for (int m = 0; m < G::MT; ++m) {
     int r = lo + (mt0 + m * G::WM) * 16 + (lane & 15);
     r = r < hi ? r : hi - 1;  // ragged or idle m-tile: read a valid row
-    a_row[m] = smem_addr(src + (r - half) * ss + (lane >> 4) * 8);
+    a_row[m] = smem_addr(src + (r - half) * ss + (lane >> 4) * (16 / (int)sizeof(T)));
 #pragma unroll
     for (int nt = 0; nt < G::NT; ++nt)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0.f;
   }
-  using R = WeightRing<C, UP>;
-  for (int s0 = 0; s0 < k * R::NB; s0 += R::U) {
+  for (int s0 = 0; s0 < k * Ring::NB; s0 += Ring::U) {
     const unsigned stage = ring.next();
 #pragma unroll
-    for (int i = 0; i < R::U; ++i) {
+    for (int i = 0; i < Ring::U; ++i) {
       const int sl = s0 + i;  // tap sl / NB, input channels KC (sl % NB) ..
-      if (sl >= k * R::NB) break;
-      mma_slab<C>(acc, a_row, (sl / R::NB * d * ss + sl % R::NB * R::KC) * 2,
-                  stage + i * R::kSlab, n0, n_live);
+      if (sl >= k * Ring::NB) break;
+      const unsigned a_off = (sl / Ring::NB * d * ss + sl % Ring::NB * Ring::KC) * (int)sizeof(T);
+      if constexpr (sizeof(T) == 2) {
+        mma_slab_bf16<C>(acc, a_row, a_off, stage + i * Ring::kSlab, n0, n_live);
+      } else {
+        mma_slab_tf32<C>(acc, a_row, a_off, stage + i * Ring::kSlab, n0, n_live);
+      }
     }
   }
   // c[0..1] are row g, channels 2q, 2q+1 of the n-tile; c[2..3] row g + 8
@@ -528,8 +682,7 @@ __device__ __forceinline__ void conv_rows_mma(
         if (MODE == kToAct) {
           const int t = g0 + row;
           const float msk = (t >= 0 && t < t_len) ? 1.f : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(dst + row * dst_ss + col) =
-              __floats2bfloat162_rn(lrelu(v0, kSlope) * msk, lrelu(v1, kSlope) * msk);
+          store2(dst + row * dst_ss + col, lrelu(v0, kSlope) * msk, lrelu(v1, kSlope) * msk);
         } else {
           float2* o = reinterpret_cast<float2*>(res + row * C + col);
           float2 cur = *o;
@@ -542,16 +695,16 @@ __device__ __forceinline__ void conv_rows_mma(
   }
 }
 
-// One conv of the chain: tensor cores in bf16 (weights from the ring), CUDA
-// cores in fp32 (weights w).
-template <typename T, int C, bool UP, int MODE>
+// One conv of the chain: on the tensor cores (weights from the ring), or at
+// fp32 C = 128 on the CUDA cores (weights w).
+template <typename T, int C, typename Ring, int MODE>
 __device__ __forceinline__ void conv(const T* src, int ss, int lo, int hi,
-                                     const T* __restrict__ w, WeightRing<C, UP>& ring,
+                                     const T* __restrict__ w, Ring& ring,
                                      const T* __restrict__ bias, int k, int d, float* res,
                                      T* dst, int dst_ss, int g0, int t_len) {
-  if constexpr (sizeof(T) == 2) {
-    conv_rows_mma<C, UP, MODE>(src, ss, lo, hi, ring, bias, k, d, res, dst, dst_ss, g0,
-                               t_len);
+  if constexpr (on_tc(C, sizeof(T))) {
+    conv_rows_mma<T, C, Ring, MODE>(src, ss, lo, hi, ring, bias, k, d, res, dst, dst_ss, g0,
+                                    t_len);
   } else {
     conv_rows<C, C, MODE>(src, ss, lo, hi, w, bias, k, d, res, dst, dst_ss, g0, t_len);
   }
@@ -562,14 +715,15 @@ __device__ __forceinline__ void conv(const T* src, int ss, int lo, int hi,
 // cores.  The weight is stored flipped, (4, C, 2C) as [tap][co][ci]: the
 // transpose conv is a plain conv over the 2x-dilated input with padding 2,
 // so output frame t reads input frame (t + tap - 2) / 2 for the two taps
-// whose parity matches t.  Thread layout as in conv_rows.
+// whose parity matches t.  Thread layout as in conv_rows, over the
+// tensor-core path's kThreadsMma threads (the up levels are C <= 64).
 template <int C>
 __device__ __forceinline__ void upsample_rows(
     const float* src, int ss_in, int n, int g0, int in0, const float* __restrict__ w,
     const float* __restrict__ bias, float* xb) {
   constexpr int CIN = 2 * C;
   constexpr int CG = C / 4;
-  constexpr int RG = kThreads / CG;
+  constexpr int RG = kThreadsMma / CG;
   static_assert(RG % 2 == 0, "row groups must keep one parity per thread");
   const int rg = threadIdx.x % RG;
   const int cg = threadIdx.x / RG;
@@ -633,7 +787,7 @@ __device__ __forceinline__ void upsample_rows(
 // into 16-row m-tiles.
 template <int C>
 __device__ __forceinline__ void upsample_rows_mma(
-    const bf16* src, int ss_in, int n, int g0, int in0, WeightRing<C, true>& ring,
+    const bf16* src, int ss_in, int n, int g0, int in0, WeightRing<bf16, C, true>& ring,
     const bf16* __restrict__ bias, float* xb) {
   using G = Grid<C>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -659,7 +813,7 @@ __device__ __forceinline__ void upsample_rows_mma(
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0.f;
     }
-    using R = WeightRing<C, true>;
+    using R = WeightRing<bf16, C, true>;
 #pragma unroll 1
     for (int s0 = 0; s0 < 2 * R::NB2; s0 += R::U) {
       const unsigned stage = ring.next();
@@ -667,7 +821,7 @@ __device__ __forceinline__ void upsample_rows_mma(
       for (int i = 0; i < R::U; ++i) {
         const int sl = s0 + i;  // step sl / NB2, input channels KC (sl % NB2) ..
         if (sl >= 2 * R::NB2) break;
-        mma_slab<C>(acc, a_row, (sl / R::NB2 * ss_in + sl % R::NB2 * R::KC) * 2,
+        mma_slab_bf16<C>(acc, a_row, (sl / R::NB2 * ss_in + sl % R::NB2 * R::KC) * 2,
                     stage + i * R::kSlab, n0, n_live);
       }
     }
@@ -696,7 +850,7 @@ __device__ __forceinline__ void upsample_rows_mma(
 // wup: (4, C, 2C) flipped transpose-conv taps [tap][co][ci]; bup: (C,).
 // wpost: (7, C); bpost: (1,).  out: (B, t_out, C) unless POST; wav: (B, t_out).
 template <typename T, int C, bool UP, bool POST>
-__global__ void __launch_bounds__(sizeof(T) == 2 ? kThreadsBf16 : kThreads, 1) mrf_level_kernel(
+__global__ void __launch_bounds__(on_tc(C, sizeof(T)) ? kThreadsMma : kThreads, 1) mrf_level_kernel(
     const T* __restrict__ x, int t_in, int t_out, int tile,
     const T* __restrict__ wup, const T* __restrict__ bup,
     const T* __restrict__ w, const T* __restrict__ b,
@@ -709,18 +863,22 @@ __global__ void __launch_bounds__(sizeof(T) == 2 ? kThreadsBf16 : kThreads, 1) m
   T* act_b = reinterpret_cast<T*>(smem + L.act_b);
   constexpr int CIN = UP ? 2 * C : C;
   constexpr int P = POST ? kPostPad : 0;
-  constexpr int NTH = sizeof(T) == 2 ? kThreadsBf16 : kThreads;
+  constexpr bool TC = on_tc(C, sizeof(T));
+  constexpr int NTH = TC ? kThreadsMma : kThreads;
   const int bi = blockIdx.y;
   const int t0 = blockIdx.x * tile;
   const int n_acc = (tile + 2 * P) * C;
   const T* xrow = x + (size_t)bi * t_in * CIN;
 
-  WeightRing<C, UP> ring;  // bf16 only
-  if constexpr (sizeof(T) == 2) ring.start(smem_addr(smem + L.ring), w, wup);
+  // the tensor-core path's weights; in fp32 the upsample's stay off the ring
+  using Ring = WeightRing<T, C, UP && sizeof(T) == 2>;
+  Ring ring;
+  if constexpr (TC) ring.start(smem_addr(smem + L.ring), w, wup);
 
-  // the branch sum of the (tile + 2P, C) output rows: bf16 keeps element
-  // threadIdx.x + j * NTH in accb[j] (registers), fp32 element i in acc_s[i]
-  constexpr bool kRegSum = sizeof(T) == 2;
+  // the branch sum of the (tile + 2P, C) output rows: the tensor-core path
+  // keeps element threadIdx.x + j * NTH in accb[j] (registers), the CUDA
+  // cores' element i in acc_s[i]
+  constexpr bool kRegSum = TC;
   constexpr int kAcc = ceil_div((max_tile(C) + 2 * P) * C, NTH);
   float accb[kAcc];
   float* acc_s = reinterpret_cast<float*>(smem + L.acc);
@@ -780,14 +938,14 @@ __global__ void __launch_bounds__(sizeof(T) == 2 ? kThreadsBf16 : kThreads, 1) m
       __syncthreads();
       lo += h * d;
       hi -= h * d;
-      conv<T, C, UP, kToAct>(act_a, L.ss, lo, hi, w + w_off, ring, b + n_conv * C, k, d,
+      conv<T, C, Ring, kToAct>(act_a, L.ss, lo, hi, w + w_off, ring, b + n_conv * C, k, d,
                              nullptr, act_b, L.ss, g0, t_out);
       w_off += (size_t)k * C * C;
       ++n_conv;
       __syncthreads();
       lo += h;
       hi -= h;
-      conv<T, C, UP, kAddRes>(act_b, L.ss, lo, hi, w + w_off, ring, b + n_conv * C, k, 1,
+      conv<T, C, Ring, kAddRes>(act_b, L.ss, lo, hi, w + w_off, ring, b + n_conv * C, k, 1,
                               xb, nullptr, 0, g0, t_out);
       w_off += (size_t)k * C * C;
       ++n_conv;
@@ -861,7 +1019,7 @@ cudaError_t launch(const void* x, int batch, int t_in, int t_out, int tile,
                    const void* wpost, const void* bpost, void* out, void* wav,
                    cudaStream_t stream) {
   const int smem = layout(C, UP, POST, tile, sizeof(T)).total;
-  constexpr int threads = sizeof(T) == 2 ? kThreadsBf16 : kThreads;
+  constexpr int threads = on_tc(C, sizeof(T)) ? kThreadsMma : kThreads;
   auto kernel = mrf_level_kernel<T, C, UP, POST>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1281,21 +1439,22 @@ int mrf_smem_bytes(int c, int up, int post, int tile, int elem_size) {
   return layout(c, up != 0, post != 0, tile, elem_size).total;
 }
 
-// The largest tile (frames) of the level kernel at C channels (the bf16
-// branch sum lives in registers).
+// The largest tile (frames) of the level kernel at C channels (the
+// tensor-core path's branch sum lives in registers).
 int mrf_max_tile(int c) { return c > 0 ? max_tile(c) : 0; }
 
 // Launches one MRF level on `stream`.  Returns a cudaError_t (0 = success).
-// The bf16 weight ring copies 16-byte units: w and wup must be 16-byte
-// aligned.
+// The weight ring copies 16-byte units: on the tensor-core path (bf16, and
+// fp32 at C <= 64) w must be 16-byte aligned, and in bf16 wup too.
 int mrf_level(const void* x, int batch, int t_in, int t_out, int c, int up, int post,
               int is_bf16, int tile, const void* wup, const void* bup, const void* w,
               const void* b, const void* wpost, const void* bpost, void* out,
               void* wav, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c <= 0 || tile <= 0 || tile % 8 != 0 || tile > max_tile(c)) return cudaErrorInvalidValue;
-  if (is_bf16 && ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(wup)) & 15))
+  if (on_tc(c, is_bf16 ? 2 : 4) && (reinterpret_cast<uintptr_t>(w) & 15))
     return cudaErrorMisalignedAddress;
+  if (is_bf16 && (reinterpret_cast<uintptr_t>(wup) & 15)) return cudaErrorMisalignedAddress;
   if (is_bf16)
     return dispatch<bf16>(c, up, post, x, batch, t_in, t_out, tile, wup, bup, w, b,
                           wpost, bpost, out, wav, s);

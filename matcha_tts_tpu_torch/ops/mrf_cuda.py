@@ -10,12 +10,16 @@ Replaces the TPU kernels `matcha_tts_tpu/ops/pallas/mrf_packed.py`:
   tanh, returned as the wav `(B, 2 T_in)` instead of the level output.
 
 The kernel (`csrc/mrf.cu`) keeps a time tile and its halo in shared memory
-(in bf16 the branch sum in registers) through all 18 convs, so the level's
-intermediates never reach device memory.  It is bound by operations (126
-C^2 MACs per output frame at C=128): in bf16 the convs run on the tensor
+(on the tensor cores the branch sum in registers) through all 18 convs, so
+the level's intermediates never reach device memory.  It is bound by
+operations (126 C^2 MACs per output frame): the convs run on the tensor
 cores (mma.sync) with the weights streamed once per block through a
-shared-memory cp.async ring, in fp32 as FMAs on the CUDA cores, and the halo
-is recomputed per tile (see the source note in `csrc/mrf.cu` and PERF.md).
+shared-memory cp.async ring, in bf16 as bf16 products and in fp32 at C in
+{32, 64} as three TF32 products each (hi.lo terms, fp32 sums); fp32 at
+C = 128, the fp32 upsample and conv_post run as FMAs on the CUDA cores.  The
+halo is recomputed per tile (see the source note in `csrc/mrf.cu` and
+PERF.md).  On the tensor-core path `w` (and in bf16 `wup`) must be 16-byte
+aligned; a misaligned base raises.
 
 Weights are per tap, packed once from the modules' torch layouts:
 `w (126, C, C)` as [tap][c_out][c_in] in chain order (branch, sub-block,
@@ -29,9 +33,10 @@ once.  The plain versions below compute the same function with the same
 rounding points from `F.conv1d`; a wrapper uses them only for tensors on the
 CPU.  For a CUDA tensor it launches the kernel or raises.
 
-`mrf_tap` is the fp32 `mrf` kernel under the name of the TPU kernel it also
-replaces, `matcha_tts_tpu/ops/pallas/mrf.py::mrf_fused` (the unfused fp32
-levels of `mrf_kernel="tap"`), with its own launch count.
+`mrf_tap` is the fp32 `mrf` kernel (on the tensor cores, three TF32 terms)
+under the name of the TPU kernel it also replaces,
+`matcha_tts_tpu/ops/pallas/mrf.py::mrf_fused` (the unfused fp32 levels of
+`mrf_kernel="tap"`), with its own launch count.
 
 int8 mode (`ws=` on `mrf` and `mrf_up`) replaces the TPU kernels' quantised
 chain: weights `pack_level_int8` (int8 codes (126, C, C) [tap][c_out][c_in],

@@ -1,6 +1,7 @@
 """The port's kernels against their plain versions on a CUDA card (marker
 `gpu`; they skip where there is no card): the MRF levels (with T around
-the tile, batch 3 and a misaligned bf16 weight base), MAS (identical
+the tile, batch 3, a misaligned bf16 or fp32 weight base; fp32 at C = 32
+and 64 on the tensor cores bitwise repeatable), MAS (identical
 paths), the fused Block1D / ResnetBlock1D (forward and gradients; the
 tiled bf16 kernels at T over several tiles, ragged C_in, batch 1, two
 channel slices, bitwise repeatable), the
@@ -371,16 +372,51 @@ def test_int8_wrapper_rejects_bad_operands(cuda):
         mrf_cuda.mrf(a["x"], a["w"], a["b"], a["ws"][:-1])
 
 
-@pytest.mark.parametrize("t,c", [(333, 32), (4096, 64)])
+# The fp32 level on the tensor cores (three TF32 terms) at C = 32 and 64,
+# whose tiles are 256 and 128 frames: T below one tile, T not a multiple of
+# the tile, T over several tiles; two launches on one input are bitwise equal.
+@pytest.mark.parametrize("t,c", [(77, 32), (333, 32), (2048, 32), (100, 64), (333, 64),
+                                 (4096, 64)])
 def test_tap_kernel_matches_plain(cuda, t, c):
     a = _operands(c, t, c, False, False, cuda)
     n0 = mrf_cuda.LAUNCHES["mrf_tap"]
     got = mrf_cuda.mrf_tap(a["x"], a["w"], a["b"])
+    again = mrf_cuda.mrf_tap(a["x"], a["w"], a["b"])
     torch.cuda.synchronize()
-    assert mrf_cuda.LAUNCHES["mrf_tap"] == n0 + 1
+    assert mrf_cuda.LAUNCHES["mrf_tap"] == n0 + 2
+    assert mrf_cuda.pick_tile(c, False, False, torch.float32, 1 << 20) == 8192 // c
     assert float((got - mrf_cuda.mrf_plain(a["x"], a["w"], a["b"])).abs().max()) <= 1e-4
+    assert torch.equal(got, again)
     with pytest.raises(ValueError):
         mrf_cuda.mrf_tap(a["x"].bfloat16(), a["w"].bfloat16(), a["b"].bfloat16())
+
+
+# fp32 mrf and mrf_up at C = 32 and 64 (tensor cores), with and without the
+# upsample and the tail, and fp32 mrf at C = 128 (CUDA cores): within 1e-4
+# of the plain version, bitwise repeatable.
+@pytest.mark.parametrize("c_in,t_in,c,up,post", [
+    (32, 700, 32, False, False), (64, 300, 64, False, False), (128, 200, 128, False, False),
+    (64, 300, 32, True, False), (64, 140, 32, True, True), (128, 150, 64, True, False),
+    (128, 70, 64, True, True)])
+def test_fp32_level_matches_plain_and_repeats(cuda, c_in, t_in, c, up, post):
+    a = _operands(c_in, t_in, c, up, post, cuda)
+    kern, plain = ((mrf_cuda.mrf_up, mrf_cuda.mrf_up_plain) if up
+                   else (mrf_cuda.mrf, mrf_cuda.mrf_plain))
+    got = _run(kern, a, up)
+    again = _run(kern, a, up)
+    torch.cuda.synchronize()
+    assert float((got - _run(plain, a, up)).abs().max()) <= 1e-4
+    assert torch.equal(got, again)
+
+
+def test_fp32_tensor_core_level_refuses_misaligned_weights(cuda):
+    a = _operands(64, 64, 64, False, False, cuda)
+    w = torch.empty(a["w"].numel() + 1, device=cuda)[1:].view(a["w"].shape)
+    w.copy_(a["w"])
+    n0 = mrf_cuda.LAUNCHES["mrf_tap"]
+    with pytest.raises(RuntimeError, match="misaligned"):
+        mrf_cuda.mrf_tap(a["x"], w, a["b"])
+    assert mrf_cuda.LAUNCHES["mrf_tap"] == n0
 
 
 # ---------------------------------------------------------------------------

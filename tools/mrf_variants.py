@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time variants of the bf16 MRF level kernel side by side on one CUDA card.
+"""Time variants of the MRF level kernel side by side on one CUDA card.
 
-    python3 tools/mrf_variants.py [--parent PATH] [NAME ...]
+    python3 tools/mrf_variants.py [--parent PATH] [--only bf16|fp32] [NAME ...]
 
 Each variant is `matcha_tts_tpu_torch/csrc/mrf.cu` with a text substitution
 (or, with `--parent`, another tree's `mrf.cu` as "parent"), built with the
@@ -9,12 +9,17 @@ port's nvcc flags, one process per variant, all started together.  Every
 variant runs the three levels of the main path at the 512-frame bucket
 (chip_smoke.py's shapes and inputs): relative L2 error of bf16 against the
 fp32 plain version on the same rounded operands, max |diff| of fp32, and
-device ms per bf16 and per fp32 launch (chip_smoke.cuda_ms).  The variants run in the
-order given and then in reverse, so each is timed twice (A B .. B A).
+device ms per bf16 and per fp32 launch (chip_smoke.cuda_ms); then the fp32
+level of the tap mode at phase 12's shapes, (1, 65536, 64) and (1, 131072,
+32): max |diff| against the plain version and device ms.  `--only bf16`
+runs the levels' bf16 launches alone, `--only fp32` the fp32 launches (the
+levels' and the tap shapes').  The variants run in the order given and then
+in reverse, so each is timed twice (A B .. B A).
 
-The "no_*" variants are diagnostics that compute wrong results on purpose:
-they drop a part of the kernel to show what it costs.  Registers and spills
-of the bf16 level kernels are printed from nvcc's report.
+The "no_*" variants and `one_term` are diagnostics that compute wrong (or
+less exact) results on purpose: they drop a part of the kernel to show what
+it costs.  Registers and spills of the level kernels are printed from
+nvcc's report.
 """
 
 from __future__ import annotations
@@ -34,9 +39,8 @@ sys.path.insert(0, str(REPO))
 
 SRC = (REPO / "matcha_tts_tpu_torch/csrc/mrf.cu").read_text()
 
-RING_SLABS = ("__host__ __device__ constexpr int ring_slabs(int c) "
-              "{ return c >= 128 ? 1 : c >= 64 ? 4 : 11; }")
-THREADS = "constexpr int kThreadsBf16 = 512;"
+RING_SLABS = "  return elem == 2 ? (c >= 128 ? 1 : c >= 64 ? 4 : 11) : (c >= 64 ? 1 : 8);\n"
+THREADS = "constexpr int kThreadsMma = 512;"
 NT = "  static constexpr int NT = 4;\n"
 MMA = "mma_bf16(acc[m][nt], a, b[nt][0], b[nt][1]);"
 NEXT_FETCH = "    if (n + S - 1 < kTotal) fetch(n + S - 1);\n"
@@ -49,14 +53,36 @@ STAGING = """      for (int i = threadIdx.x; i < (hi - lo) * C; i += NTH) {
       }
 """
 BRANCH_SUM = "  float accb[kAcc];\n"
-REG_SUM = "  constexpr bool kRegSum = sizeof(T) == 2;\n"
 DIRECT = "    if constexpr (U == 1 && !UP) {\n"
+MMA_TF32 = "mma_3xtf32(part[m][nt], ah, al, bh[nt], bl[nt]);"
+SMALL_TERMS = "  mma_tf32(c, al, bh[0], bh[1]);\n  mma_tf32(c, ah, bl[0], bl[1]);\n"
+A_ROW = "    int r = lo + (mt0 + m * G::WM) * 16 + (lane & 15);\n"
+A_ADDR = "    a_row[m] = smem_addr(src + (r - half) * ss + (lane >> 4) * (16 / (int)sizeof(T)));\n"
+A_LDMATRIX = "      ldmatrix_x4(a_row[m] + a_off + kk * 4, a);\n"
+SPLIT = "  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));\n"
+CHAIN_ADD = "      for (int j = 0; j < 4; ++j) acc[m][nt][j] = __fadd_rn(acc[m][nt][j], part[m][nt][j]);\n"
 
 
 def sub(src: str, old: str, new: str) -> str:
     if old not in src:
         raise ValueError(f"variant anchor not in mrf.cu: {old[:60]!r}")
     return src.replace(old, new)
+
+
+def lds32(src: str) -> str:
+    """fp32 A fragments by four 32-bit shared loads (row g, column qd and
+    the rows and columns 8 and 4 on) instead of one ldmatrix.x4."""
+    src = sub(src, A_ROW, A_ROW.replace("(lane & 15)", "(sizeof(T) == 4 ? lane / 4 : (lane & 15))"))
+    src = sub(src, A_ADDR, A_ADDR.replace("(lane >> 4) * (16 / (int)sizeof(T))",
+                                          "(sizeof(T) == 4 ? lane % 4 : (lane >> 4) * 8)"))
+    return sub(src, A_LDMATRIX, """      {
+        const unsigned p = a_row[m] + a_off + kk * 4, r8 = 8 * (C + 4) * 4;
+        asm volatile("ld.shared.b32 %0, [%1];" : "=r"(a[0]) : "r"(p));
+        asm volatile("ld.shared.b32 %0, [%1];" : "=r"(a[1]) : "r"(p + r8));
+        asm volatile("ld.shared.b32 %0, [%1];" : "=r"(a[2]) : "r"(p + 16));
+        asm volatile("ld.shared.b32 %0, [%1];" : "=r"(a[3]) : "r"(p + r8 + 16));
+      }
+""")
 
 
 def sum_in_l2(src: str) -> str:
@@ -75,7 +101,10 @@ VARIANTS = {
     "one_slab": lambda: sub(SRC, RING_SLABS, RING_SLABS.replace(
         "c >= 128 ? 1 : c >= 64 ? 4 : 11", "1")),
     "sum_in_l2": lambda: sum_in_l2(SRC),
-    "fp32_sum_in_registers": lambda: sub(SRC, REG_SUM, "  constexpr bool kRegSum = true;\n"),
+    # fp32: A fragments by 32-bit shared loads; 2 n-tiles a warp (16
+    # channels, twice the m-tiles)
+    "lds32": lambda: lds32(SRC),
+    "nt2": lambda: sub(SRC, NT, "  static constexpr int NT = 2;\n"),
     # single-slab rings find their chunk by the general segment search
     "general_search": lambda: sub(SRC, DIRECT, "    if constexpr (false) {\n"),
     # diagnostics (wrong results): no weight copies after the first chunk; no
@@ -86,12 +115,28 @@ VARIANTS = {
     "no_mma": lambda: sub(SRC, MMA, ";"),
     "no_ring_no_mma": lambda: sub(sub(sub(SRC, NEXT_FETCH, ""), NEXT_WAIT, ""), MMA, ";"),
     "no_staging": lambda: sub(SRC, STAGING, ""),
+    # fp32 diagnostics: no TF32 products; one TF32 term (hi hi) instead of three
+    "no_mma_tf32": lambda: sub(SRC, MMA_TF32, ";"),
+    "one_term": lambda: sub(SRC, SMALL_TERMS, ""),
+    # the split without rounding (hi truncated, lo raw: the tensor cores
+    # ignore its low 13 bits): what the two roundings cost; lo alone raw
+    "trunc_split": lambda: sub(SRC, SPLIT, "  hi = __float_as_uint(x) & 0xffffe000u;\n"
+                                           "  lo = __float_as_uint(x - __uint_as_float(hi));\n"),
+    "lo_raw": lambda: sub(SRC, SPLIT, "  hi = tf32_rna(x);\n"
+                                      "  lo = __float_as_uint(x - __uint_as_float(hi));\n"),
+    # one tensor-core chain over a whole conv instead of one a slab
+    "long_chain": lambda: sub(sub(SRC, MMA_TF32, MMA_TF32.replace("part[m]", "acc[m]")),
+                              CHAIN_ADD, "      for (int j = 0; j < 4; ++j) {}\n"),
 }
 
 LEVELS = [  # (name, c_in, t_in, c, up, post): the 512-frame bucket
     ("level1", 128, 64 * 512, 128, False, False),
     ("level2", 128, 64 * 512, 64, True, False),
     ("level3", 64, 128 * 512, 32, True, True),
+]
+TAP = [  # (name, t, c): the tap mode's fp32 levels at the 512-frame bucket (phase 12)
+    ("tap64", 128 * 512, 64),
+    ("tap32", 256 * 512, 32),
 ]
 
 
@@ -115,10 +160,10 @@ def build(sources: dict, work: Path) -> dict:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 entry = m.group(1)
-            elif entry and "mrf_level_kernelI13__nv_bfloat16" in entry and (
+            elif entry and "mrf_level_kernel" in entry and (
                     "registers" in line or "spill" in line):
-                tmpl = re.search(r"bfloat16(Li\d+ELb\dELb\d)", entry).group(1)
-                print(f"[build] {name} {tmpl}: {line.strip()}")
+                tmpl = re.search(r"mrf_level_kernelI(f|13__nv_bfloat16)(Li\d+ELb\dELb\d)", entry)
+                print(f"[build] {name} {''.join(tmpl.groups())}: {line.strip()}")
         lib = ctypes.CDLL(str(so))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mrf_level.argtypes = [ptr] + [i32] * 8 + [ptr] * 9
@@ -167,6 +212,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("names", nargs="*", help=f"variants (default: all of {list(VARIANTS)})")
     ap.add_argument("--parent", type=Path, help="another tree's csrc/mrf.cu, timed as 'parent'")
+    ap.add_argument("--only", choices=("bf16", "fp32"), help="time one dtype's launches alone")
     ap.add_argument("--out", type=Path, help="write the rows here as JSON")
     args = ap.parse_args()
 
@@ -180,6 +226,7 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    do16, do32 = args.only != "fp32", args.only != "bf16"
     sources = {n: VARIANTS[n]() for n in (args.names or VARIANTS)}
     if args.parent:
         sources = {"parent": args.parent.read_text(), **sources}
@@ -197,21 +244,40 @@ def main() -> int:
                                 a.get("bpost"))) if up else (lambda a: (a["x"], a["w"], a["b"])))
             inputs[lvl] = (a32, a16, plain(*pick({k: v.float() for k, v in a16.items()})),
                            plain(*pick(a32)))
+        for lvl, t, c in TAP if do32 else ():
+            a = cs.level_inputs(c, t, c, False, False, dev, seed=t + c)  # phase 12's inputs
+            inputs[lvl] = (a, mrf_cuda.mrf_plain(a["x"], a["w"], a["b"]))
         rows = []
         for name in list(libs) + list(reversed(list(libs))):
             lib = libs[name]
             for lvl, c_in, t_in, c, up, post in LEVELS:
                 a32, a16, ref16, ref32 = inputs[lvl]
-                tile = tile_for(lib, c, up, post, 2)
-                run16 = launcher(lib, a16, c, up, post, tile)
-                got16 = run16().float()
-                run32 = launcher(lib, a32, c, up, post, tile_for(lib, c, up, post, 4))
-                got32 = run32()
+                row = dict(variant=name, level=lvl)
+                if do16:
+                    tile = tile_for(lib, c, up, post, 2)
+                    run16 = launcher(lib, a16, c, up, post, tile)
+                    got16 = run16().float()
+                    torch.cuda.synchronize()
+                    row.update(tile=tile, ms=cs.cuda_ms(run16, cs.REPS),
+                               bf16_rel_l2=cs.rel_l2(got16, ref16))
+                if do32:
+                    tile32 = tile_for(lib, c, up, post, 4)
+                    run32 = launcher(lib, a32, c, up, post, tile32)
+                    got32 = run32()
+                    torch.cuda.synchronize()
+                    row.update(fp32_tile=tile32, fp32_ms=cs.cuda_ms(run32, 2 if do16 else cs.REPS),
+                               fp32_max_abs_err=float((got32 - ref32).abs().max()))
+                print(f"[variant] {json.dumps(row)}", flush=True)
+                rows.append(row)
+            for lvl, t, c in TAP if do32 else ():
+                a, ref = inputs[lvl]
+                tile32 = tile_for(lib, c, False, False, 4)
+                run32 = launcher(lib, a, c, False, False, tile32)
+                got = run32()
                 torch.cuda.synchronize()
-                row = dict(variant=name, level=lvl, tile=tile, ms=cs.cuda_ms(run16, cs.REPS),
-                           fp32_ms=cs.cuda_ms(run32, 2),
-                           bf16_rel_l2=cs.rel_l2(got16, ref16),
-                           fp32_max_abs_err=float((got32 - ref32).abs().max()))
+                row = dict(variant=name, level=lvl, fp32_tile=tile32,
+                           fp32_ms=cs.cuda_ms(run32, cs.REPS),
+                           fp32_max_abs_err=float((got - ref).abs().max()))
                 print(f"[variant] {json.dumps(row)}", flush=True)
                 rows.append(row)
     if args.out:
