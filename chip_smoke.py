@@ -57,13 +57,15 @@ Phases, each of which raises on failure (no phase catches and carries on):
    relative); ms per step, frames per second, MAS's share and the device's
    busy share of one step; then (b) synthesises a sentence through the
    kernels;
-10. int8 MRF kernels against their int8 plain versions at the windows the
-   kernel uses, at the levels' shapes for the 512-frame bucket (C=128 at
-   T=32768 and 128 -> 64 at 65536 in bf16, 64 -> 32 with the tail at 131072
-   in fp32, C=256 at 4096 by a direct call), unit-gain weights: relative L2
-   <= 1e-5 and max |diff| <= 1e-3 of the output's max |value| (the same
-   codes), and SNR >= 35 dB against the exact kernel; timed beside the plain
-   version and the bound;
+10. int8 MRF kernels against their int8 plain versions at the JAX kernels'
+   windows (`mrf_cuda.int8_window`), at the levels' shapes for the
+   512-frame bucket (C=128 at T=32768 and 128 -> 64 at 65536 in bf16, 64 ->
+   32 with the tail at 131072 in fp32, C=256 at 4096 by a direct call),
+   unit-gain weights: relative L2 <= 1e-5 and max |diff| <= 1e-3 of the
+   output's max |value| (the same codes), and SNR >= 35 dB against the exact
+   kernel; timed beside the plain version and the bound, with each level's
+   window, cluster size, rows a CTA, shared memory, registers and the
+   clusters the card holds at once;
 11. the attention kernels (whole-row "vmem" at B in {1, 8}, T up to 4096;
    "flash" up to 2048; (c)'s bf16 (64, 512) and (64, 1024); distillation's
    fp32 (16, 256) and (16, 512); T = 72 and 200 and items of length 0; H=2,
@@ -155,6 +157,10 @@ MRF_DESIGN = ("bf16: mma.sync, 16 warps, weights once per block through a 2-stag
 BLOCKS_DESIGN = ("bf16: a 128-frame tile across all output channels, mma.sync, weights "
                  "through a cp.async ring, GroupNorm partials merged in tile order, "
                  "h1 built in conv 2's staging; fp32: per-group FMA kernel")
+INT8_DESIGN = ("the JAX kernels' windows, each over a cluster of up to 8 CTAs: slice state on "
+               "chip (residual in shared memory, conv outputs in registers), maxima and halo "
+               "rows through DSMEM, mma.sync s8 on a cp.async weight ring, fp64 upsample on "
+               "mma.m8n8k4.f64")
 REPS = 5  # timed launches per kernel and version
 FP32_ATOL = 1e-4
 BF16_REL_L2 = 1e-2
@@ -1029,7 +1035,9 @@ def check_int8_kernels(t_y: int, reps: int) -> dict:
         codes, b8, ws = mrf_cuda.pack_level_int8(convs_from_taps(a["w"], a["b"]))
         x = a["x"].to(dtype)
         extra = {k: a[k].to(dtype) for k in ("wup", "bup", "wpost", "bpost") if k in a}
-        tile, halo = mrf_cuda.int8_window(c)
+        plan = mrf_cuda.int8_info(x, c, up, post)
+        tile, halo = plan["tile"], plan["halo"]
+        print(f"[int8] {name} plan {json.dumps(plan)}", flush=True)
 
         def kern():
             if up:
@@ -1073,7 +1081,8 @@ def check_int8_kernels(t_y: int, reps: int) -> dict:
         ops_ms = (chain_ops / PEAK_INT8 + other_ops / peak) * 1e3
         bound = max(ops_ms, nbytes / PEAK_BYTES * 1e3)
         row = dict(level=name, kernel="mrf_up" if up else "mrf", c_in=c_in, t_in=t_in, c=c,
-                   dtype=str(dtype).split(".")[-1], tile=tile, halo=halo, rel_l2=rel,
+                   dtype=str(dtype).split(".")[-1], tile=tile, halo=halo,
+                   n_cta=plan["n_cta"], rows=plan["rows"], rel_l2=rel,
                    max_rel_diff=max_rel, max_abs_err=float((got - ref).abs().max()),
                    snr_db_vs_exact=snr, ms=ms, plain_ms=plain_ms, exact_kernel_ms=exact_ms,
                    bound_ms=bound,
@@ -1893,7 +1902,8 @@ def main() -> int:
             "replaces": f"matcha_tts_tpu/ops/pallas/{line}",
             "launches": forced["launches"]["int8"][kname],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None})
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "design": INT8_DESIGN})
     kernels[-1].update({f"fp32_level3_{k}": int8_table["level3"][k]
                         for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")})
     kernels.append({
@@ -1969,6 +1979,11 @@ def main() -> int:
             "distill_step_bound_ms": sum(n * r[f"{part}_bound_ms"] for n, r in per_distill),
             "distill_step_tc_bound_ms": sum(n * r[f"{part}_tc_bound_ms"] for n, r in per_distill),
             "design": "bf16: wgmma+tma, PR 5; fp32: 3xTF32 mma.sync on a cp.async ring, PR 8"})
+    def int8_window(lvl):
+        r = int8_table[lvl]
+        return (f"windows of {r['tile']} + 2 x {r['halo']} frames, clusters of {r['n_cta']} x "
+                f"{r['rows']} rows")
+
     bwd_shapes = (f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16; "
                   f"distill_step: 2 x (16, {T_Y}, 2 x 64) + 4 x (16, {T_Y // 2}, 2 x 64) fp32")
     shapes = {
@@ -1979,9 +1994,10 @@ def main() -> int:
         "mas": f"{MAS_SHAPE} fp32",
         "block1d": f"({BLOCK_B}, {BLOCK_T}, 256 -> 256) bf16",
         "resnet1d": f"one estimator pass at B={BLOCK_B}, T={BLOCK_T}, bf16",
-        "mrf_int8": f"(1, {64 * T_Y}, 128) bf16",
-        "mrf_up_int8": f"128 -> 64 at {128 * T_Y} bf16 (level 2); fp32_level3_*: 64 -> 32 + "
-                       f"tail at {256 * T_Y} fp32",
+        "mrf_int8": f"(1, {64 * T_Y}, 128) bf16; {int8_window('level1')}",
+        "mrf_up_int8": f"128 -> 64 at {128 * T_Y} bf16 (level 2; {int8_window('level2')}); "
+                       f"fp32_level3_*: 64 -> 32 + tail at {256 * T_Y} fp32 "
+                       f"({int8_window('level3')})",
         "mrf_tap": f"(1, {128 * T_Y}, 64) and (1, {256 * T_Y}, 32) fp32",
         "vmem_mha": f"2 x (1, {T_Y}, 2 x 64) + 4 x (1, {T_Y // 2}, 2 x 64) bf16; train_step: "
                     f"2 x (64, {BLOCK_T}, 2 x 64) + 4 x (64, {BLOCK_T // 2}, 2 x 64) bf16; "

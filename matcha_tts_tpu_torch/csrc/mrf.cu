@@ -100,34 +100,52 @@
 // pack_packed_weights_int8 and quantize_act in mrf_packed.py).  The chain's
 // 18 convs run int8 x int8 -> int32 with per-output-channel weight scales
 // and one dynamic absmax activation scale per (conv, window).  That scale
-// makes the function depend on the window, so the window is part of it: a
-// block owns a window of tile + 2 * halo frames (halo >= the chain's reach
-// of 60, plus 3 for the tail), runs every conv over the WHOLE window as an
-// isolated sequence (zero padding at the window's edges, frames outside
-// [0, T) zeroed before each conv, as the TPU kernel does over its extended
-// tile), and keeps the centre tile.  The wrapper hands the same tile and
-// halo to the plain version.  Per conv: block absmax of the masked
-// LeakyReLU input, q = clip(rint(a * (127 / m)), +-127) into shared memory,
-// mma.sync m16n8k32 s8 x s8 -> s32 over the shifted rows (exact), then
-// fp32(acc) * (ws * m / 127) + b rounded once (the JAX kernel's XLA
-// contracts it into an FMA; here in float64, where the product is exact,
-// then one rounding to fp32, as the plain version does).  Every other
-// rounding step is an explicit _rn intrinsic, so that nvcc's contraction
-// cannot move a code across a rounding boundary and the kernel's codes
-// equal the plain version's.  The fp32 chain
-// state (residual, conv output, branch sum) of a window does not fit shared
-// memory at C >= 128, so it lives in a per-block fp32 scratch in device
-// memory (mostly L2); only the int8 conv input is in shared memory.  The
-// upsample prologue (its input rounded to bf16, as the TPU kernel's staging
-// buffer does in this mode) runs once per window in float64 FMAs and is
-// rounded once, so that its sums' order cannot move a code; it and the
-// conv_post tail stay exact.  Bound:
-// 126 C^2 int8 MACs per window frame at 1,979 TOPS against the level's bytes;
-// the halo recompute is (tile + 128) / tile.
+// makes the function depend on the window, so the window is part of it:
+// the JAX kernels' own, tile + 2 halo frames (the tile they pick for T, up
+// to 2048 super-rows, 1024 with the upsample and at C = 256; the halo of
+// their packed_meta; ops/mrf_cuda.py::int8_window), run as an isolated
+// sequence (zero padding at the window's edges, frames outside [0, T)
+// zeroed before each conv, as the TPU kernel does over its extended tile),
+// of which the centre tile is kept.  The wrapper hands the same window to
+// the plain version.
+//
+// One window runs on one thread-block cluster (up to 8 CTAs on neighbouring
+// SMs, cudaLaunchKernelEx): CTA `rank` owns a slice of `rows` window rows
+// (level 1: 8 x 272 of 2176; the last slice padded past the window, its pad
+// rows masked out of the maxima and the codes).  The slice's chain state
+// stays on chip: the fp32 residual in shared memory, each conv's sums and
+// then its fp32 output in registers (96 a thread at 384 threads), the int8
+// conv input in shared memory with kI8Pad = 25 rows of each neighbour on
+// either side (the widest conv's reach).  Per conv: the epilogue
+// dequantises fp32(acc) * (ws * s_act) + b with one fp32 FMA (the rounding
+// of XLA's FMA in the JAX kernel), adds the residual after conv2, and takes
+// the slice's partial max of the next conv's masked LeakyReLU input; the
+// partial maxima cross the cluster through distributed shared memory behind
+// one cluster barrier (max is order-free, so every split gives the plain
+// version's scale); each CTA quantises its rows from registers, q =
+// clip(rint(a * (127 / m)), +-127), and copies its first and last 25 rows
+// into its neighbours' halo rows (16-byte DSMEM stores) behind a second
+// barrier; then mma.sync m16n8k32 s8 x s8 -> s32 over the shifted rows
+// (exact), with the B fragments from a 2-stage cp.async weight ring (the
+// exact kernel's swizzle and ldmatrix reads; every CTA reads the level's
+// codes once).  Every other rounding step is an explicit _rn intrinsic, so
+// that nvcc's contraction cannot move a code across a rounding boundary and
+// the kernel's codes equal the plain version's.  The branch sum (three
+// touches) and, with the upsample, its output rows (three reads) live in a
+// per-CTA fp32 scratch in device memory.  The upsample prologue (its input
+// rounded to bf16, as the TPU kernel's staging buffer does in this mode)
+// runs per slice in float64 on the fp64 tensor cores (mma.m8n8k4.f64) and
+// is rounded once, so that its sums' order cannot move a code; conv_post's
+// tail sums in float64 too, from 3 rows of each neighbour.  Bound: 126 C^2
+// int8 MACs per window frame at 1,979 TOPS against the level's bytes; the
+// halo recompute is (tile + 2 halo) / tile, 1.06-1.09 on the main path.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1055,15 +1073,151 @@ cudaError_t dispatch(int c, int up, int post, const void* x, int batch, int t_in
 }
 
 // ---------------------------------------------------------------------------
-// int8 mode
+// int8 mode: one window over one thread-block cluster
 // ---------------------------------------------------------------------------
 
-constexpr int kI8Pad = 25;  // zero rows on each side of the window: the widest conv's half-width
-constexpr int kI8Threads = 256;
-constexpr int kI8MTiles = 4;
+constexpr int kI8Pad = 25;        // conv-input rows a slice takes from each neighbour: the widest conv's half-width
+constexpr int kI8Threads = 384;  // 170 registers a thread: room for 96 sums
+constexpr int kI8Warps = kI8Threads / 32;
+// 8-channel n-tiles a warp (32 output channels; 64 at C = 256) and the
+// 16-row m-tiles it holds at most: 96 sums a thread
+__host__ __device__ constexpr int i8_nt(int c) { return c >= 256 ? 8 : 4; }
+__host__ __device__ constexpr int i8_mt(int c) { return c >= 256 ? 3 : 6; }
+constexpr int kI8MaxCluster = 8;  // the portable cluster size
+constexpr float kInv127 = 1.f / 127.f;  // fp32(1 / 127), rounded once
+
+// The warp grid at C channels: WN warps across the channels (NT n-tiles
+// each), WM across the slice's rows (warp w takes the m-tiles w / WN + m WM,
+// m < MT).
+template <int C>
+struct I8Grid {
+  static constexpr int NT = i8_nt(C), MT = i8_mt(C);
+  static constexpr int WN = C / (8 * NT);
+  static constexpr int WM = kI8Warps / WN;
+  static_assert(WN >= 1 && WM >= 1 && WN * WM == kI8Warps && NT % 2 == 0, "int8 warp grid");
+};
+
+__host__ __device__ constexpr int i8_wm(int c) { return kI8Warps / (c / (8 * i8_nt(c))); }
+
+// The m-tiles every warp runs for a slice of `rows` rows, a template
+// parameter of the kernel (so that no branch on a warp's live m-tiles sits
+// between its mma.sync): 3 where that covers the slice, else i8_mt(c).
+__host__ __device__ constexpr int i8_nl(int c, int rows) {
+  return ceil_div(ceil_div(rows, 16), i8_wm(c)) <= 3 ? 3 : i8_mt(c);
+}
+
+// The most m-tiles a warp runs in the instances built: i8_mt(c) only
+// without the upsample, where the JAX windows' slices need it (up to 1056,
+// 536 and 272 rows at C = 32, 64, 128); with it their slices fit 3 (at most
+// 576 and 288 rows at C = 32, 64).
+__host__ __device__ constexpr int i8_max_nl(int c, bool up) { return up ? 3 : i8_mt(c); }
+
+// The most rows a slice (one CTA) holds: its warps' registers (288 at C =
+// 128, 144 at C = 256).
+__host__ __device__ constexpr int i8_max_rows(int c, bool up) {
+  return 16 * i8_wm(c) * i8_max_nl(c, up);
+}
+
+// The int8 weight ring: a slab is KC input channels (bytes) of one tap for
+// all C output channels ([C][KC], 16-byte vectors XOR-swizzled by row), a
+// chunk up to U slabs of one conv.  C = 256: KC = 32, U = 1 (8 KB stages,
+// 1,008 chunks a level); C = 128: one tap a slab and a chunk (16 KB, 126);
+// C = 64: 4 taps a chunk (16 KB, 36); C = 32: up to 11 taps, a whole conv
+// (11 KB, 18).
+__host__ __device__ constexpr int i8_kc(int c) { return c >= 256 ? 32 : c; }
+__host__ __device__ constexpr int i8_slabs(int c) { return c >= 128 ? 1 : c >= 64 ? 4 : 11; }
+__host__ __device__ constexpr int i8_ring_bytes(int c) {
+  return kRingStages * i8_slabs(c) * c * i8_kc(c);
+}
+
+// Byte offset of 16-byte vector v of row r in a [C][KC] int8 slab: the 8
+// rows of an ldmatrix read hit 8 distinct bank groups.
+template <int KC>
+__device__ __forceinline__ unsigned i8_ring_offset(int r, int v) {
+  const int swz = KC >= 128 ? (r & 7) : KC == 64 ? ((r >> 1) & 3) : ((r >> 2) & 1);
+  return r * KC + ((v ^ swz) << 4);
+}
+
+// The level's 126 int8 taps as one sequence of chunks through the ring (as
+// WeightRing, without the upsample): every thread calls next() once per
+// chunk, in chain order.
+template <int C>
+struct I8Ring {
+  static constexpr int KC = i8_kc(C), U = i8_slabs(C), S = kRingStages;
+  static constexpr int NB = C / KC;  // slabs a tap
+  static constexpr int kSlab = C * KC;
+  static constexpr int kStage = U * kSlab;
+  static constexpr int kTotal =
+      6 * (ceil_div(3 * NB, U) + ceil_div(7 * NB, U) + ceil_div(11 * NB, U));
+  static_assert(C % KC == 0 && KC % 32 == 0, "int8 weight ring");
+
+  unsigned base;
+  const int8_t* w;
+  int n;
+
+  __device__ __forceinline__ void fetch(int j) const {
+    const unsigned dst = base + (j % S) * kStage;
+    // slab s of the chunk's segment is input channels KC (s % NB) .. of its
+    // tap s / NB; one slab a chunk: slab j of the level
+    const int8_t* src = w;
+    int s0 = j, n_slabs = 126 * NB;
+    if constexpr (U > 1) {
+      int tap0 = 0;
+#pragma unroll
+      for (int br = 0; br < 3; ++br) {
+        const int k = 3 + 4 * br;
+        const int per_conv = ceil_div(k * NB, U);
+        if (j < 6 * per_conv) {
+          src = w + (size_t)(tap0 + j / per_conv * k) * C * C;
+          s0 = j % per_conv * U;
+          n_slabs = k * NB;
+          break;
+        }
+        j -= 6 * per_conv;
+        tap0 += 6 * k;
+      }
+    }
+    constexpr int VR = KC / 16;     // vectors a row
+    constexpr int kVecs = C * VR;   // vectors a slab
+#pragma unroll
+    for (int it = 0; it < ceil_div(U * kVecs, kI8Threads); ++it) {
+      const int i = threadIdx.x + it * kI8Threads;
+      const int slab = i / kVecs, r = i % kVecs / VR, v = i % VR;
+      const int sl = s0 + slab;
+      if ((U * kVecs % kI8Threads == 0 || slab < U) && (U == 1 || sl < n_slabs))
+        cp_async16(dst + slab * kSlab + i8_ring_offset<KC>(r, v),
+                   src + (size_t)(sl / NB) * C * C + (sl % NB) * KC + (size_t)r * C + v * 16);
+    }
+  }
+
+  __device__ __forceinline__ void start(unsigned smem, const int8_t* w_) {
+    base = smem;
+    w = w_;
+    n = 0;
+#pragma unroll
+    for (int j = 0; j < S - 1; ++j) {
+      fetch(j);
+      cp_async_commit();
+    }
+  }
+
+  __device__ __forceinline__ unsigned next() {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (n + S - 1 < kTotal) fetch(n + S - 1);
+    cp_async_commit();
+    return base + (n++ % S) * kStage;
+  }
+};
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
 }
 
 // c (16 x 8, s32) += a (16 x 32, s8, row-major) * b (32 x 8, s8, k-major)
@@ -1076,195 +1230,344 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsi
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Shared memory of one int8 block (bytes): the int8 conv input (window rows
-// plus kI8Pad zero rows on each side, rows of C + 16 bytes), the staging
-// buffer of the upsample input or of the tail, and a reduction scratch.
+// Shared memory of one CTA (bytes): the fp32 residual xb of its slice (in
+// fragment order: each value is read and written only by the thread that
+// computes it), the int8 conv input (kI8Pad rows from each neighbour around
+// the slice's rows, rows of C + 16 bytes), the weight ring and every CTA's
+// warps' partial maxima.  Before the chain the upsample's input rows and
+// one parity's two taps (float64), and after it the tail's input rows, reuse
+// the same bytes: a cluster barrier ends the upsample before any CTA stores
+// into a neighbour's `red` or halo rows, and another starts the tail.
 struct I8Layout {
-  int act, stage, red, total;
+  int act, ring, red, total;
 };
 
-__host__ __device__ inline I8Layout i8_layout(int c, bool up, bool post, int tile, int halo,
-                                              int elem) {
-  const int w = tile + 2 * halo;
-  const int pad = elem == 2 ? 8 : 2;
-  int stage = 0;
-  if (up) stage = (w / 2 + 4) * (2 * c + pad) * elem;
-  if (post) {
-    const int s = (tile + 2 * kPostPad) * (c + pad) * elem;
-    if (s > stage) stage = s;
-  }
+// Shared memory of the float64 upsample: its input rows (2C channels + 4,
+// fp32: the bf16-rounded values are exact there) and one parity's two taps
+// as float64 ([co][ci], rows of 2C + 4), padded so that the fragment loads
+// of mma.m8n8k4 hit distinct banks.
+__host__ __device__ constexpr int up_row_floats(int c) { return 2 * c + 4; }
+__host__ __device__ constexpr int up_tap_row(int c) { return 2 * c + 4; }
+__host__ __device__ inline int up_taps_offset(int c, int rows) {
+  return align16((rows / 2 + 4) * up_row_floats(c) * 4);
+}
+__host__ __device__ inline int up_stage_bytes(int c, int rows) {
+  return up_taps_offset(c, rows) + 2 * c * up_tap_row(c) * 8;
+}
+
+__host__ __device__ inline I8Layout i8_layout(int c, bool up, bool post, int rows, int elem) {
   I8Layout l;
-  l.act = 0;
-  l.stage = align16((w + 2 * kI8Pad) * (c + 16));
-  l.red = l.stage + align16(stage);
-  l.total = l.red + 64;
+  l.act = align16(16 * i8_wm(c) * i8_nl(c, rows) * c * 4);  // xb: every warp's m-tiles
+  l.ring = l.act + align16((rows + 2 * kI8Pad) * (c + 16));
+  l.red = l.ring + i8_ring_bytes(c);
+  l.total = l.red + kI8MaxCluster * kI8Warps * 4;  // every CTA's warps' maxima
+  if (up && up_stage_bytes(c, rows) > l.total) l.total = align16(up_stage_bytes(c, rows));
+  if (post) {  // the tail's input rows, kPostPad from each neighbour
+    const int s = (rows + 2 * kPostPad) * (c + (elem == 2 ? 8 : 4)) * elem;
+    if (s > l.total) l.total = align16(s);
+  }
   return l;
 }
 
-// fp32 scratch per block: the residual xb and conv output xt (window rows x
-// C each), the branch sum (tile + 2P rows x C) and, with the upsample, its
-// output (window rows x C).
-__host__ __device__ inline size_t i8_scratch_floats(int c, bool up, bool post, int tile,
-                                                    int halo) {
-  const int p = post ? kPostPad : 0;
-  return (size_t)((up ? 3 : 2) * (tile + 2 * halo) + tile + 2 * p) * c;
+// fp32 scratch per CTA: the branch sum in fragment order and, with the
+// upsample, its output rows ([rows][C]).
+__host__ __device__ inline size_t i8_scratch_floats(int c, bool up, int rows) {
+  return (size_t)i8_mt(c) * i8_nt(c) * 4 * kI8Threads + (up ? (size_t)rows * c : 0);
 }
 
-// xup[r, co] = bup[co] + sum over the two taps of output frame g0 + r of
-// stage[input row, ci] * w[tap, co, ci] (the flipped transpose-conv weights,
-// as in upsample_rows), in float64 and rounded once to fp32.  The lanes of a
-// warp take neighbouring rows of one channel, so that they share each
-// weight load.
+// Whether a cluster plan is one the kernel takes: n_cta slices of `rows`
+// window rows cover the window, each slice holds at least one window row
+// and, with neighbours, the widest conv's half-width; registers and shared
+// memory hold a slice.
+inline bool i8_plan_ok(int c, bool up, bool post, int tile, int halo, int n_cta, int rows,
+                       int elem) {
+  const int wr = tile + 2 * halo;
+  return (c == 32 || c == 64 || c == 128 || c == 256) && tile > 0 &&
+         halo >= (post ? kPostPad : 0) && n_cta >= 1 && n_cta <= kI8MaxCluster &&
+         rows <= i8_max_rows(c, up) && (n_cta == 1 || rows >= kI8Pad) && n_cta * rows >= wr &&
+         (n_cta - 1) * rows < wr && i8_layout(c, up, post, rows, elem).total <= 232448;
+}
+
+// d (8 x 8, f64) += a (8 x 4, f64, row-major) * b (4 x 8, f64, k-major), on
+// the fp64 tensor cores.  Fragments (lane = 4 g + q): a (g, q), b (k = q,
+// n = g), d[e] (g, 2 q + e).
+__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(d[0]), "+d"(d[1])
+               : "d"(a), "d"(b));
+}
+
+// xup[r, co] = bup[co] + sum over the two taps of output frame t = f0 + r
+// of in[input row, ci] * w[tap, co, ci] (the flipped transpose-conv weights,
+// as in upsample_rows; `in` the input's LeakyReLU rounded to bf16, as the TPU
+// kernel's staging buffer does in this mode), in float64 and rounded once to
+// fp32, so that no order of the sums moves a code.  Per output parity p a
+// two-tap conv, a product of (rows of parity p) x (2 taps x 2C) and (2 taps x
+// 2C) x C: frame t reads input rows s0 and s0 + 1, s0 = (t + p - 2) / 2, with
+// taps p and p + 2.  The input rows (fp32) and the parity's two taps
+// (float64, each converted once: a conversion of 64-bit type runs at a
+// quarter of the fp64 FMA rate) sit in shared memory; a warp takes 32 rows
+// of the parity by 32 channels as 4 x 4 blocks of mma.m8n8k4.f64 (the fp64
+// tensor cores, twice the rate of fp64 FMAs), converting each input value
+// once for its 4 blocks.
 template <typename T, int C>
-__device__ __forceinline__ void upsample_rows_f64(const T* stage, int ss_in, int n, int g0,
-                                                  int in0, const T* __restrict__ w,
-                                                  const T* __restrict__ bias, float* xup) {
+__device__ __forceinline__ void upsample_f64(const T* __restrict__ x, int t_in, int f0, int rows,
+                                             const T* __restrict__ w, const T* __restrict__ bias,
+                                             unsigned char* smem, float* xup) {
   constexpr int CIN = 2 * C;
-  for (int i = threadIdx.x; i < n * C; i += kI8Threads) {
-    const int co = i / n, r = i % n;
-    const int t = g0 + r;
-    const int par = t & 1;
-    const int s0 = floor_div2(t + par - 2) - in0;
-    double acc = (double)to_f(bias[co]);
-#pragma unroll
-    for (int step = 0; step < 2; ++step) {
-      const T* src = stage + (s0 + step) * ss_in;
-      const T* wt = w + (size_t)(par + 2 * step) * C * CIN + (size_t)co * CIN;
-      for (int ci = 0; ci < CIN; ++ci)
-        acc = __fma_rn((double)to_f(src[ci]), (double)to_f(__ldg(wt + ci)), acc);
-    }
-    xup[(size_t)r * C + co] = __double2float_rn(acc);
-  }
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    v = threadIdx.x < kI8Threads / 32 ? red[threadIdx.x] : 0.f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if (threadIdx.x == 0) red[kI8Threads / 32] = v;
-  }
-  __syncthreads();
-  return red[kI8Threads / 32];
-}
-
-// act <- clip(rint(a * 127 / m)) for a = lrelu(src) on window rows whose
-// frame lies in [0, t_len) and 0 elsewhere, m = max |a| over the window;
-// returns the activation scale m / 127 (1 when m == 0).  `src` is this
-// block's fp32 scratch (written in this launch: plain loads).
-template <int C>
-__device__ __forceinline__ float quantize_window(const float* src, int w, int g0, int t_len,
-                                                 int8_t* act, float* red) {
-  float m = 0.f;
-  for (int i = threadIdx.x; i < w * C; i += kI8Threads) {
-    const int t = g0 + i / C;
-    if (t >= 0 && t < t_len) m = fmaxf(m, fabsf(lrelu(src[i], kSlope)));
-  }
-  m = block_max(m, red);
-  const float inv = m > 0.f ? __fdiv_rn(127.f, m) : 0.f;
-  for (int i = threadIdx.x; i < w * C; i += kI8Threads) {
-    const int r = i / C, c = i % C;
-    const int t = g0 + r;
-    float q = 0.f;
-    if (t >= 0 && t < t_len) q = fminf(fmaxf(rintf(__fmul_rn(lrelu(src[i], kSlope), inv)), -127.f), 127.f);
-    act[(kI8Pad + r) * (C + 16) + c] = static_cast<int8_t>(q);
-  }
-  __syncthreads();
-  return m > 0.f ? __fdiv_rn(m, 127.f) : 1.f;
-}
-
-// fp32(acc) * scale + bias with one rounding: the float64 product of two
-// fp32 values is exact, then one float64 add and one rounding to fp32.
-__device__ __forceinline__ float dequant(int acc, float scale, float bias) {
-  return __double2float_rn(
-      __dadd_rn(__dmul_rn((double)__int2float_rn(acc), (double)scale), (double)bias));
-}
-
-// dst[r, co] (=, or += when ADD) acc * (ws[co] * s_act) + bias[co], where
-// acc = sum_{tap, ci} act[r + tap * d - half, ci] * w[tap, co, ci] (int32,
-// exact) for every window row r in [0, w_rows).  Warps split C into slices
-// of 32 channels and the rows into interleaved 16-row m-tiles.
-template <int C, bool ADD>
-__device__ __forceinline__ void conv_i8(const int8_t* act, int w_rows, int k, int d,
-                                        const int8_t* __restrict__ w,
-                                        const float* __restrict__ bias,
-                                        const float* __restrict__ ws, float s_act, float* dst) {
-  constexpr int SA = C + 16;
-  constexpr int WN = C / 32;
-  constexpr int WM = kI8Threads / 32 / WN;
-  static_assert(WN >= 1 && WM >= 1 && WN * WM * 32 == kI8Threads, "warp grid");
+  constexpr int SF = up_row_floats(C);
+  constexpr int WS = up_tap_row(C);
+  constexpr int NCT = C / 32;  // 32-channel tiles
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, qd = lane % 4;
-  const int n0 = (warp % WN) * 32;
-  const int half = (k - 1) / 2 * d;
-  const int n_mt = w_rows / 16;
-  float sc[4][2], bv[4][2];
+  const int g = lane / 4, q = lane % 4;
+  const int in0 = floor_div2(f0 - 2);
+  const int n_in = floor_div2(f0 + rows + 1) - in0 + 1;
+  float* xin = reinterpret_cast<float*>(smem);
+  double* wd = reinterpret_cast<double*>(smem + up_taps_offset(C, rows));
+  constexpr int VE = 16 / sizeof(T);  // elements a 16-byte load
+  for (int i = threadIdx.x; i < n_in * CIN / VE; i += kI8Threads) {
+    const int r = i / (CIN / VE), c = i % (CIN / VE) * VE;
+    const int t = in0 + r;
+    int4 raw = make_int4(0, 0, 0, 0);  // zero bits: +0 in T
+    if (t >= 0 && t < t_in) raw = __ldg(reinterpret_cast<const int4*>(x + (size_t)t * CIN + c));
+    const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+    for (int u = 0; u < VE; ++u) xin[r * SF + c + u] = round_bf16(lrelu(to_f(e[u]), kSlope));
+  }
+#pragma unroll 1
+  for (int p = 0; p < 2; ++p) {
+    __syncthreads();  // every thread is done with the previous parity's taps
+    for (int i = threadIdx.x; i < 2 * C * CIN / VE; i += kI8Threads) {
+      const int row = i / (CIN / VE), c = i % (CIN / VE) * VE;  // row: step * C + co
+      const int4 raw = __ldg(reinterpret_cast<const int4*>(
+          w + (size_t)(p + 2 * (row / C)) * C * CIN + (size_t)(row % C) * CIN + c));
+      const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int co = n0 + nt * 8 + 2 * qd + e;
-      sc[nt][e] = __fmul_rn(ws[co], s_act);
-      bv[nt][e] = bias[co];
+      for (int u = 0; u < VE; ++u) wd[row * WS + c + u] = (double)to_f(e[u]);
     }
-  for (int mt0 = warp / WN; mt0 < n_mt; mt0 += WM * kI8MTiles) {
-    int acc[kI8MTiles][4][4];
-    unsigned a_row[kI8MTiles];
+    __syncthreads();
+    const int r0 = (p - f0) & 1;  // the first slice row of parity p
+    const int n_p = rows > r0 ? (rows - r0 + 1) / 2 : 0;
+    const int n_tiles = ceil_div(n_p, 32) * NCT;
+    for (int tl = warp; tl < n_tiles; tl += kI8Warps) {
+      const int i0 = tl / NCT * 32, c0 = tl % NCT * 32;
+      const float* arow[4];  // this lane's A row (input row s0) of each 8-row block
 #pragma unroll
-    for (int m = 0; m < kI8MTiles; ++m) {
-      const int mt = mt0 + m * WM;
-      const int r = (mt < n_mt ? mt : 0) * 16 + (lane & 15);
-      a_row[m] = smem_addr(act + (kI8Pad + r - half) * SA + (lane >> 4) * 16);
+      for (int mb = 0; mb < 4; ++mb) {
+        const int i = i0 + mb * 8 + g;
+        const int r = r0 + 2 * (i < n_p ? i : n_p - 1);
+        arow[mb] = xin + (floor_div2(f0 + r + p - 2) - in0) * SF + q;
+      }
+      double acc[4][4][2];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int nb = 0; nb < 4; ++nb)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0;
-    }
-    for (int tap = 0; tap < k; ++tap) {
-      const unsigned a_tap = tap * d * SA;
-      const int8_t* wt = w + (size_t)tap * C * C + (size_t)(n0 + g) * C + 4 * qd;
-#pragma unroll 2
-      for (int kk = 0; kk < C; kk += 32) {
-        unsigned b[4][2];
+        for (int e = 0; e < 2; ++e) {
+          const double bv = (double)to_f(bias[c0 + nb * 8 + 2 * q + e]);
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const unsigned* p = reinterpret_cast<const unsigned*>(wt + nt * 8 * C + kk);
-          b[nt][0] = __ldg(p);
-          b[nt][1] = __ldg(p + 4);
+          for (int mb = 0; mb < 4; ++mb) acc[mb][nb][e] = bv;
         }
+#pragma unroll 1
+      for (int step = 0; step < 2; ++step) {
+        const double* bcol = wd + (size_t)(step * C + c0 + g) * WS + q;  // n = g, k = q
+#pragma unroll 4
+        for (int ci = 0; ci < CIN; ci += 4) {
+          double a[4], b[4];
 #pragma unroll
-        for (int m = 0; m < kI8MTiles; ++m) {
-          if (mt0 + m * WM >= n_mt) break;
-          unsigned a[4];
-          ldmatrix_x4(a_row[m] + a_tap + kk, a);
+          for (int mb = 0; mb < 4; ++mb) a[mb] = (double)arow[mb][step * SF + ci];
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_s8(acc[m][nt], a, b[nt][0], b[nt][1]);
+          for (int nb = 0; nb < 4; ++nb) b[nb] = bcol[nb * 8 * WS + ci];
+#pragma unroll
+          for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) mma_f64(acc[mb][nb], a[mb], b[nb]);
         }
       }
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) {
+        const int i = i0 + mb * 8 + g;
+        if (i >= n_p) continue;
+        const int r = r0 + 2 * i;
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+          *reinterpret_cast<float2*>(xup + (size_t)r * C + c0 + nb * 8 + 2 * q) =
+              make_float2(__double2float_rn(acc[mb][nb][0]), __double2float_rn(acc[mb][nb][1]));
+      }
     }
+  }
+  __syncthreads();
+}
+
+// fp32(acc) * scale + bias with one rounding: the fused multiply-add that
+// XLA makes of it in the JAX kernel (the plain version computes the same
+// rounding exactly in float64).
+__device__ __forceinline__ float dequant(int acc, float scale, float bias) {
+  return __fmaf_rn(__int2float_rn(acc), scale, bias);
+}
+
+// The int8 code of v: clip(rint(lrelu(v) * inv), +-127), as the low byte of
+// the fp32 sum 1.5 2^23 + clip(lrelu(v) * inv, +-127), which rounds to the
+// nearest integer, ties to even, as rint does (clipping before rounding
+// gives the same code), and leaves its two's complement in the low bits:
+// no float-to-int conversion (16 a clock on an SM).
+__device__ __forceinline__ uint32_t code_bits(float v, float inv) {
+  const float a = fminf(fmaxf(__fmul_rn(lrelu(v, kSlope), inv), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(a, 12582912.f)) & 0xffu;
+}
+
+// The codes of two neighbouring channels as the two bytes of one conv-input
+// row.
+__device__ __forceinline__ uint16_t quant_pair(float a, float b, float inv) {
+  return static_cast<uint16_t>(code_bits(a, inv) | (code_bits(b, inv) << 8));
+}
+
+// One CTA's slice of a window and this thread's place in it.  The thread's
+// values of a conv output are v[m][nt][j]: slice row row(m, j), channels
+// col(nt) + j % 2 (the mma accumulator layout).
+template <int C>
+struct I8Slice {
+  int rank, n_cta;  // this CTA in the cluster
+  int rows;         // slice rows (the last slice's rows past the window are padding)
+  int n_in;         // slice rows inside the window
+  int w0, f0;       // window row and frame of slice row 0
+  int t_len;        // frames of the sequence
+  int mt0, n0, g, qd;
+
+  __device__ __forceinline__ int row(int m, int j) const {
+    return (mt0 + m * I8Grid<C>::WM) * 16 + g + 8 * (j >> 1);
+  }
+  __device__ __forceinline__ int col(int nt) const { return n0 + nt * 8 + 2 * qd; }
+  // a window row inside the sequence: the conv inputs' mask
+  __device__ __forceinline__ bool valid(int r) const {
+    const int t = f0 + r;
+    return r < n_in && t >= 0 && t < t_len;
+  }
+};
+
+// The next conv's input from this thread's values v (fp32 bits, slice rows): the
+// window's max m of |lrelu(v)| over its rows inside the sequence (each
+// warp's partial max exchanged through distributed shared memory behind one
+// cluster barrier; max is order-free, so every split gives the plain
+// version's m), then q = clip(rint(lrelu(v) * (127 / m)), +-127), 0 on
+// masked rows, into this CTA's conv-input rows and into the halo rows of its
+// neighbours' (behind a second barrier).  Returns the activation scale
+// m * fp32(1 / 127), the JAX kernel's m / 127.0 as XLA computes it (1
+// when m == 0).
+template <int C, int NL>
+__device__ __forceinline__ float i8_finish(const int (&v)[NL][I8Grid<C>::NT][4],
+                                           const I8Slice<C>& s, int8_t* act, float* red,
+                                           cg::cluster_group& cluster) {
+  constexpr int SA = C + 16;
+  const int lane = threadIdx.x % 32;
+  float mx = 0.f;
 #pragma unroll
-    for (int m = 0; m < kI8MTiles; ++m) {
-      if (mt0 + m * WM >= n_mt) break;
-      const int rbase = (mt0 + m * WM) * 16 + g;
+  for (int m = 0; m < NL; ++m) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + nt * 8 + 2 * qd;
+    for (int j = 0; j < 4; j += 2) {
+      if (!s.valid(s.row(m, j))) continue;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float* o = dst + (size_t)(rbase + 8 * h) * C + col;
-          const float v0 = dequant(acc[m][nt][2 * h], sc[nt][0], bv[nt][0]);
-          const float v1 = dequant(acc[m][nt][2 * h + 1], sc[nt][1], bv[nt][1]);
-          if (ADD) {
-            o[0] = __fadd_rn(o[0], v0);
-            o[1] = __fadd_rn(o[1], v1);
-          } else {
-            o[0] = v0;
-            o[1] = v1;
-          }
+      for (int nt = 0; nt < I8Grid<C>::NT; ++nt)
+        mx = fmaxf(mx, fmaxf(fabsf(lrelu(__int_as_float(v[m][nt][j]), kSlope)),
+                             fabsf(lrelu(__int_as_float(v[m][nt][j + 1]), kSlope))));
+    }
+  }
+  mx = warp_max(mx);
+  // each warp's partial max into every CTA's red[rank][warp] (remote
+  // stores), then after the barrier the window's max from local reads
+  if (lane < s.n_cta)
+    *cluster.map_shared_rank(red + s.rank * kI8Warps + threadIdx.x / 32, lane) = mx;
+  cluster.sync();
+  mx = 0.f;
+  for (int i = lane; i < s.n_cta * kI8Warps; i += 32) mx = fmaxf(mx, red[i]);
+  mx = warp_max(mx);
+  const float inv = mx > 0.f ? __fdiv_rn(127.f, mx) : 0.f;
+#pragma unroll
+  for (int m = 0; m < NL; ++m) {
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      const int r = s.row(m, j);
+      if (r >= s.rows) continue;
+      const bool ok = s.valid(r);
+#pragma unroll
+      for (int nt = 0; nt < I8Grid<C>::NT; ++nt) {
+        const uint16_t q =
+            ok ? quant_pair(__int_as_float(v[m][nt][j]), __int_as_float(v[m][nt][j + 1]), inv)
+               : 0;
+        *reinterpret_cast<uint16_t*>(act + (kI8Pad + r) * SA + s.col(nt)) = q;
+      }
+    }
+  }
+  __syncthreads();
+  // the slice's first and last kI8Pad rows into the neighbours' halo rows,
+  // 16 bytes a copy
+  constexpr int VR = C / 16;  // 16-byte vectors a row
+  for (int i = threadIdx.x; i < 2 * kI8Pad * VR; i += kI8Threads) {
+    const int side = i / (kI8Pad * VR), r = i % (kI8Pad * VR) / VR, vec = i % VR;
+    const int nb = side == 0 ? s.rank - 1 : s.rank + 1;
+    if (nb < 0 || nb >= s.n_cta) continue;
+    const int src = side == 0 ? kI8Pad + r : s.rows + r;  // own rows 0.. / rows - kI8Pad..
+    const int dst = side == 0 ? kI8Pad + s.rows + r : r;  // its bottom / top halo rows
+    *reinterpret_cast<int4*>(cluster.map_shared_rank(act, nb) + dst * SA + vec * 16) =
+        *reinterpret_cast<const int4*>(act + src * SA + vec * 16);
+  }
+  cluster.sync();
+  return mx > 0.f ? __fmul_rn(mx, kInv127) : 1.f;
+}
+
+// acc[m][nt] = sum_{tap, ci} act[r + tap * d - half, ci] * w[tap, co, ci]
+// (int32, exact) for this thread's slice rows r and channels co, with the
+// weights from the ring: mma.sync m16n8k32 s8, A fragments by ldmatrix from
+// the conv-input rows (each tap the same rows shifted by tap * d), B
+// fragments by ldmatrix from the ring's slab.
+template <int C, int NL>
+__device__ __forceinline__ void conv_i8(int (&acc)[NL][I8Grid<C>::NT][4],
+                                        const int8_t* act,
+                                        const I8Slice<C>& s, int k, int d, I8Ring<C>& ring) {
+  using R = I8Ring<C>;
+  constexpr int SA = C + 16;
+  const int lane = threadIdx.x % 32;
+  const int half = (k - 1) / 2 * d;
+  unsigned a_row[NL];  // this lane's A row at tap 0
+#pragma unroll
+  for (int m = 0; m < NL; ++m) {
+    int r = (s.mt0 + m * I8Grid<C>::WM) * 16 + (lane & 15);
+    r = r < s.rows ? r : s.rows - 1;  // ragged or idle m-tile: read a valid row
+    a_row[m] = smem_addr(act + (kI8Pad + r - half) * SA + (lane >> 4) * 16);
+#pragma unroll
+    for (int nt = 0; nt < I8Grid<C>::NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][nt][j] = 0;
+  }
+  // one ldmatrix.x4 gives n-tiles 2 pr and 2 pr + 1 (b0, b1 each): lane l
+  // addresses row l % 8 of matrix l / 8 (k half l / 8 % 2, n-tile l / 16)
+  const int brow = s.n0 + (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int khalf = (lane >> 3) & 1;
+  for (int s0 = 0; s0 < k * R::NB; s0 += R::U) {
+    const unsigned stage = ring.next();
+#pragma unroll
+    for (int i = 0; i < R::U; ++i) {
+      const int sl = s0 + i;  // tap sl / NB, input channels KC (sl % NB) ..
+      if (sl >= k * R::NB) break;
+      const unsigned a_off = sl / R::NB * d * SA + sl % R::NB * R::KC;
+      const unsigned slab = stage + i * R::kSlab;
+#pragma unroll
+      for (int kk = 0; kk < R::KC; kk += 32) {
+        unsigned b[I8Grid<C>::NT][2];
+#pragma unroll
+        for (int pr = 0; pr < I8Grid<C>::NT / 2; ++pr) {
+          unsigned r4[4];
+          ldmatrix_x4(slab + i8_ring_offset<R::KC>(brow + 16 * pr, kk / 16 + khalf), r4);
+          b[2 * pr][0] = r4[0];
+          b[2 * pr][1] = r4[1];
+          b[2 * pr + 1][0] = r4[2];
+          b[2 * pr + 1][1] = r4[3];
+        }
+#pragma unroll
+        for (int m = 0; m < NL; ++m) {
+          unsigned a[4];
+          ldmatrix_x4(a_row[m] + a_off + kk, a);
+#pragma unroll
+          for (int nt = 0; nt < I8Grid<C>::NT; ++nt) mma_s8(acc[m][nt], a, b[nt][0], b[nt][1]);
         }
       }
     }
@@ -1273,147 +1576,297 @@ __device__ __forceinline__ void conv_i8(const int8_t* act, int w_rows, int k, in
 
 // x: (B, t_in, C_in) in T, C_in = 2C when UP; w: (126, C, C) int8 codes
 // [tap][co][ci] in chain order; b, ws: (18, C) fp32; wup, bup, wpost, bpost
-// in T as for mrf_level_kernel; scratch: i8_scratch_floats per block.
-// grid (ceil(t_out / tile), B).
-template <typename T, int C, bool UP, bool POST>
-__global__ void __launch_bounds__(kI8Threads) mrf_int8_kernel(
-    const T* __restrict__ x, int t_in, int t_out, int tile, int halo,
+// in T as for mrf_level_kernel; scratch: i8_scratch_floats per CTA.  Grid
+// (n_cta, windows, B) in clusters of (n_cta, 1, 1): cluster (y, z) runs
+// window y of batch row z, window rows [0, tile + 2 halo) <-> frames
+// y tile - halo + row; CTA `rank` owns the slice of window rows
+// [rank rows, (rank + 1) rows).
+template <typename T, int C, bool UP, bool POST, int NL>
+__global__ void __launch_bounds__(kI8Threads, 1) mrf_int8_kernel(
+    const T* __restrict__ x, int t_in, int t_out, int tile, int halo, int rows,
     const T* __restrict__ wup, const T* __restrict__ bup, const int8_t* __restrict__ w,
     const float* __restrict__ b, const float* __restrict__ ws,
-    const T* __restrict__ wpost, const T* __restrict__ bpost, float* scratch,
+    const T* __restrict__ wpost, const T* __restrict__ bpost, float* __restrict__ scratch,
     T* __restrict__ out, T* __restrict__ wav) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const I8Layout L = i8_layout(C, UP, POST, tile, halo, sizeof(T));
-  int8_t* act = reinterpret_cast<int8_t*>(smem + L.act);
-  T* stage = reinterpret_cast<T*>(smem + L.stage);
-  float* red = reinterpret_cast<float*>(smem + L.red);
-  constexpr int CIN = UP ? 2 * C : C;
-  constexpr int P = POST ? kPostPad : 0;
+  using G = I8Grid<C>;
   constexpr int SA = C + 16;
-  const int pad = sizeof(T) == 2 ? 8 : 2;
-  const int wr = tile + 2 * halo;  // window rows
-  const int bi = blockIdx.y;
-  const int t0 = blockIdx.x * tile;
-  const int g0 = t0 - halo;  // frame of window row 0
-  const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  float* xb = scratch + blk * i8_scratch_floats(C, UP, POST, tile, halo);
-  float* xt = xb + (size_t)wr * C;
-  float* accb = xt + (size_t)wr * C;
-  float* xup = accb + (size_t)(tile + 2 * P) * C;  // UP only
-  const int n_acc = (tile + 2 * P) * C;
-  const T* xrow = x + (size_t)bi * t_in * CIN;
+  constexpr int P = POST ? kPostPad : 0;
+  constexpr int CIN = UP ? 2 * C : C;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const I8Layout L = i8_layout(C, UP, POST, rows, sizeof(T));
+  float* xb = reinterpret_cast<float*>(smem);
+  int8_t* act = reinterpret_cast<int8_t*>(smem + L.act);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  const int bi = blockIdx.z;
+  const int t0 = blockIdx.y * tile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  I8Slice<C> s;
+  s.rank = blockIdx.x;
+  s.n_cta = gridDim.x;
+  s.rows = rows;
+  s.w0 = s.rank * rows;
+  s.n_in = min(rows, tile + 2 * halo - s.w0);
+  s.f0 = t0 - halo + s.w0;
+  s.t_len = t_out;
+  s.g = lane / 4;
+  s.qd = lane % 4;
+  s.n0 = (warp % G::WN) * 8 * G::NT;
+  s.mt0 = warp / G::WN;
+  const size_t cta = ((size_t)bi * gridDim.y + blockIdx.y) * gridDim.x + s.rank;
+  float* sums = scratch + cta * i8_scratch_floats(C, UP, rows);  // fragment order
+  float* xup = sums + (size_t)G::MT * G::NT * 4 * kI8Threads;                   // UP: [rows][C]
+  // this thread's xb value (m, nt, j): the warps of a row of the grid side
+  // by side, so that each (m, nt, j) is 128 contiguous bytes a warp
+  auto xb_at = [&](int m, int nt, int j) -> float& {
+    const int mt = s.mt0 + m * G::WM;
+    return xb[(((mt * G::NT + nt) * 4 + j) * G::WN + warp % G::WN) * 32 + lane];
+  };
+  auto sum_at = [&](int m, int nt, int j) -> float& {
+    return sums[((m * G::NT + nt) * 4 + j) * kI8Threads + threadIdx.x];
+  };
 
-  for (int i = threadIdx.x; i < (wr + 2 * kI8Pad) * SA; i += kI8Threads) act[i] = 0;
-  for (int i = threadIdx.x; i < n_acc; i += kI8Threads) accb[i] = 0.f;
-  if (UP) {
-    const int in0 = floor_div2(g0 - 2);
-    const int n_in = floor_div2(g0 + wr + 1) - in0 + 1;
-    const int ss_in = CIN + pad;
-    for (int i = threadIdx.x; i < n_in * CIN; i += kI8Threads) {
-      const int s = i / CIN, c = i % CIN;
-      const int t = in0 + s;
-      float v = 0.f;
-      if (t >= 0 && t < t_in) v = round_bf16(lrelu(to_f(xrow[(size_t)t * CIN + c]), kSlope));
-      stage[s * ss_in + c] = from_f<T>(v);
-    }
-    __syncthreads();
-    upsample_rows_f64<T, C>(stage, ss_in, wr, g0, in0, wup, bup, xup);
+  if constexpr (UP) {
+    upsample_f64<T, C>(x + (size_t)bi * t_in * CIN, t_in, s.f0, rows, wup, bup, smem, xup);
   }
+  // the conv-input rows start at zero: the window's edges read these
+  for (int i = threadIdx.x * 16; i < (rows + 2 * kI8Pad) * SA; i += kI8Threads * 16)
+    *reinterpret_cast<int4*>(act + i) = make_int4(0, 0, 0, 0);
+  I8Ring<C> ring;
+  ring.start(smem_addr(smem + L.ring), w);
+  // every CTA of the cluster is running and done with the upsample's
+  // staging, which `red` and the halo rows overlay, before the first
+  // remote store into its shared memory
+  cluster.sync();
 
-  size_t w_off = 0;
-  int n_conv = 0;
+  // v: this thread's conv sums (int32) and, from the epilogue on, the fp32
+  // values of the same elements (their bits), one array so that the two
+  // never hold registers at once
+  int v[NL][G::NT][4];
+  int conv = 0;
 #pragma unroll 1
   for (int br = 0; br < 3; ++br) {
     const int k = 3 + 4 * br;
-    __syncthreads();
-    if (UP) {
-      for (int i = threadIdx.x; i < wr * C; i += kI8Threads) xb[i] = xup[i];
-    } else {
-      for (int i = threadIdx.x; i < wr * C; i += kI8Threads) {
-        const int t = g0 + i / C;
-        xb[i] = (t >= 0 && t < t_out) ? to_f(xrow[(size_t)t * C + i % C]) : 0.f;
+    // the branch's residual starts as the level input (0 outside the
+    // sequence), or the upsample's output
+#pragma unroll
+    for (int m = 0; m < NL; ++m) {
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        const int r = s.row(m, j);
+        const int t = s.f0 + r;
+        const bool live = r < rows;
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt) {
+          const int col = s.col(nt);
+          float2 a = make_float2(0.f, 0.f);
+          if constexpr (UP) {
+            if (live) a = *reinterpret_cast<const float2*>(xup + (size_t)r * C + col);
+          } else {
+            if (live && t >= 0 && t < t_out) a = ldg2(x + ((size_t)bi * t_out + t) * C + col);
+          }
+          v[m][nt][j] = __float_as_int(a.x);
+          v[m][nt][j + 1] = __float_as_int(a.y);
+          xb_at(m, nt, j) = a.x;
+          xb_at(m, nt, j + 1) = a.y;
+        }
       }
     }
-    __syncthreads();
+    float s_act = i8_finish<C, NL>(v, s, act, red, cluster);
 #pragma unroll 1
-    for (int m = 0; m < 3; ++m) {
-      const int d = 2 * m + 1;
-      float s_act = quantize_window<C>(xb, wr, g0, t_out, act, red);
-      conv_i8<C, false>(act, wr, k, d, w + w_off, b + n_conv * C, ws + n_conv * C, s_act, xt);
-      w_off += (size_t)k * C * C;
-      ++n_conv;
-      __syncthreads();
-      s_act = quantize_window<C>(xt, wr, g0, t_out, act, red);
-      conv_i8<C, true>(act, wr, k, 1, w + w_off, b + n_conv * C, ws + n_conv * C, s_act, xb);
-      w_off += (size_t)k * C * C;
-      ++n_conv;
-      __syncthreads();
-    }
-    // window rows [halo - P, halo + tile + P) are the branch's output
-    for (int i = threadIdx.x; i < n_acc; i += kI8Threads)
-      accb[i] = __fadd_rn(accb[i], xb[(size_t)(halo - P) * C + i]);
-  }
-  __syncthreads();
-
-  if (!POST) {
-    T* orow = out + (size_t)bi * t_out * C;
-    for (int i = threadIdx.x; i < tile * C; i += kI8Threads) {
-      const int t = t0 + i / C;
-      if (t < t_out) orow[(size_t)t0 * C + i] = from_f<T>(__fdiv_rn(accb[i], 3.f));
-    }
-    return;
-  }
-
-  // tail: LeakyReLU(0.01) -> conv_post (k=7, C -> 1, padding 3) -> tanh
-  const int ss = C + pad;
-  for (int i = threadIdx.x; i < n_acc; i += kI8Threads) {
-    const int r = i / C, c = i % C;
-    const int t = t0 - P + r;
-    const float v = (t >= 0 && t < t_out) ? lrelu(__fdiv_rn(accb[i], 3.f), kPostSlope) : 0.f;
-    stage[r * ss + c] = from_f<T>(v);
-  }
-  __syncthreads();
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const float bias_post = to_f(bpost[0]);
-  for (int r = warp; r < tile; r += kI8Threads / 32) {
-    float s = 0.f;
-    for (int tap = 0; tap < kPostK; ++tap)
-      for (int c = lane; c < C; c += 32)
-        s = fmaf(to_f(stage[(r + tap) * ss + c]), to_f(wpost[tap * C + c]), s);
+    for (int sb = 0; sb < 3; ++sb) {
+#pragma unroll 1
+      for (int which = 0; which < 2; ++which) {  // conv1 (dilation 2 sb + 1), then conv2
+        conv_i8<C, NL>(v, act, s, k, which == 0 ? 2 * sb + 1 : 1, ring);
+        // this conv's scales and biases, after its products: loaded before
+        // them, they hold 16 registers through the products, which cost level
+        // 1 0.065 ms in spills (tools/mrf_variants.py early_scales)
+        float sc[G::NT][2], bv[G::NT][2];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const int t = t0 + r;
-    if (lane == 0 && t < t_out) wav[(size_t)bi * t_out + t] = from_f<T>(tanhf(bias_post + s));
+        for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int co = s.col(nt) + e;
+            sc[nt][e] = __fmul_rn(__ldg(ws + conv * C + co), s_act);
+            bv[nt][e] = __ldg(b + conv * C + co);
+          }
+        ++conv;
+        // the epilogue: the dequantised conv output, after conv2 added to
+        // the residual (and kept there but after the branch's last conv)
+#pragma unroll
+        for (int m = 0; m < NL; ++m)
+#pragma unroll
+          for (int nt = 0; nt < G::NT; ++nt)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float y = dequant(v[m][nt][j], sc[nt][j & 1], bv[nt][j & 1]);
+              if (which == 1) {
+                y = __fadd_rn(xb_at(m, nt, j), y);
+                if (sb < 2) xb_at(m, nt, j) = y;
+              }
+              v[m][nt][j] = __float_as_int(y);
+            }
+        if (which == 1 && sb == 2) break;  // the branch's output: into the branch sum below
+        s_act = i8_finish<C, NL>(v, s, act, red, cluster);
+      }
+    }
+    // window rows [halo - P, halo + tile + P) are the branch's output: summed
+    // in branch order; after the last branch v holds the level's mean there
+#pragma unroll
+    for (int m = 0; m < NL; ++m) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int wrow = s.w0 + s.row(m, j);
+        if (s.row(m, j) >= rows || wrow < halo - P || wrow >= halo + tile + P) continue;
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt) {
+          float& sum = sum_at(m, nt, j);
+          const float val = __int_as_float(v[m][nt][j]);
+          const float acc_br = br == 0 ? val : __fadd_rn(sum, val);
+          if (br < 2) {
+            sum = acc_br;
+          } else {
+            v[m][nt][j] = __float_as_int(__fdiv_rn(acc_br, 3.f));
+          }
+        }
+      }
+    }
   }
+
+  if constexpr (!POST) {
+#pragma unroll
+    for (int m = 0; m < NL; ++m) {
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        const int r = s.row(m, j);
+        const int wrow = s.w0 + r, t = s.f0 + r;
+        if (r >= rows || wrow < halo || wrow >= halo + tile || t >= t_out) continue;
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt)
+          store2(out + ((size_t)bi * t_out + t) * C + s.col(nt), __int_as_float(v[m][nt][j]),
+                 __int_as_float(v[m][nt][j + 1]));
+      }
+    }
+  } else {
+    // tail: LeakyReLU(0.01) -> conv_post (k=7, C -> 1, padding 3) -> tanh.
+    // Its input rows (the slice's and kPostPad from each neighbour) reuse
+    // the shared memory of xb and the conv input, which every CTA of the
+    // cluster is done with after this barrier.  The sum is float64, rounded
+    // once to fp32, as the plain version's: no order of the sums moves the
+    // output (in bf16, one rounding step of the wav).
+    constexpr int SS = C + (sizeof(T) == 2 ? 8 : 4);
+    cluster.sync();
+    T* st = reinterpret_cast<T*>(smem);
+    T* above = s.rank > 0 ? cluster.map_shared_rank(st, s.rank - 1) : nullptr;
+    T* below = s.rank + 1 < s.n_cta ? cluster.map_shared_rank(st, s.rank + 1) : nullptr;
+#pragma unroll
+    for (int m = 0; m < NL; ++m) {
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        const int r = s.row(m, j);
+        if (r >= rows) continue;
+        const int wrow = s.w0 + r;
+        const bool ok = wrow >= halo - P && wrow < halo + tile + P && s.valid(r);
+#pragma unroll
+        for (int nt = 0; nt < G::NT; ++nt) {
+          const int col = s.col(nt);
+          const float a0 = ok ? lrelu(__int_as_float(v[m][nt][j]), kPostSlope) : 0.f;
+          const float a1 = ok ? lrelu(__int_as_float(v[m][nt][j + 1]), kPostSlope) : 0.f;
+          store2(st + (r + P) * SS + col, a0, a1);
+          if (above && r < P) store2(above + (rows + P + r) * SS + col, a0, a1);
+          if (below && r >= rows - P) store2(below + (r - (rows - P)) * SS + col, a0, a1);
+        }
+      }
+    }
+    cluster.sync();
+    const double bias_post = (double)to_f(bpost[0]);
+    for (int r = warp; r < rows; r += kI8Warps) {
+      const int wrow = s.w0 + r, t = s.f0 + r;
+      if (wrow < halo || wrow >= halo + tile || t >= t_out) continue;
+      double acc = 0.0;
+      for (int tap = 0; tap < kPostK; ++tap)
+        for (int c = lane; c < C; c += 32)
+          acc = __fma_rn((double)to_f(st[(r + tap) * SS + c]), (double)to_f(wpost[tap * C + c]),
+                         acc);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc = __dadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+      if (lane == 0)
+        wav[(size_t)bi * t_out + t] = from_f<T>(tanhf(__double2float_rn(__dadd_rn(acc, bias_post))));
+    }
+  }
+}
+
+// Launches the int8 level in clusters of n_cta CTAs, or with `info` fills
+// it with the plan's shared memory (bytes), the clusters the card can hold
+// at once (cudaOccupancyMaxActiveClusters), and the kernel's registers per
+// thread and local (spill) bytes, and launches nothing.
+template <typename T, int C, bool UP, bool POST, int NL>
+cudaError_t launch_int8_nl(const void* x, int batch, int t_in, int t_out, int tile, int halo,
+                           int n_cta, int rows, const void* wup, const void* bup, const void* w,
+                           const float* b, const float* ws, const void* wpost, const void* bpost,
+                           float* scratch, void* out, void* wav, cudaStream_t stream, int* info) {
+  const int smem = i8_layout(C, UP, POST, rows, sizeof(T)).total;
+  auto kernel = mrf_int8_kernel<T, C, UP, POST, NL>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_cta, ceil_div(t_out, tile), batch);
+  cfg.blockDim = dim3(kI8Threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_cta;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (info) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return err;
+    info[0] = smem;
+    info[1] = clusters;
+    info[2] = fa.numRegs;
+    info[3] = static_cast<int>(fa.localSizeBytes);
+    info[4] = NL;
+    return cudaSuccess;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), t_in, t_out, tile, halo,
+                           rows, static_cast<const T*>(wup), static_cast<const T*>(bup),
+                           static_cast<const int8_t*>(w), b, ws,
+                           static_cast<const T*>(wpost), static_cast<const T*>(bpost), scratch,
+                           static_cast<T*>(out), static_cast<T*>(wav));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T, int C, bool UP, bool POST>
 cudaError_t launch_int8(const void* x, int batch, int t_in, int t_out, int tile, int halo,
-                        const void* wup, const void* bup, const void* w, const float* b,
-                        const float* ws, const void* wpost, const void* bpost, float* scratch,
-                        void* out, void* wav, cudaStream_t stream) {
-  const int smem = i8_layout(C, UP, POST, tile, halo, sizeof(T)).total;
-  auto kernel = mrf_int8_kernel<T, C, UP, POST>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((t_out + tile - 1) / tile, batch);
-  kernel<<<grid, kI8Threads, smem, stream>>>(
-      static_cast<const T*>(x), t_in, t_out, tile, halo, static_cast<const T*>(wup),
-      static_cast<const T*>(bup), static_cast<const int8_t*>(w), b, ws,
-      static_cast<const T*>(wpost), static_cast<const T*>(bpost), scratch,
-      static_cast<T*>(out), static_cast<T*>(wav));
-  return cudaGetLastError();
+                        int n_cta, int rows, const void* wup, const void* bup, const void* w,
+                        const float* b, const float* ws, const void* wpost, const void* bpost,
+                        float* scratch, void* out, void* wav, cudaStream_t stream, int* info) {
+#define I8_NL_ARGS x, batch, t_in, t_out, tile, halo, n_cta, rows, wup, bup, w, b, ws, wpost, \
+                   bpost, scratch, out, wav, stream, info
+  if constexpr (i8_max_nl(C, UP) > 3) {
+    if (i8_nl(C, rows) > 3) return launch_int8_nl<T, C, UP, POST, i8_max_nl(C, UP)>(I8_NL_ARGS);
+  }
+  return launch_int8_nl<T, C, UP, POST, 3>(I8_NL_ARGS);
+#undef I8_NL_ARGS
 }
 
 template <typename T>
 cudaError_t dispatch_int8(int c, int up, int post, const void* x, int batch, int t_in,
-                          int t_out, int tile, int halo, const void* wup, const void* bup,
-                          const void* w, const float* b, const float* ws, const void* wpost,
-                          const void* bpost, float* scratch, void* out, void* wav,
-                          cudaStream_t s) {
-#define I8_ARGS x, batch, t_in, t_out, tile, halo, wup, bup, w, b, ws, wpost, bpost, scratch, out, wav, s
+                          int t_out, int tile, int halo, int n_cta, int rows, const void* wup,
+                          const void* bup, const void* w, const float* b, const float* ws,
+                          const void* wpost, const void* bpost, float* scratch, void* out,
+                          void* wav, cudaStream_t s, int* info) {
+#define I8_ARGS x, batch, t_in, t_out, tile, halo, n_cta, rows, wup, bup, w, b, ws, wpost, bpost, \
+                scratch, out, wav, s, info
   if (!up && !post) {
     if (c == 256) return launch_int8<T, 256, false, false>(I8_ARGS);
     if (c == 128) return launch_int8<T, 128, false, false>(I8_ARGS);
@@ -1462,30 +1915,35 @@ int mrf_level(const void* x, int batch, int t_in, int t_out, int c, int up, int 
                          wpost, bpost, out, wav, s);
 }
 
-// Shared memory (bytes) and fp32 scratch (floats per block) of the int8 level
-// kernel at this tile and halo.
-int mrf_int8_smem_bytes(int c, int up, int post, int tile, int halo, int elem_size) {
-  return i8_layout(c, up != 0, post != 0, tile, halo, elem_size).total;
+// fp32 scratch (floats per CTA) of the int8 level kernel at `rows` rows a
+// slice.
+long long mrf_int8_scratch_floats(int c, int up, int rows) {
+  return static_cast<long long>(i8_scratch_floats(c, up != 0, rows));
 }
 
-long long mrf_int8_scratch_floats(int c, int up, int post, int tile, int halo) {
-  return static_cast<long long>(i8_scratch_floats(c, up != 0, post != 0, tile, halo));
-}
-
-// Launches one int8 MRF level on `stream` (see mrf_int8_kernel).  Returns a
-// cudaError_t (0 = success).
+// Launches one int8 MRF level on `stream` (see mrf_int8_kernel): windows of
+// tile + 2 halo frames, each over a cluster of n_cta CTAs of `rows` window
+// rows.  Returns a cudaError_t (0 = success); cudaErrorInvalidValue for a
+// plan the kernel does not take.  With `info` (5 ints) it launches nothing
+// and reports the plan's shared memory, the clusters the card holds at once,
+// the kernel's registers a thread, its local (spill) bytes and the m-tiles
+// a warp runs.
 int mrf_level_int8(const void* x, int batch, int t_in, int t_out, int c, int up, int post,
-                   int is_bf16, int tile, int halo, const void* wup, const void* bup,
-                   const void* w, const float* b, const float* ws, const void* wpost,
-                   const void* bpost, float* scratch, void* out, void* wav, void* stream) {
+                   int is_bf16, int tile, int halo, int n_cta, int rows, const void* wup,
+                   const void* bup, const void* w, const float* b, const float* ws,
+                   const void* wpost, const void* bpost, float* scratch, void* out, void* wav,
+                   void* stream, int* info) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile <= 0 || (tile + 2 * halo) % 16 != 0 || halo < kMaxReach + (post ? kPostPad : 0))
+  if (!i8_plan_ok(c, up != 0, post != 0, tile, halo, n_cta, rows, is_bf16 ? 2 : 4))
     return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(w) & 15) ||
+      (up && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wup)) & 15)))
+    return cudaErrorMisalignedAddress;
   if (is_bf16)
-    return dispatch_int8<bf16>(c, up, post, x, batch, t_in, t_out, tile, halo, wup, bup, w, b,
-                               ws, wpost, bpost, scratch, out, wav, s);
-  return dispatch_int8<float>(c, up, post, x, batch, t_in, t_out, tile, halo, wup, bup, w, b,
-                              ws, wpost, bpost, scratch, out, wav, s);
+    return dispatch_int8<bf16>(c, up, post, x, batch, t_in, t_out, tile, halo, n_cta, rows,
+                               wup, bup, w, b, ws, wpost, bpost, scratch, out, wav, s, info);
+  return dispatch_int8<float>(c, up, post, x, batch, t_in, t_out, tile, halo, n_cta, rows, wup,
+                              bup, w, b, ws, wpost, bpost, scratch, out, wav, s, info);
 }
 
 const char* mrf_error_string(int err) {

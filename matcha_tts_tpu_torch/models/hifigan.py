@@ -84,31 +84,20 @@ def _mrf_mode(cfg: HiFiGANConfig) -> str:
     return "tap" if mode == "xla" and cfg.use_pallas else mode  # legacy spelling
 
 
-def _packed_tile(tp: int, fp32: bool, c: int) -> int:
-    """`mrf_packed.py::_tile_for_packed` for C <= 128: the TPU kernel's time
-    tile, 0 when none divides the packed length."""
-    t = (256 if c == 128 else 512 if c == 64 else 1024) if fp32 else 2048
-    while t >= 128:
-        if tp % t == 0:
-            return t
-        t //= 2
-    return 0
-
-
 def mrf_packed_ok(t: int, c: int, fp32: bool = False) -> bool:
     """The JAX package's gate of the packed MRF kernel (`mrf_packed.py:505-519`)
     as the generator calls it (no C=256: that variant is int8-only and only
     a direct call reaches it)."""
     if c not in (32, 64, 128) or t % (128 // c) != 0:
         return False
-    return _packed_tile(t // (128 // c), fp32, c) > 0
+    return mrf_cuda.packed_tile(t // (128 // c), c, fp32) > 0
 
 
 def mrf_packed_up_ok(t_out: int, c_out: int, fp32: bool = False) -> bool:
     """The JAX package's gate of the fused upsample level (`mrf_packed.py:632-641`)."""
     if c_out not in (32, 64) or t_out % (128 // c_out) != 0:
         return False
-    return _packed_tile(t_out // (128 // c_out), fp32, c_out) > 0
+    return mrf_cuda.packed_tile(t_out // (128 // c_out), c_out, fp32) > 0
 
 
 def mrf_pallas_ok(t: int, c: int) -> bool:

@@ -43,17 +43,20 @@ chain: weights `pack_level_int8` (int8 codes (126, C, C) [tap][c_out][c_in],
 per-output-channel scales `ws` (18, C), fp32 biases), one dynamic absmax
 activation scale per (conv, window).  That scale depends on the window, so
 the window is an argument of the function: the plain versions take
-`tile` and `halo` (frames), and the wrappers hand the kernel's own
-(`int8_window`) to both, so that the CPU and the card compute one function.
+`tile` and `halo` (frames), and the wrappers hand the JAX kernels' own
+(`int8_window`, the tile `mrf_packed` / `mrf_packed_up` pick for T and the
+halo of their `packed_meta`) to the kernel and to the plain version alike,
+so that the CPU, the card and the JAX package compute one function.  The
+kernel spreads each window over a thread-block cluster (`int8_split`).
 A window of tile + 2 halo frames is run as an isolated sequence (zero
 padding at its edges, frames outside [0, T) zeroed before every conv, as
 the TPU kernel does over its extended tile) and its centre tile is kept.
 Each conv's dequantisation fp32(acc) * scale + bias rounds once, as the
-FMA that XLA makes of it in the JAX kernel does.
+FMA that XLA makes of it in the JAX kernel does (`_dequant`).
 The upsample prologue (input rounded to bf16, as the TPU kernel's staging
-buffer does in this mode; summed in float64 and rounded once, so that the
-kernel and the plain version hand the chain the same values) and the
-conv_post tail stay exact.
+buffer does in this mode) and the conv_post tail are summed in float64 and
+rounded once, so that the kernel and the plain version give the same
+values whatever the order of their sums.
 """
 
 from __future__ import annotations
@@ -75,8 +78,11 @@ POST_SLOPE = 0.01
 POST_K = 7
 TILES = (256, 128, 64, 32, 16)
 
-INT8_HALO = 64  # frames on each side of an int8 window: the chain's reach of 60, + 3 for the tail
-INT8_TILES = {32: 512, 64: 256, 128: 128, 256: 128}  # the int8 kernel's tile (frames) by C
+INT8_CHANNELS = (32, 64, 128, 256)
+INV127 = 1.0 / 127.0  # rounds to fp32(1 / 127) in a float32 tensor
+INT8_WARPS = 12  # warps of a CTA of the int8 kernel (`kI8Warps` in csrc/mrf.cu)
+INT8_MAX_CLUSTER = 8  # CTAs a cluster: the portable maximum
+INT8_PAD_ROWS = 25  # conv-input rows a slice takes from each neighbour (the widest conv's reach)
 
 # Kernel launches, counted where each wrapper launches its kernel.
 LAUNCHES = {"mrf": 0, "mrf_up": 0, "mrf_int8": 0, "mrf_up_int8": 0, "mrf_tap": 0}
@@ -130,9 +136,91 @@ def pack_level_int8(convs: Sequence[Tuple[torch.Tensor, torch.Tensor]]
     return torch.cat(codes).contiguous(), b.contiguous(), torch.stack(scales).contiguous()
 
 
-def int8_window(c: int) -> Tuple[int, int]:
-    """(tile, halo) in frames of the int8 kernel's windows at C channels."""
-    return INT8_TILES[c], INT8_HALO
+def _packed_halo(r_pack: int) -> int:
+    """`packed_meta`'s halo (super-rows) at r_pack frames a super-row: the
+    deepest branch's summed reach in super-row shifts, rounded up to 16."""
+    halo = 0
+    for k in KERNEL_SIZES:
+        reach = 0
+        for d in DILATIONS:
+            for dd in (d, 1):
+                off = (k - 1) // 2 * dd
+                reach += max(abs((r + tap * dd - off) // r_pack)
+                             for tap in range(k) for r in range(r_pack))
+        halo = max(halo, reach)
+    return -(-halo // 16) * 16
+
+
+def packed_tile(tp: int, c: int, fp32: bool = False) -> int:
+    """`mrf_packed.py::_tile_for_packed`: the JAX packed kernels' time tile
+    (super-rows) for `tp` super-rows at C channels, the largest power of two
+    from the cap (2048; in fp32 256, 512, 1024 at C = 128, 64, 32; 1024 at
+    C = 256) down to 128 that divides tp, 0 where none does."""
+    tile = 1024 if c == 256 else (256 if c == 128 else 512 if c == 64 else 1024) if fp32 else 2048
+    while tile >= 128 and tp % tile:
+        tile //= 2
+    return tile if tile >= 128 else 0
+
+
+def int8_window(c: int, t: int, up: bool = False, post: bool = False) -> Tuple[int, int]:
+    """(tile, halo) in frames of the JAX int8 kernels' windows for a level of
+    C channels and T output frames: `mrf_packed` (or, with `up`,
+    `mrf_packed_up`; with `post` also its conv_post tail) at its default
+    tile.  With r_pack = 128 / C frames a super-row (1 at C = 256), the tile
+    is the largest power of two of super-rows from 2048 (1024 for the fused
+    upsample and for C = 256) down to 128 that divides T / r_pack, and the
+    halo `packed_meta`'s (64, 48, 32 super-rows at r_pack 1, 2, 4), + 16 with
+    the tail.  Raises where the JAX kernel has no tile (the generator sends
+    such levels to the plain composition)."""
+    if c not in INT8_CHANNELS or (up and c not in (32, 64)) or (post and not up):
+        raise ValueError(f"no int8 MRF level at C={c}, up={up}, post={post}")
+    r_pack = max(1, 128 // c)
+    tile = packed_tile(t // r_pack, c) if t % r_pack == 0 else 0
+    if up:
+        tile = min(tile, 1024)
+    if not tile:
+        raise ValueError(f"no int8 MRF window tiles T={t} at C={c}: T / {r_pack} must be a "
+                         f"multiple of 128")
+    halo = _packed_halo(r_pack) + (16 if post else 0)
+    return tile * r_pack, halo * r_pack
+
+
+def int8_mtile_rows(c: int) -> int:
+    """Slice rows that one 16-row m-tile a warp covers at C channels: 16 x
+    the warps across the rows, the rest of a CTA's warps spread over the
+    channels (32 a warp, 64 at C = 256; `i8_wm` in csrc/mrf.cu)."""
+    return 16 * INT8_WARPS // (c // (64 if c >= 256 else 32))
+
+
+def int8_max_mtiles(c: int, up: bool = False) -> int:
+    """The most m-tiles a warp of the int8 kernel runs (`i8_max_nl`): 6 at C
+    <= 128 without the upsample, else 3 (the instances that are built)."""
+    return 3 if up or c >= 256 else 6
+
+
+def int8_split(c: int, w_rows: int, up: bool = False) -> Tuple[int, int]:
+    """(n_cta, rows): the int8 kernel spreads each window of `w_rows` rows
+    over a cluster of n_cta CTAs of `rows` window rows each (the last slice
+    padded past the window): the fewest CTAs whose slices fit 3 m-tiles a
+    warp (the kernel's instance without spills; 6 ran level 2 twice as slow
+    per row), at most 8, whose slices then hold up to `int8_max_mtiles`.
+    The kernel also refuses a slice whose shared memory exceeds the card's
+    (`i8_plan_ok`).  A JAX window has 256 rows or more, so a slice beside a
+    neighbour holds more than INT8_PAD_ROWS."""
+    n = min(INT8_MAX_CLUSTER, -(-w_rows // (3 * int8_mtile_rows(c))))
+    rows = -(-w_rows // n)
+    if (rows > int8_max_mtiles(c, up) * int8_mtile_rows(c)
+            or (n > 1 and rows < INT8_PAD_ROWS)):
+        raise ValueError(f"no cluster of at most {INT8_MAX_CLUSTER} CTAs holds a window of "
+                         f"{w_rows} rows at C={c}")
+    return n, rows
+
+
+def int8_plan(c: int, t: int, up: bool = False,
+              post: bool = False) -> Tuple[int, int, int, int]:
+    """(tile, halo, n_cta, rows) of the int8 kernel for T output frames."""
+    tile, halo = int8_window(c, t, up, post)
+    return (tile, halo, *int8_split(c, tile + 2 * halo, up))
 
 
 # ---------------------------------------------------------------------------
@@ -204,26 +292,51 @@ def _windows(h: torch.Tensor, tile: int, halo: int):
     return win, mask
 
 
+def _act_scale(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(127 / m, the activation scale) of the absmax m, as the JAX kernel
+    computes them: `127.0 / m` a division (tensor / tensor: one rounding; a
+    python scalar divisor or dividend goes through its reciprocal, a second
+    rounding), and `m / 127.0` m * fp32(1 / 127), as XLA rewrites a division
+    by a constant into a product with its reciprocal (dividing instead flips
+    a few codes: 9 and 42 of 512 frames differ by up to 7.7e-3 at C = 128,
+    `tests/test_torch_mrf_int8.py`); 0 and 1 where m == 0."""
+    inv = torch.where(m > 0, torch.full_like(m, 127.0) / m, torch.zeros_like(m))
+    s_act = torch.where(m > 0, m * torch.full_like(m, INV127), torch.ones_like(m))
+    return inv, s_act
+
+
+def _dequant(acc: torch.Tensor, ws: torch.Tensor, s_act: torch.Tensor,
+             bias: torch.Tensor) -> torch.Tensor:
+    """fp32(acc) * (ws * s_act) + bias over (N, W, C) sums, rounded once to
+    fp32: the FMA that XLA makes of it in the JAX kernel, and the kernel's
+    `__fmaf_rn`.  In float64 the product p of two fp32 values is exact;
+    p + bias is rounded to odd (the float64 sum, moved one step toward the
+    exact value where it is inexact and even, TwoSum's error giving the
+    direction), which makes the rounding to fp32 the correct one: rounding
+    the float64 sum to nearest first would round twice."""
+    scale = ws.float()[None, None, :] * s_act[:, None, None]
+    p = acc.float().double() * scale.double()
+    c = bias.double().expand_as(p)
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)  # s + err == p + c exactly
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")), torch.full_like(s, -float("inf")))
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+
+
 def _conv_int8(a: torch.Tensor, codes: torch.Tensor, bias: torch.Tensor,
                ws: torch.Tensor, d: int) -> torch.Tensor:
     """One quantised conv over windows a (N, W, C) (masked conv inputs):
     per-window absmax scale, codes clip(round(a * 127 / m)), an exact integer
     conv (float64: |sum| <= 127^2 * 11 * 256, far inside 2^53) with zero
-    padding at the window's edges, then fp32(acc) * (ws * m / 127) + bias
-    rounded once: XLA contracts that multiply-add into an FMA in the JAX
-    kernel, and the product of two fp32 values is exact in float64."""
+    padding at the window's edges, then the dequantisation (`_dequant`)."""
     k = codes.shape[0]
-    m = a.abs().amax(dim=(1, 2))
-    c127 = torch.full_like(m, 127.0)  # tensor / tensor: one rounding (a python scalar
-    # divisor or dividend goes through its reciprocal, a second rounding)
-    inv = torch.where(m > 0, c127 / m, torch.zeros_like(m))
+    inv, s_act = _act_scale(a.abs().amax(dim=(1, 2)))
     q = torch.clamp(torch.round(a * inv[:, None, None]), -127, 127)
-    s_act = torch.where(m > 0, m / c127, torch.ones_like(m))
     acc = F.conv1d(q.double().transpose(1, 2), codes.double().permute(1, 2, 0),
                    padding=(k - 1) // 2 * d, dilation=d)
-    scale = ws.float()[None, None, :] * s_act[:, None, None]
-    y = acc.float().double().transpose(1, 2) * scale.double() + bias.double()
-    return y.float()
+    return _dequant(acc.transpose(1, 2), ws, s_act, bias)
 
 
 def _level_int8(win: torch.Tensor, mask: torch.Tensor, codes: torch.Tensor,
@@ -271,7 +384,7 @@ def mrf_up_int8_plain(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
                       halo: int) -> torch.Tensor:
     """Plain version of `mrf_up(..., ws=)`: x (B, T_in, 2C) -> (B, 2 T_in, C),
     or the wav (B, 2 T_in) with `wpost`; the tail is computed per window from
-    that window's level output."""
+    that window's level output, its sum in float64 rounded once."""
     dtype = x.dtype
     bsz, t_in, _ = x.shape
     t = 2 * t_in
@@ -286,8 +399,10 @@ def mrf_up_int8_plain(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
     p = (POST_K - 1) // 2
     rows = slice(halo - p, halo + tile + p)
     a = _lrelu_round(lvl[:, rows] * mask[:, rows, None], POST_SLOPE, dtype)
-    y = F.conv1d(a.transpose(1, 2), wpost.float().t().unsqueeze(0), bpost.float())
-    wav = torch.tanh(y[:, 0])  # (B * n, tile)
+    # in float64 and rounded once, as the kernel sums it: no order of the
+    # sums moves the wav
+    y = F.conv1d(a.double().transpose(1, 2), wpost.double().t().unsqueeze(0), bpost.double())
+    wav = torch.tanh(y[:, 0].float())  # (B * n, tile)
     return wav.reshape(bsz, -1)[:, :t].to(dtype)
 
 
@@ -309,9 +424,9 @@ def _lib() -> ctypes.CDLL:
         lib.mrf_max_tile.restype = i32
         lib.mrf_error_string.argtypes = [i32]
         lib.mrf_error_string.restype = ctypes.c_char_p
-        lib.mrf_level_int8.argtypes = [ptr] + [i32] * 9 + [ptr] * 11
+        lib.mrf_level_int8.argtypes = [ptr] + [i32] * 11 + [ptr] * 12
         lib.mrf_level_int8.restype = i32
-        lib.mrf_int8_scratch_floats.argtypes = [i32] * 5
+        lib.mrf_int8_scratch_floats.argtypes = [i32] * 3
         lib.mrf_int8_scratch_floats.restype = ctypes.c_longlong
         lib._typed = True
     return lib
@@ -374,21 +489,40 @@ def _check_int8(x: torch.Tensor, c: int, codes, b, ws):
     _check("ws", ws, (N_CONVS, c), torch.float32, x.device)
 
 
-def _launch_int8(x, t_out, c, up, post, wup, bup, codes, b, ws, wpost, bpost, out, wav):
+def _launch_int8(x, t_out, c, up, post, wup, bup, codes, b, ws, wpost, bpost, out, wav,
+                 info=None):
     lib = _lib()
-    tile, halo = int8_window(c)
-    n_blocks = -(-t_out // tile) * x.shape[0]
-    scratch = torch.empty(n_blocks * lib.mrf_int8_scratch_floats(c, int(up), int(post), tile, halo),
-                          dtype=torch.float32, device=x.device)
+    bsz = x.shape[0]
+    tile, halo, n_cta, rows = int8_plan(c, t_out, up, post)
+    scratch = None
+    if info is None:
+        n_ctas = n_cta * -(-t_out // tile) * bsz
+        scratch = torch.empty(n_ctas * lib.mrf_int8_scratch_floats(c, int(up), rows),
+                              dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = lib.mrf_level_int8(
-        ptr(x), x.shape[0], x.shape[1], t_out, c, int(up), int(post),
-        int(x.dtype == torch.bfloat16), tile, halo, ptr(wup), ptr(bup), ptr(codes),
-        ptr(b), ptr(ws), ptr(wpost), ptr(bpost), ptr(scratch), ptr(out), ptr(wav),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        ptr(x), bsz, x.shape[1], t_out, c, int(up), int(post),
+        int(x.dtype == torch.bfloat16), tile, halo, n_cta, rows, ptr(wup), ptr(bup),
+        ptr(codes), ptr(b), ptr(ws), ptr(wpost), ptr(bpost), ptr(scratch), ptr(out), ptr(wav),
+        torch.cuda.current_stream(x.device).cuda_stream, info)
     if err != 0:
-        raise RuntimeError(f"mrf int8 kernel launch failed: "
-                           f"{lib.mrf_error_string(err).decode()}")
+        raise RuntimeError(f"mrf int8 kernel launch failed (window {tile} + 2 x {halo}, "
+                           f"{n_cta} CTAs of {rows} rows): {lib.mrf_error_string(err).decode()}")
+    return dict(tile=tile, halo=halo, n_cta=n_cta, rows=rows)
+
+
+def int8_info(x: torch.Tensor, c: int, up: bool = False, post: bool = False) -> dict:
+    """The int8 kernel's plan for input `x` (a CUDA tensor, (B, T_in, C_in)):
+    window tile and halo (frames), cluster size, rows a CTA, shared memory
+    (bytes), the clusters the card holds at once (cudaOccupancyMaxActiveClusters),
+    registers a thread, local (spill) bytes and the m-tiles a warp runs.
+    Launches nothing."""
+    t_out = 2 * x.shape[1] if up else x.shape[1]
+    info = (ctypes.c_int * 5)()
+    plan = _launch_int8(x, t_out, c, up, post, None, None, None, None, None, None, None, None,
+                        None, info)
+    return dict(plan, smem=info[0], max_active_clusters=info[1], registers=info[2],
+                local_bytes=info[3], m_tiles=info[4])
 
 
 def _device(x: torch.Tensor, name: str) -> None:
@@ -403,10 +537,10 @@ def mrf(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     bsz, t, c = x.shape
     if ws is not None:
         if x.device.type == "cpu":
-            return mrf_int8_plain(x, w, b, ws, *int8_window(c))
+            return mrf_int8_plain(x, w, b, ws, *int8_window(c, t))
         _device(x, "mrf")
-        if c not in INT8_TILES:
-            raise ValueError(f"int8 mrf kernel takes C in {tuple(INT8_TILES)}, got {c}")
+        if c not in INT8_CHANNELS:
+            raise ValueError(f"int8 mrf kernel takes C in {INT8_CHANNELS}, got {c}")
         _check("x", x, x.shape, x.dtype, x.device)
         _check_int8(x, c, w, b, ws)
         out = torch.empty_like(x)
@@ -456,7 +590,7 @@ def mrf_up(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
     c = c_in // 2
     if x.device.type == "cpu":
         if ws is not None:
-            tile, halo = int8_window(c)
+            tile, halo = int8_window(c, 2 * t_in, True, wpost is not None)
             return mrf_up_int8_plain(x, wup, bup, w, b, ws, wpost, bpost, tile=tile, halo=halo)
         return mrf_up_plain(x, wup, bup, w, b, wpost, bpost)
     _device(x, "mrf_up")

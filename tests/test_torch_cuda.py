@@ -22,6 +22,8 @@ relative L2 <= 1e-2, block gradients relative L2 <= 1e-4.  chip_smoke.py
 runs the same checks at the paths' shapes.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -334,21 +336,32 @@ def _int8_operands(c_in, t_in, c, up, post, dtype, dev, seed):
 
 def _run_int8(a, up, plain):
     c = a["w"].shape[1]
+    t_out = a["x"].shape[1] * (2 if up else 1)
     if up:
         args = (a["x"], a["wup"], a["bup"], a["w"], a["b"], a["ws"], a.get("wpost"), a.get("bpost"))
         if plain:
-            tile, halo = mrf_cuda.int8_window(c)
+            tile, halo = mrf_cuda.int8_window(c, t_out, True, "wpost" in a)
             return mrf_cuda.mrf_up_int8_plain(*args, tile=tile, halo=halo)
         return mrf_cuda.mrf_up(*args[:5], args[6], args[7], ws=args[5])
     if plain:
-        return mrf_cuda.mrf_int8_plain(a["x"], a["w"], a["b"], a["ws"], *mrf_cuda.int8_window(c))
+        return mrf_cuda.mrf_int8_plain(a["x"], a["w"], a["b"], a["ws"],
+                                       *mrf_cuda.int8_window(c, t_out))
     return mrf_cuda.mrf(a["x"], a["w"], a["b"], a["ws"])
 
 
+# T (batch 2) on the JAX kernels' tiles, with the cluster plan it gives
+# (`mrf_cuda.int8_plan`): window tile + 2 halo frames, CTAs x rows
 @pytest.mark.parametrize("c_in,t_in,c,up,post", [
-    (128, 333, 128, False, False), (64, 200, 64, False, False), (32, 77, 32, False, False),
-    (256, 150, 256, False, False), (128, 150, 64, True, False), (64, 301, 32, True, False),
-    (64, 99, 32, True, True)])
+    (128, 384, 128, False, False),   # tile 128, 3 windows a row of 256 rows: 2 x 128
+    (128, 768, 128, False, False),   # tile 256: 3 x 128
+    (128, 6144, 128, False, False),  # tile 2048, 3 windows of 2176 rows: 8 x 272, 6 m-tiles
+    (128, 8448, 128, False, False),  # tile 256, 33 windows a row: 3 x 128
+    (128, 7808, 128, False, False),  # tile 128, 61 windows a row: 2 x 128
+    (64, 768, 64, False, False), (32, 1536, 32, False, False),  # 2 x 224, 2 x 384
+    (256, 384, 256, False, False), (256, 3072, 256, False, False),  # C = 256: 2 x 128, 8 x 144
+    (128, 384, 64, True, False),     # 768 frames: tile 256 + 2 x 96, 2 x 224
+    (128, 512, 64, True, False),     # 1024 frames: tile 1024 + 2 x 96, 5 x 244
+    (64, 768, 32, True, False), (64, 768, 32, True, True)])  # 2 x 384, 2 x 448
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_kernel_matches_plain(cuda, c_in, t_in, c, up, post, dtype):
     """The same codes: relative L2 <= 1e-5 and max |diff| <= 1e-3 of the
@@ -362,6 +375,35 @@ def test_int8_kernel_matches_plain(cuda, c_in, t_in, c, up, post, dtype):
     ref = _run_int8(a, up, plain=True)
     assert _rel(got.float(), ref.float()) <= 1e-5
     assert float((got.float() - ref.float()).abs().max()) <= 1e-3 * float(ref.float().abs().max())
+
+
+@pytest.mark.parametrize("c_in,c,up,post", [
+    (128, 128, False, False), (64, 64, False, False), (32, 32, False, False),
+    (256, 256, False, False), (128, 64, True, False), (64, 32, True, False),
+    (64, 32, True, True)])
+def test_int8_kernel_takes_every_jax_window(cuda, c_in, c, up, post):
+    """The kernel takes the plan `int8_plan` picks for every JAX window (tiles
+    of 128 super-rows to the cap), within the card's shared memory and with
+    the m-tiles the plan's rows need; a slice past the built instances'
+    m-tiles is refused."""
+    r = max(1, 128 // c)
+    tp = 128
+    while tp <= (1024 if up or c == 256 else 2048):
+        t_out = tp * r
+        x = torch.empty((1, t_out // 2 if up else t_out, c_in), dtype=torch.bfloat16,
+                        device=cuda)
+        info = mrf_cuda.int8_info(x, c, up, post)
+        assert info["smem"] <= 232448 and info["max_active_clusters"] >= 1, info
+        assert info["m_tiles"] * mrf_cuda.int8_mtile_rows(c) >= info["rows"], info
+        assert info["m_tiles"] <= mrf_cuda.int8_max_mtiles(c, up), info
+        tp *= 2
+    lib = mrf_cuda._lib()
+    rows = (mrf_cuda.int8_max_mtiles(c, up) * mrf_cuda.int8_mtile_rows(c)) + 16
+    out = (ctypes.c_int * 5)()
+    err = lib.mrf_level_int8(None, 1, rows, rows, c, int(up), int(post), 1, rows - 2 * 64, 64,
+                             1, rows, None, None, None, None, None, None, None, None, None, None,
+                             None, out)
+    assert err != 0
 
 
 def test_int8_wrapper_rejects_bad_operands(cuda):

@@ -3,15 +3,19 @@ kernels' plain versions; `tests/test_torch_cuda.py` and `chip_smoke.py`
 hold the kernels to them on the card):
 
 * the int8 packer's codes and scales equal `pack_packed_weights_int8`'s;
+* `int8_window` is the window the JAX kernels pick (their grid and
+  scratch, read from `pl.pallas_call` while tracing) at every C, with the
+  upsample and the tail, over T on tiles of 128-2048 super-rows;
 * where one window covers T, the int8 level equals the JAX int8 kernel
   (interpret mode) and the NumPy oracle of `tests/test_mrf_int8.py`
   (atol 2e-4, rtol 1e-5, that file's bound); with the JAX kernel forced to
-  two tiles, the plain version at the JAX window equals it too;
+  two tiles, the plain version at the JAX window equals it too; at the JAX
+  kernels' default tiles the port's `mrf` and `mrf_up` equal them;
 * the fused upsample levels in int8 (C=64, and fp32 C=32 with the tail)
   equal `mrf_packed_up`;
 * the per-level dispatch equals `_mrf_fusable` + `_gate_int8_level` + the
   generator's fused-level rule; `int8_levels=()` is the exact generator bit
-  for bit; the int8 generator is within 25 dB SNR of JAX's at full width;
+  for bit; the int8 generator is within 40 dB SNR of JAX's at full width;
 * `quantization_report`, the tap generator (fp32, 1e-4) and the denoiser's
   probe, which runs exact whatever `mrf_kernel` says.
 """
@@ -83,7 +87,7 @@ def test_int8_packer_matches_jax():
 def test_single_window_matches_jax_kernel(c):
     """T within one window of the port's kernel and one tile of JAX's."""
     t = {32: 512, 64: 256, 128: 128, 256: 128}[c]
-    assert t <= mrf_cuda.int8_window(c)[0]
+    assert t <= mrf_cuda.int8_window(c, t)[0]
     blocks = _blocks(c, 10 + c)
     x = _x((1, t, c), c)
     w8, b8, ws = jmp.pack_packed_weights_int8(blocks, KS, DILS)
@@ -115,6 +119,111 @@ def test_two_windows_match_jax_forced_tile(c, t, tile_rows):
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=1e-5)
     one = mrf_cuda.mrf_int8_plain(torch.from_numpy(x), *packed, tile=t, halo=64)
     assert np.abs(one.numpy() - ref).max() > 1e-4
+
+
+def _jax_window(c, t, up, post, monkeypatch):
+    """(tile, halo) in frames that the JAX int8 kernel picks at its default
+    tile, read from its `pl.pallas_call` (grid and first scratch buffer,
+    tile + 2 halo super-rows) while tracing; None where its gate says no."""
+    r = 128 // c if c < 128 else 1
+    if up:
+        if not jmp.mrf_packed_up_ok(t, c):
+            return None
+    elif not jmp.mrf_packed_ok(t, c, quant=True):
+        return None
+    seen = {}
+    orig = jmp.pl.pallas_call
+
+    def spy(kernel, **kw):
+        seen["tiles"], seen["ext"] = kw["grid"][1], kw["scratch_shapes"][0].shape[0]
+        return orig(kernel, **kw)
+
+    monkeypatch.setattr(jmp.pl, "pallas_call", spy)
+    sd = jax.ShapeDtypeStruct
+    r_out = r
+    _, n_mats, _ = jmp.packed_meta(KS, DILS, r_out)
+    width = c * r
+    w = (sd((n_mats * width, width), jnp.int8), sd((18, width), jnp.float32),
+         sd((18, width), jnp.float32))
+    if up:
+        n_up = len(jmp.upsample_meta(2, 4, 1, 128 // (2 * c)))
+        kw = {}
+        if post:
+            n_post = len(jmp._delta_map(7, 1, r_out))
+            kw = dict(wpost=sd((n_post * 128, 128), jnp.float32), bpost=sd((1, 128), jnp.float32))
+        jax.eval_shape(lambda x, wup, bup, w8, b8, ws, **kw_: jmp.mrf_packed_up.__wrapped__(
+            x, wup, bup, w8, b8, kernel_sizes=KS, dilations=DILS, ws=ws, **kw_),
+            sd((1, t // 2, 2 * c), jnp.bfloat16), sd((n_up * 128, 128), jnp.bfloat16),
+            sd((1, 128), jnp.bfloat16), *w, **kw)
+    else:
+        jax.eval_shape(lambda x, w8, b8, ws: jmp.mrf_packed.__wrapped__(
+            x, w8, b8, ws, kernel_sizes=KS, dilations=DILS), sd((1, t, c), jnp.bfloat16), *w)
+    tile = t // r // seen["tiles"]
+    return tile * r, (seen["ext"] - tile) // 2 * r
+
+
+@pytest.mark.parametrize("c,up,post", [(32, False, False), (64, False, False),
+                                       (128, False, False), (256, False, False),
+                                       (64, True, False), (32, True, False), (32, True, True)])
+def test_int8_window_matches_jax_kernels(c, up, post, monkeypatch):
+    """T over super-row counts whose tiles run from 128 to 2048 (1024 with
+    the upsample and at C = 256), odd multiples of 128, and counts with no
+    tile, where the port raises as the JAX gate refuses."""
+    r = 128 // c if c < 128 else 1
+    for tp in (128, 256, 384, 512, 640, 1024, 1536, 2048, 3072, 4096, 8192, 96, 200):
+        t = tp * r
+        want = _jax_window(c, t, up, post, monkeypatch)
+        if want is None:
+            with pytest.raises(ValueError):
+                mrf_cuda.int8_window(c, t, up, post)
+            continue
+        assert mrf_cuda.int8_window(c, t, up, post) == want, (c, up, post, t)
+    assert tp == 200 and want is None
+    if c < 128:  # T off the packing: no window
+        with pytest.raises(ValueError):
+            mrf_cuda.int8_window(c, 128 * r + 1, up, post)
+
+
+@pytest.mark.parametrize("bseed,xseed", [(5, 6), (3, 6), (4, 6)])
+def test_int8_mrf_matches_jax_default_tile(bseed, xseed):
+    """C = 128, T = 512 at the JAX kernel's default tile (512): the port's
+    `mrf` equals it on every frame (the parent's windows of 128 + 2 x 64
+    differed on all 512, by up to 7.25e-2).  Seeds 5 and 3 are the ones
+    where a division in place of XLA's product with fp32(1 / 127) for the
+    activation scale flipped codes in 9 and 42 frames."""
+    blocks = _blocks(128, bseed)
+    x = _x((1, 512, 128), xseed)
+    w8, b8, ws = jmp.pack_packed_weights_int8(blocks, KS, DILS)
+    ref = np.asarray(jmp.mrf_packed(jnp.asarray(x), w8, b8, ws, kernel_sizes=KS, dilations=DILS))
+    got = mrf_cuda.mrf(torch.from_numpy(x), *mrf_cuda.pack_level_int8(_port_convs(blocks)))
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=1e-5)
+
+
+def test_int8_mrf_up_matches_jax_two_default_tiles():
+    """`mrf_up` at C = 64 on 4096 output frames: two tiles of the JAX
+    kernel's default 1024 super-rows (2048 frames, halo 96).  Here codes flip
+    that are not the port's: the JAX kernel sums its upsample prologue in
+    fp32 (dots of the bf16-rounded input), the port in float64 rounded once,
+    and a value that lands on another side of a rounding boundary of the
+    quantiser moves one code, which the chain carries some 60 frames either
+    way.  233 of the 4096 frames differ beyond the bound, by up to 7.2e-3;
+    summing the port's own upsample in fp32 instead flips 2207, by up to
+    2.3e-2.  So: at most 300 frames beyond it, none by more than 2e-2, and
+    every other frame within it."""
+    c, t_in = 64, 2048
+    assert mrf_cuda.int8_window(c, 2 * t_in, True) == (2048, 96)
+    blocks = _blocks(c, 70)
+    up, _, port = _up_operands(c, 71, False)
+    x = _x((1, t_in, 2 * c), 72)
+    w8, b8, ws = jmp.pack_packed_weights_int8(blocks, KS, DILS)
+    wup, bup = jmp.pack_upsample_weights(up, dtype=jnp.float32)
+    ref = np.asarray(jmp.mrf_packed_up(jnp.asarray(x), wup, bup, w8, b8, kernel_sizes=KS,
+                                       dilations=DILS, ws=ws))
+    codes, b, scales = mrf_cuda.pack_level_int8(_port_convs(blocks))
+    got = mrf_cuda.mrf_up(torch.from_numpy(x), port[0], port[1], codes, b, ws=scales).numpy()
+    off = (np.abs(got - ref) > 2e-4 + 1e-5 * np.abs(ref)).any(axis=2)[0]
+    assert off.sum() <= 300 and np.abs(got - ref).max() <= 2e-2, (off.sum(), np.abs(got - ref).max())
+    np.testing.assert_allclose(got[0, ~off], ref[0, ~off], atol=2e-4, rtol=1e-5)
 
 
 def _up_operands(c, seed, post):
@@ -208,8 +317,10 @@ def _snr(got, ref):
 
 def test_int8_generator_matches_jax_within_snr():
     """V1 at full width on a 32-frame mel: the port's int8 generator against
-    JAX's (whose windows are its own tiles): SNR >= 25 dB; both quantise
-    (each is further from the exact wav than from the other)."""
+    JAX's, on the same windows: SNR >= 40 dB (44.5 measured: the codes that
+    JAX's fp32 sums of the upsample prologue move, see
+    `test_int8_mrf_up_matches_jax_two_default_tiles`; a margin of 4.5 dB);
+    both quantise (each is about 42 dB from the exact wav)."""
     jc, params, voc, mel = _full_width()
     cfg8 = dataclasses.replace(voc.cfg, mrf_kernel="int8")
     ref = np.asarray(jhifigan.generator(params, jnp.asarray(mel),
@@ -217,7 +328,7 @@ def test_int8_generator_matches_jax_within_snr():
     got = voc(torch.from_numpy(mel), cfg8).double().numpy()
     exact = voc(torch.from_numpy(mel), dataclasses.replace(cfg8, mrf_kernel="packed")).double().numpy()
     assert got.shape == ref.shape == (1, 32 * 256)
-    assert _snr(got, ref) >= 25.0, _snr(got, ref)
+    assert _snr(got, ref) >= 40.0, _snr(got, ref)
     assert _snr(got, exact) < 80.0
 
 
