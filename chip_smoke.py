@@ -14,7 +14,8 @@ Phases, each of which raises on failure (no phase catches and carries on):
 3. kernels: each MRF kernel against its plain PyTorch version at the shapes
    the main path gives it for the 512-frame bucket (level 1: C=128,
    T=32768; level 2: 128 -> 64 upsampled to T=65536; level 3: 64 -> 32 to
-   T=131072 with the conv_post tail).  TF32 is off for cuDNN and matmuls
+   T=131072 with the conv_post tail; fp32 level 1 prints its cluster plan).
+   TF32 is off for cuDNN and matmuls
    (torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32
    = False), so the plain version is fp32.  Bounds: fp32 kernel vs fp32
    plain, max |diff| <= 1e-4; bf16 kernel vs fp32 plain on the same
@@ -108,11 +109,17 @@ Phases, each of which raises on failure (no phase catches and carries on):
    with the plain and the flash attention through `distill_fit`, launch
    counts, xla against flash on one step, reflow from the trained teacher
    until the student's NFE-2 endpoint error is below the teacher's, the
-   distillation CLI and `student_tone.ckpt` through the inference CLI.
+   distillation CLI and `student_tone.ckpt` through the inference CLI;
+19. the default fp32 serving path at full width (`Synthesizer` at its
+   default compute_dtype, mrf_kernel="auto"; see `fp32_serving`): three
+   sentences, one `mrf` (the fp32 cluster kernel at C = 128) and two
+   `mrf_up` launches per call, each wav within relative L2 1e-4 of the fp32
+   plain composition, the generator's device ms per call.
 
 Phases 10-12 and 16 run right after phase 3, 13-14 after phase 6, 17 with
-phase 9 and 18 after it; the numbers follow the order in which the phases
-were added, and the kernel table and the last two lines come last.
+phase 9 and 18 after it, 19 after phase 5; the numbers follow the order in
+which the phases were added, and the kernel table and the last two lines
+come last.
 """
 
 from __future__ import annotations
@@ -152,8 +159,9 @@ PEAK_BYTES = 3.35e12
 
 T_Y = 512  # the frame bucket whose level shapes the kernels are checked at
 MRF_DESIGN = ("bf16: mma.sync, 16 warps, weights once per block through a 2-stage "
-              "cp.async ring in shared memory; fp32 at C <= 64 the same with three TF32 "
-              "products, at C = 128 FMAs")
+              "cp.async ring in shared memory; fp32 the same with three TF32 products, at "
+              "C = 128 a tile of up to 512 frames over a thread-block cluster (per-branch "
+              "slices, conv halo rows through DSMEM, branch sum in L2)")
 BLOCKS_DESIGN = ("bf16: a 128-frame tile across all output channels, mma.sync, weights "
                  "through a cp.async ring, GroupNorm partials merged in tile order, "
                  "h1 built in conv 2's staging; fp32: per-group FMA kernel")
@@ -181,6 +189,8 @@ ATTN_DISTILL_SHAPES = ((16, 256), (16, 512))  # distillation's fp32 forwards
 ATTN_EDGE_CASES = ((72, (0, 41, 72)), (200, (200, 0, 131)), (512, (0, 300)))  # (T, lengths)
 TAP_ATOL = 1e-4
 FORCED_SENTENCES = 3  # sentences per forced mode in phase 13
+FP32_SENTENCES = 3  # sentences of the default fp32 serving path in phase 19
+FP32_WAV_REL_L2 = 1e-4  # its wav against the fp32 plain composition
 FORCED_MEL_REL_L2 = 1e-2
 
 MAS_SHAPE = (64, 256, 1024)  # (B, T_x, T_y): the training path's bucket
@@ -315,8 +325,11 @@ def check_kernels(t_y: int, reps: int) -> dict:
                    fp32_bound_ms=bound32,
                    bound_by="operations" if ops / PEAK_BF16 >= nbytes / PEAK_BYTES
                    else "bytes")
-        if c <= 64:  # fp32 on the tensor cores: three TF32 products
-            row["fp32_tc_bound_ms"] = max(3 * ops32 / PEAK_TF32, nbytes32 / PEAK_BYTES) * 1e3
+        # fp32 on the tensor cores: three TF32 products
+        row["fp32_tc_bound_ms"] = max(3 * ops32 / PEAK_TF32, nbytes32 / PEAK_BYTES) * 1e3
+        if c == 128:  # fp32: one tile over a thread-block cluster
+            row["fp32_plan"] = mrf_cuda.fp32_cluster_info(
+                mrf_cuda.pick_tile(c, False, False, torch.float32, t_in))
         print(f"[kernels] {lvl} {json.dumps(row)}", flush=True)
         if not err32 <= FP32_ATOL:
             raise AssertionError(f"{lvl}: fp32 kernel max |diff| {err32} > {FP32_ATOL}")
@@ -480,6 +493,81 @@ def end_to_end(syn, result) -> None:
         if not rel_k <= E2E_VS_BF16 * rel_s:
             raise AssertionError(f"end to end ({label}): kernels' error {rel_k} > "
                                  f"{E2E_VS_BF16} x stock bf16's {rel_s}")
+
+
+def fp32_serving(syn) -> dict:
+    """Phase 19: the default fp32 serving path at full width: the path's
+    MatchaConfig() and HiFiGANConfig() weights in a Synthesizer at its
+    default compute_dtype ("float32", mrf_kernel="auto"), over three
+    sentences.  Launches are zeroed before and read after: one `mrf` (level
+    1, C = 128: the cluster kernel) and two `mrf_up` per device call.  Each
+    sentence's mel (cut to whole 64-frame blocks, as end_to_end does) goes
+    through the generator with the kernels and through the fp32 plain
+    composition (mrf_kernel="xla", TF32 off): wav relative L2 <= 1e-4, for
+    the path's weights and for audible ones; the generator's device ms per
+    call is timed with CUDA events."""
+    import numpy as np
+    import torch
+
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from matcha_tts_tpu_torch.ops import mrf_cuda
+
+    hcfg = syn.hifi_cfg
+    fsyn = Synthesizer(syn.model, syn.matcha_cfg, syn.vocoder, hcfg, denoise_strength=0.00025,
+                       device="cuda")
+    if fsyn.compute_dtype != "float32" or hcfg.mrf_kernel != "auto":
+        raise AssertionError(f"phase 19 runs the defaults, got {fsyn.compute_dtype}, "
+                             f"{hcfg.mrf_kernel}")
+    for k in mrf_cuda.LAUNCHES:
+        mrf_cuda.LAUNCHES[k] = 0
+    results = []
+    for i, text in enumerate(SENTENCES[:FP32_SENTENCES]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fsyn.synthesize(text, n_timesteps=10, temperature=0.667, length_scale=3.0)
+        wav = r.wav
+        dt = time.perf_counter() - t0
+        if not np.isfinite(wav).all() or len(wav) != r.y_length * hcfg.total_upsample:
+            raise AssertionError(f"fp32 sentence {i}: bad wav")
+        print(f"[fp32] sentence {i}: {r.y_length} frames, {dt * 1e3:.1f} ms wall", flush=True)
+        results.append(r)
+    launches = dict(mrf_cuda.LAUNCHES)
+    calls = fsyn.stats["calls"]
+    print(f"[fp32] device calls {calls}, launches {launches}", flush=True)
+    if launches != {"mrf": calls, "mrf_up": 2 * calls, "mrf_int8": 0, "mrf_up_int8": 0,
+                    "mrf_tap": 0}:
+        raise AssertionError(f"fp32 serving: expected one mrf and two mrf_up launches per "
+                             f"call over {calls} calls, got {launches}")
+    stock = HiFiGANGenerator(dataclasses.replace(hcfg, mrf_kernel="xla"), device="cuda")
+    gen_ms, worst = [], 0.0
+    for i, r in enumerate(results):
+        n64 = r.y_length // 64 * 64
+        mel = torch.from_numpy(r.mel[:, :n64].T.copy())[None].to("cuda")
+        gens = [("path weights", syn.vocoder)]
+        if i == 0:
+            gens.append(("audible weights", audible_copy(syn.vocoder, hcfg, mel, 7)))
+        for label, gen in gens:
+            stock.load_state_dict(gen.state_dict())
+            with torch.no_grad():
+                n0 = mrf_cuda.LAUNCHES["mrf"]
+                wav_k = gen(mel)
+                if mrf_cuda.LAUNCHES["mrf"] != n0 + 1:
+                    raise AssertionError("fp32 serving: level 1 did not run the kernel")
+                wav_p = stock(mel)
+                torch.cuda.synchronize()
+                rel = rel_l2(wav_k.float(), wav_p.float())
+                ms = cuda_ms(lambda: gen(mel), 3)
+            print(f"[fp32] sentence {i} ({label}), {n64} frames: generator {ms:.3f} device ms "
+                  f"a call; wav vs fp32 plain composition rel L2 {rel:.3e}, max |wav| "
+                  f"{float(wav_p.abs().max()):.3e}", flush=True)
+            if not rel <= FP32_WAV_REL_L2:
+                raise AssertionError(f"fp32 serving ({label}): wav rel L2 {rel} > "
+                                     f"{FP32_WAV_REL_L2}")
+            worst = max(worst, rel)
+            if label == "path weights":
+                gen_ms.append(ms)
+    return dict(launches=launches, calls=calls, generator_ms=gen_ms, wav_rel_l2=worst)
 
 
 def device_busy(prof):
@@ -1840,6 +1928,7 @@ def main() -> int:
     block_rows = check_blocks(MatchaConfig(), REPS)
     syn, last, launches = full_width()
     end_to_end(syn, last)
+    fp32 = fp32_serving(syn)
     profile_path(syn, SENTENCES[0])
     mel = torch.from_numpy(last.mel.T.copy())[None].to("cuda")
     audible = audible_copy(syn.vocoder, syn.hifi_cfg, mel, 7)
@@ -1857,7 +1946,11 @@ def main() -> int:
          "ms": table["level1"]["bf16_ms"], "plain_ms": table["level1"]["bf16_plain_ms"],
          "bound_ms": table["level1"]["bf16_bound_ms"],
          "bound_by": table["level1"]["bound_by"], "library_ms": None,
-         "design": MRF_DESIGN},
+         "design": MRF_DESIGN,
+         **{f"fp32_{k}": table["level1"][f"fp32_{k}"]
+            for k in ("ms", "plain_ms", "bound_ms", "tc_bound_ms", "max_abs_err", "plan")},
+         "fp32_launches": fp32["launches"]["mrf"],
+         "fp32_generator_ms": fp32["generator_ms"]},
         {"name": "mrf_up", "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/mrf.cu",
          "replaces": "matcha_tts_tpu/ops/pallas/mrf_packed.py:648",
          "launches": launches["mrf_up"],
@@ -1989,7 +2082,7 @@ def main() -> int:
     shapes = {
         "flash_mha_bwd_dkv": bwd_shapes,
         "flash_mha_bwd_dq": bwd_shapes,
-        "mrf": f"(1, {64 * T_Y}, 128) bf16",
+        "mrf": f"(1, {64 * T_Y}, 128) bf16; fp32_*: the same in fp32 (phase 19's launches)",
         "mrf_up": f"128 -> 64 at {128 * T_Y}; 64 -> 32 + tail at {256 * T_Y}; bf16",
         "mas": f"{MAS_SHAPE} fp32",
         "block1d": f"({BLOCK_B}, {BLOCK_T}, 256 -> 256) bf16",

@@ -16,10 +16,10 @@
 // (12, 36, 60).  The block keeps the branch's residual state (fp32), two
 // conv-input buffers (in the working type) and the running branch sum (fp32)
 // on chip, so none of the level's intermediates reach device memory.  The
-// branch sum lives in registers on the tensor-core path (tile * C / 512
-// values a thread, one more with the tail's 2 * 3 rows), which caps the tile
-// at 8192 / C frames (64, 128, 256 at C = 128, 64, 32), and in shared memory
-// on the fp32 CUDA-core path (C = 128).  Each conv
+// branch sum lives in registers (tile * C / 512 values a thread, one more
+// with the tail's 2 * 3 rows), which caps the tile at 8192 / C frames (64,
+// 128, 256 at C = 128, 64, 32).  (fp32 at C = 128 spreads a tile over a
+// cluster instead: see below.)  Each conv
 // computes only the rows that later convs still need: the valid window
 // shrinks by the conv's reach at every step.  Every conv input is
 // multiplied by the in-sequence mask before the conv, so frames outside
@@ -81,16 +81,33 @@
 // the upsample too); 48,896 + 2 x 55,008 + 65,536 = 224,448 at C = 32, tile
 // 256 with upsample and tail.  Bound: three TF32 products at 495 TFLOP/s,
 // against 67 TFLOP/s of fp32 FMAs.
-// On the CUDA cores stay: the fp32 transpose conv of the up levels (one
+// On the CUDA cores stay the fp32 transpose conv of the up levels (one
 // product per output parity, weights through the read-only path; about 3%
 // of a level's MACs; its 2C-channel input rows keep a pad of 2 floats, where
-// neighbouring rows' float2 reads are conflict-free), conv_post (7 C MACs
-// per frame), and fp32 at C = 128 (8 warps, a register tile of 8 rows x 4
-// channels per thread, weights through the read-only path, the branch sum
-// in shared memory): there shared memory forces a tile of 16 frames and
-// leaves no room for a ring.
-// The halo is recomputed per tile; PERF.md writes down what that and the
-// tile size cost.
+// neighbouring rows' float2 reads are conflict-free) and conv_post (7 C MACs
+// per frame).  The halo is recomputed per tile; PERF.md writes down what
+// that and the tile size cost.
+//
+// fp32 at C = 128 (mrf_tc_cluster_kernel; level 1 of the default fp32
+// generator) runs the same products (three TF32 terms on the same ring, KC =
+// 64, U = 1), but one block cannot hold a tile worth running: fp32 rows of C
+// + 4 floats and a halo of 2 x 60 rows leave 16 frames of tile (3.7x the
+// level's MACs recomputed).  So a tile of up to 512 frames runs on a
+// thread-block cluster of n CTAs (cudaLaunchKernelEx, as the int8 kernel):
+// in each branch, CTA `rank` owns a slice of the branch's window (tile + 2
+// reach rows cut into n; tile 512: 5 x 127 rows in branch k = 11) and keeps
+// its fp32 residual and conv input in shared memory (65,024 + 93,456 +
+// 65,536 = 224,016 bytes), with kHaloRows = 25 rows of each neighbour's conv
+// input on either side.  Per conv: the products of the slice's rows the
+// chain still needs, a cluster barrier, the epilogue into the slice's own
+// rows, the next conv's edge rows stored into the neighbours' halo rows
+// (16-byte DSMEM stores) and a second barrier.  The halo is recomputed at
+// the cluster tile's edges only (per-branch windows: 1 + 90.3 / tile the
+// level's rows, 1.18 at tile 512).  A row's sums run over the same slabs in
+// the same order whatever CTA holds it, so the result does not depend on
+// the split.  The branch sum passes through the output in device memory
+// (L2 loads and stores, ordered by the cluster barriers): a frame's owner
+// changes from branch to branch.
 //
 // The fp32 level entry also replaces matcha_tts_tpu/ops/pallas/mrf.py::
 // mrf_fused (the tap-unrolled fp32 level of mrf_kernel="tap"): the same
@@ -115,7 +132,7 @@
 // rows masked out of the maxima and the codes).  The slice's chain state
 // stays on chip: the fp32 residual in shared memory, each conv's sums and
 // then its fp32 output in registers (96 a thread at 384 threads), the int8
-// conv input in shared memory with kI8Pad = 25 rows of each neighbour on
+// conv input in shared memory with kHaloRows = 25 rows of each neighbour on
 // either side (the widest conv's reach).  Per conv: the epilogue
 // dequantises fp32(acc) * (ws * s_act) + b with one fp32 FMA (the rounding
 // of XLA's FMA in the JAX kernel), adds the residual after conv2, and takes
@@ -149,22 +166,22 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;     // threads of the fp32 CUDA-core level kernel (C = 128)
-constexpr int kThreadsMma = 512;  // and of the tensor-core ones (bf16; fp32 at C <= 64)
-constexpr int kRows = 8;        // output rows per thread per pass
+constexpr int kThreadsMma = 512;  // threads of the level kernels (bf16 and fp32)
+constexpr int kRows = 8;        // output rows per thread per pass of the fp32 upsample
 constexpr int kMaxReach = 60;   // branch k = 11: 5 * (1 + 3 + 5) + 5 * 3
 constexpr float kSlope = 0.1f;  // LeakyReLU inside the resblocks
 constexpr float kPostSlope = 0.01f;  // LeakyReLU before conv_post
 constexpr int kPostK = 7;
 constexpr int kPostPad = 3;
 constexpr int kTileElems = 8192;  // tile * C at most: the branch sum lives in registers
+// the cluster kernels: conv-input rows a slice takes from each neighbour
+// (the widest conv's half-width, k = 11 at d = 5), CTAs a cluster at most
+// (the portable cluster size)
+constexpr int kHaloRows = 25;
+constexpr int kMaxCluster = 8;
 
 // The largest tile (frames) the level kernel takes at C channels.
 __host__ __device__ constexpr int max_tile(int c) { return kTileElems / c; }
-
-// Whether the level runs on the tensor cores at C channels of `elem` bytes:
-// bf16 always, fp32 at C <= 64.
-__host__ __device__ constexpr bool on_tc(int c, int elem) { return elem == 2 || c <= 64; }
 
 // The weight ring at C channels of `elem` bytes: slabs of KC input channels
 // of one tap for all C outputs, up to U slabs a chunk, kRingStages stages of
@@ -222,20 +239,19 @@ enum Epilogue { kToAct = 0, kAddRes = 1 };
 // Shared-memory layout of one block, in bytes; the host asks for the same
 // numbers through mrf_smem_bytes().
 struct Layout {
-  int ext, ss, ss_in, xb, acc, act_a, act_b, ring, total;
+  int ext, ss, ss_in, xb, act_a, act_b, ring, total;
 };
 
 __host__ __device__ inline int align16(int v) { return (v + 15) & ~15; }
 
 __host__ __device__ inline Layout layout(int c, bool up, bool post, int tile, int elem) {
   Layout l;
-  const bool tc = on_tc(c, elem);
   const int p = post ? kPostPad : 0;
   l.ext = tile + 2 * p + 2 * kMaxReach;
   // conv-input row strides (elements), staggered across banks: rows that
-  // ldmatrix reads are 16-byte aligned (bf16 +8, fp32 +4); the fp32 CUDA
-  // cores' rows, and the fp32 upsample input that they read, +2
-  l.ss = c + (elem == 2 ? 8 : tc ? 4 : 2);
+  // ldmatrix reads are 16-byte aligned (bf16 +8, fp32 +4); the fp32
+  // upsample input, read by the CUDA cores, +2
+  l.ss = c + (elem == 2 ? 8 : 4);
   l.ss_in = 2 * c + (elem == 2 ? 8 : 2);  // upsample input: 2C channels
   int a_elems = l.ext * l.ss;
   if (up) {
@@ -243,86 +259,11 @@ __host__ __device__ inline Layout layout(int c, bool up, bool post, int tile, in
     if (n_in * l.ss_in > a_elems) a_elems = n_in * l.ss_in;
   }
   l.xb = 0;
-  // the CUDA cores' branch sum; the tensor-core path keeps it in registers
-  l.acc = l.xb + align16(l.ext * c * 4);
-  l.act_a = l.acc + (tc ? 0 : align16((tile + 2 * p) * c * 4));
+  l.act_a = l.xb + align16(l.ext * c * 4);
   l.act_b = l.act_a + align16(a_elems * elem);
   l.ring = l.act_b + align16(l.ext * l.ss * elem);
-  l.total = l.ring + (tc ? ring_bytes(c, elem) : 0);
+  l.total = l.ring + ring_bytes(c, elem);
   return l;
-}
-
-// y[r, co] = bias[co] + sum_{tap, ci} src[r + tap * d - half, ci] * w[tap, co, ci]
-// for rows r in [lo, hi), on the CUDA cores.  Thread layout: COUT / 4
-// channel groups of 4 output channels; the remaining threads split the rows,
-// interleaved so that the lanes of a warp read neighbouring rows (without
-// bank conflicts) and share their weights (few distinct addresses).
-template <int CIN, int COUT, int MODE>
-__device__ __forceinline__ void conv_rows(
-    const float* src, int ss, int lo, int hi, const float* __restrict__ w,
-    const float* __restrict__ bias, int k, int d, float* res, float* dst, int dst_ss,
-    int g0, int t_len) {
-  constexpr int CG = COUT / 4;
-  constexpr int RG = kThreads / CG;
-  const int rg = threadIdx.x % RG;
-  const int cg = threadIdx.x / RG;
-  const int co = cg * 4;
-  const int half = (k - 1) / 2 * d;
-  float bv[4];
-  load4(bias + co, bv);
-  for (int base = lo; base < hi; base += RG * kRows) {
-    float acc[kRows][4];
-    int rows[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = base + r * RG + rg;
-      rows[r] = row < hi ? row : hi - 1;  // ragged pass: read a valid row
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = bv[j];
-    }
-    for (int tap = 0; tap < k; ++tap) {
-      const int off = tap * d - half;
-      const float* wt = w + (size_t)tap * CIN * COUT + (size_t)co * CIN;
-      int so[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) so[r] = (rows[r] + off) * ss;
-#pragma unroll 4
-      for (int ci = 0; ci < CIN; ci += 2) {
-        float w0[4], w1[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 wv = ldg2(wt + j * CIN + ci);
-          w0[j] = wv.x;
-          w1[j] = wv.y;
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float2 a = load2(src + so[r] + ci);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[r][j] = fmaf(a.x, w0[j], acc[r][j]);
-            acc[r][j] = fmaf(a.y, w1[j], acc[r][j]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = base + r * RG + rg;
-      if (row >= hi) continue;
-      if (MODE == kToAct) {
-        const int t = g0 + row;
-        const float m = (t >= 0 && t < t_len) ? 1.f : 0.f;
-        float* o = dst + row * dst_ss + co;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] = lrelu(acc[r][j], kSlope) * m;
-      } else {
-        float* o = res + row * COUT + co;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[j] += acc[r][j];
-      }
-    }
-  }
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -542,11 +483,11 @@ struct WeightRing {
 };
 
 // acc[m] += (m-tile m of this warp) x (one bf16 weight slab) for the warp's
-// n_live live m-tiles: a_row[m] + a_off is this lane's A address at the
-// slab's first input channel, slab the slab's shared address.
-template <int C>
-__device__ __forceinline__ void mma_slab_bf16(float (&acc)[Grid<C>::MT][Grid<C>::NT][4],
-                                              const unsigned (&a_row)[Grid<C>::MT],
+// n_live live m-tiles (of MT at most): a_row[m] + a_off is this lane's A
+// address at the slab's first input channel, slab the slab's shared address.
+template <int C, int MT>
+__device__ __forceinline__ void mma_slab_bf16(float (&acc)[MT][Grid<C>::NT][4],
+                                              const unsigned (&a_row)[MT],
                                               unsigned a_off, unsigned slab, int n0, int n_live) {
   constexpr int KC = ring_kc(C);
   const int lane = threadIdx.x % 32;
@@ -567,7 +508,7 @@ __device__ __forceinline__ void mma_slab_bf16(float (&acc)[Grid<C>::MT][Grid<C>:
       b[2 * pr + 1][1] = r[3];
     }
 #pragma unroll
-    for (int m = 0; m < Grid<C>::MT; ++m) {
+    for (int m = 0; m < MT; ++m) {
       if (m >= n_live) break;
       unsigned a[4];
       ldmatrix_x4(a_row[m] + a_off + kk * 2, a);
@@ -582,18 +523,18 @@ __device__ __forceinline__ void mma_slab_bf16(float (&acc)[Grid<C>::MT][Grid<C>:
 // addressing is bf16's with k-steps of 8.  The chain starts at zero for the
 // slab and is added into acc with round-to-nearest adds (the tensor cores
 // truncate their sums).
-template <int C>
-__device__ __forceinline__ void mma_slab_tf32(float (&acc)[Grid<C>::MT][Grid<C>::NT][4],
-                                              const unsigned (&a_row)[Grid<C>::MT],
+template <int C, int MT>
+__device__ __forceinline__ void mma_slab_tf32(float (&acc)[MT][Grid<C>::NT][4],
+                                              const unsigned (&a_row)[MT],
                                               unsigned a_off, unsigned slab, int n0, int n_live) {
   using G = Grid<C>;
   constexpr int KC = ring_kc(C);
   const int lane = threadIdx.x % 32;
   const int row = n0 + (lane & 7) + ((lane >> 4) & 1) * 8;
   const int khalf = (lane >> 3) & 1;
-  float part[G::MT][G::NT][4];
+  float part[MT][G::NT][4];
 #pragma unroll
-  for (int m = 0; m < G::MT; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int nt = 0; nt < G::NT; ++nt)
 #pragma unroll
@@ -611,7 +552,7 @@ __device__ __forceinline__ void mma_slab_tf32(float (&acc)[Grid<C>::MT][Grid<C>:
       split_tf32(__uint_as_float(r[3]), bh[2 * pr + 1][1], bl[2 * pr + 1][1]);
     }
 #pragma unroll
-    for (int m = 0; m < G::MT; ++m) {
+    for (int m = 0; m < MT; ++m) {
       if (m >= n_live) break;
       unsigned a[4];
       ldmatrix_x4(a_row[m] + a_off + kk * 4, a);
@@ -623,7 +564,7 @@ __device__ __forceinline__ void mma_slab_tf32(float (&acc)[Grid<C>::MT][Grid<C>:
     }
   }
 #pragma unroll
-  for (int m = 0; m < G::MT; ++m) {
+  for (int m = 0; m < MT; ++m) {
     if (m >= n_live) break;
 #pragma unroll
     for (int nt = 0; nt < G::NT; ++nt)
@@ -640,26 +581,26 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// conv_rows on the tensor cores, fp32 sums (same function and epilogues):
-// bf16 products, or fp32 as three TF32 terms; the weights from the ring.
-// Warp w takes the 8 NT channels from 8 NT (w % WN) and the m-tiles w / WN
-// + m WM, m < MT.
-template <typename T, int C, typename Ring, int MODE>
-__device__ __forceinline__ void conv_rows_mma(
-    const T* src, int ss, int lo, int hi, Ring& ring, const T* __restrict__ bias, int k, int d,
-    float* res, T* dst, int dst_ss, int g0, int t_len) {
+// The products of one conv on the tensor cores, fp32 sums: acc = sum over
+// taps and input channels of src[r + tap * d - half] x w for rows r in
+// [lo, hi) of src (bf16 products, or fp32 as three TF32 terms), the
+// weights from the ring.  Warp w takes the 8 NT channels from 8 NT (w % WN)
+// and the m-tiles w / WN + m WM, m < MT; acc[m][nt][j] is row lo + 16 (w /
+// WN + m WM) + g + 8 (j / 2), channel 8 NT (w % WN) + 8 nt + 2 q + j % 2
+// (lane 4 g + q).  Returns the warp's live m-tiles.
+template <typename T, int C, int MT, typename Ring>
+__device__ __forceinline__ int conv_products(float (&acc)[MT][Grid<C>::NT][4], const T* src,
+                                             int ss, int lo, int hi, Ring& ring, int k, int d) {
   using G = Grid<C>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4;
   const int n0 = (warp % G::WN) * 8 * G::NT;
   const int mt0 = warp / G::WN;
   const int half = (k - 1) / 2 * d;
   const int n_mt = (hi - lo + 15) / 16;
   const int n_live = n_mt > mt0 ? (n_mt - mt0 + G::WM - 1) / G::WM : 0;
-  float acc[G::MT][G::NT][4];
-  unsigned a_row[G::MT];  // this lane's A row at tap 0
+  unsigned a_row[MT];  // this lane's A row at tap 0
 #pragma unroll
-  for (int m = 0; m < G::MT; ++m) {
+  for (int m = 0; m < MT; ++m) {
     int r = lo + (mt0 + m * G::WM) * 16 + (lane & 15);
     r = r < hi ? r : hi - 1;  // ragged or idle m-tile: read a valid row
     a_row[m] = smem_addr(src + (r - half) * ss + (lane >> 4) * (16 / (int)sizeof(T)));
@@ -676,12 +617,28 @@ __device__ __forceinline__ void conv_rows_mma(
       if (sl >= k * Ring::NB) break;
       const unsigned a_off = (sl / Ring::NB * d * ss + sl % Ring::NB * Ring::KC) * (int)sizeof(T);
       if constexpr (sizeof(T) == 2) {
-        mma_slab_bf16<C>(acc, a_row, a_off, stage + i * Ring::kSlab, n0, n_live);
+        mma_slab_bf16<C, MT>(acc, a_row, a_off, stage + i * Ring::kSlab, n0, n_live);
       } else {
-        mma_slab_tf32<C>(acc, a_row, a_off, stage + i * Ring::kSlab, n0, n_live);
+        mma_slab_tf32<C, MT>(acc, a_row, a_off, stage + i * Ring::kSlab, n0, n_live);
       }
     }
   }
+  return n_live;
+}
+
+// conv_products followed by an epilogue: write lrelu(y) * mask as the next
+// conv's input (dst), or add y into the fp32 residual (res).
+template <typename T, int C, typename Ring, int MODE>
+__device__ __forceinline__ void conv_rows_mma(
+    const T* src, int ss, int lo, int hi, Ring& ring, const T* __restrict__ bias, int k, int d,
+    float* res, T* dst, int dst_ss, int g0, int t_len) {
+  using G = Grid<C>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int n0 = (warp % G::WN) * 8 * G::NT;
+  const int mt0 = warp / G::WN;
+  float acc[G::MT][G::NT][4];
+  const int n_live = conv_products<T, C, G::MT, Ring>(acc, src, ss, lo, hi, ring, k, d);
   // c[0..1] are row g, channels 2q, 2q+1 of the n-tile; c[2..3] row g + 8
 #pragma unroll
   for (int m = 0; m < G::MT; ++m) {
@@ -710,21 +667,6 @@ __device__ __forceinline__ void conv_rows_mma(
         }
       }
     }
-  }
-}
-
-// One conv of the chain: on the tensor cores (weights from the ring), or at
-// fp32 C = 128 on the CUDA cores (weights w).
-template <typename T, int C, typename Ring, int MODE>
-__device__ __forceinline__ void conv(const T* src, int ss, int lo, int hi,
-                                     const T* __restrict__ w, Ring& ring,
-                                     const T* __restrict__ bias, int k, int d, float* res,
-                                     T* dst, int dst_ss, int g0, int t_len) {
-  if constexpr (on_tc(C, sizeof(T))) {
-    conv_rows_mma<T, C, Ring, MODE>(src, ss, lo, hi, ring, bias, k, d, res, dst, dst_ss, g0,
-                                    t_len);
-  } else {
-    conv_rows<C, C, MODE>(src, ss, lo, hi, w, bias, k, d, res, dst, dst_ss, g0, t_len);
   }
 }
 
@@ -839,8 +781,8 @@ __device__ __forceinline__ void upsample_rows_mma(
       for (int i = 0; i < R::U; ++i) {
         const int sl = s0 + i;  // step sl / NB2, input channels KC (sl % NB2) ..
         if (sl >= 2 * R::NB2) break;
-        mma_slab_bf16<C>(acc, a_row, (sl / R::NB2 * ss_in + sl % R::NB2 * R::KC) * 2,
-                    stage + i * R::kSlab, n0, n_live);
+        mma_slab_bf16<C, G::MT>(acc, a_row, (sl / R::NB2 * ss_in + sl % R::NB2 * R::KC) * 2,
+                                stage + i * R::kSlab, n0, n_live);
       }
     }
 #pragma unroll
@@ -868,7 +810,7 @@ __device__ __forceinline__ void upsample_rows_mma(
 // wup: (4, C, 2C) flipped transpose-conv taps [tap][co][ci]; bup: (C,).
 // wpost: (7, C); bpost: (1,).  out: (B, t_out, C) unless POST; wav: (B, t_out).
 template <typename T, int C, bool UP, bool POST>
-__global__ void __launch_bounds__(on_tc(C, sizeof(T)) ? kThreadsMma : kThreads, 1) mrf_level_kernel(
+__global__ void __launch_bounds__(kThreadsMma, 1) mrf_level_kernel(
     const T* __restrict__ x, int t_in, int t_out, int tile,
     const T* __restrict__ wup, const T* __restrict__ bup,
     const T* __restrict__ w, const T* __restrict__ b,
@@ -881,33 +823,24 @@ __global__ void __launch_bounds__(on_tc(C, sizeof(T)) ? kThreadsMma : kThreads, 
   T* act_b = reinterpret_cast<T*>(smem + L.act_b);
   constexpr int CIN = UP ? 2 * C : C;
   constexpr int P = POST ? kPostPad : 0;
-  constexpr bool TC = on_tc(C, sizeof(T));
-  constexpr int NTH = TC ? kThreadsMma : kThreads;
+  constexpr int NTH = kThreadsMma;
   const int bi = blockIdx.y;
   const int t0 = blockIdx.x * tile;
   const int n_acc = (tile + 2 * P) * C;
   const T* xrow = x + (size_t)bi * t_in * CIN;
 
-  // the tensor-core path's weights; in fp32 the upsample's stay off the ring
+  // the conv weights; in fp32 the upsample's stay off the ring
   using Ring = WeightRing<T, C, UP && sizeof(T) == 2>;
   Ring ring;
-  if constexpr (TC) ring.start(smem_addr(smem + L.ring), w, wup);
+  ring.start(smem_addr(smem + L.ring), w, wup);
 
-  // the branch sum of the (tile + 2P, C) output rows: the tensor-core path
-  // keeps element threadIdx.x + j * NTH in accb[j] (registers), the CUDA
-  // cores' element i in acc_s[i]
-  constexpr bool kRegSum = TC;
+  // the branch sum of the (tile + 2P, C) output rows: element threadIdx.x +
+  // j * NTH in accb[j] (registers)
   constexpr int kAcc = ceil_div((max_tile(C) + 2 * P) * C, NTH);
   float accb[kAcc];
-  float* acc_s = reinterpret_cast<float*>(smem + L.acc);
-  if constexpr (kRegSum) {
 #pragma unroll
-    for (int j = 0; j < kAcc; ++j) accb[j] = 0.f;
-  } else {
-    for (int i = threadIdx.x; i < n_acc; i += NTH) acc_s[i] = 0.f;
-  }
+  for (int j = 0; j < kAcc; ++j) accb[j] = 0.f;
 
-  size_t w_off = 0;
   int n_conv = 0;
 #pragma unroll 1
   for (int br = 0; br < 3; ++br) {
@@ -956,28 +889,22 @@ __global__ void __launch_bounds__(on_tc(C, sizeof(T)) ? kThreadsMma : kThreads, 
       __syncthreads();
       lo += h * d;
       hi -= h * d;
-      conv<T, C, Ring, kToAct>(act_a, L.ss, lo, hi, w + w_off, ring, b + n_conv * C, k, d,
-                             nullptr, act_b, L.ss, g0, t_out);
-      w_off += (size_t)k * C * C;
+      conv_rows_mma<T, C, Ring, kToAct>(act_a, L.ss, lo, hi, ring, b + n_conv * C, k, d, nullptr,
+                                        act_b, L.ss, g0, t_out);
       ++n_conv;
       __syncthreads();
       lo += h;
       hi -= h;
-      conv<T, C, Ring, kAddRes>(act_b, L.ss, lo, hi, w + w_off, ring, b + n_conv * C, k, 1,
-                              xb, nullptr, 0, g0, t_out);
-      w_off += (size_t)k * C * C;
+      conv_rows_mma<T, C, Ring, kAddRes>(act_b, L.ss, lo, hi, ring, b + n_conv * C, k, 1, xb,
+                                         nullptr, 0, g0, t_out);
       ++n_conv;
       __syncthreads();
     }
     // lo == reach: rows [reach, reach + tile + 2P) are the branch's output
-    if constexpr (kRegSum) {
 #pragma unroll
-      for (int j = 0; j < kAcc; ++j) {
-        const int i = threadIdx.x + j * NTH;
-        if (i < n_acc) accb[j] += xb[reach * C + i];
-      }
-    } else {
-      for (int i = threadIdx.x; i < n_acc; i += NTH) acc_s[i] += xb[reach * C + i];
+    for (int j = 0; j < kAcc; ++j) {
+      const int i = threadIdx.x + j * NTH;
+      if (i < n_acc) accb[j] += xb[reach * C + i];
     }
   }
   __syncthreads();
@@ -987,14 +914,10 @@ __global__ void __launch_bounds__(on_tc(C, sizeof(T)) ? kThreadsMma : kThreads, 
     auto store = [&](int i, float sum) {
       if (t0 + i / C < t_out) orow[(size_t)t0 * C + i] = from_f<T>(sum / 3.f);
     };
-    if constexpr (kRegSum) {
 #pragma unroll
-      for (int j = 0; j < kAcc; ++j) {
-        const int i = threadIdx.x + j * NTH;
-        if (i < n_acc) store(i, accb[j]);
-      }
-    } else {
-      for (int i = threadIdx.x; i < n_acc; i += NTH) store(i, acc_s[i]);
+    for (int j = 0; j < kAcc; ++j) {
+      const int i = threadIdx.x + j * NTH;
+      if (i < n_acc) store(i, accb[j]);
     }
     return;
   }
@@ -1006,14 +929,10 @@ __global__ void __launch_bounds__(on_tc(C, sizeof(T)) ? kThreadsMma : kThreads, 
     const float v = (t >= 0 && t < t_out) ? lrelu(sum / 3.f, kPostSlope) : 0.f;
     act_a[r * L.ss + c] = from_f<T>(v);
   };
-  if constexpr (kRegSum) {
 #pragma unroll
-    for (int j = 0; j < kAcc; ++j) {
-      const int i = threadIdx.x + j * NTH;
-      if (i < n_acc) stage(i, accb[j]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < n_acc; i += NTH) stage(i, acc_s[i]);
+  for (int j = 0; j < kAcc; ++j) {
+    const int i = threadIdx.x + j * NTH;
+    if (i < n_acc) stage(i, accb[j]);
   }
   __syncthreads();
   const int lane = threadIdx.x % 32;
@@ -1037,13 +956,12 @@ cudaError_t launch(const void* x, int batch, int t_in, int t_out, int tile,
                    const void* wpost, const void* bpost, void* out, void* wav,
                    cudaStream_t stream) {
   const int smem = layout(C, UP, POST, tile, sizeof(T)).total;
-  constexpr int threads = on_tc(C, sizeof(T)) ? kThreadsMma : kThreads;
   auto kernel = mrf_level_kernel<T, C, UP, POST>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t_out + tile - 1) / tile, batch);
-  kernel<<<grid, threads, smem, stream>>>(
+  kernel<<<grid, kThreadsMma, smem, stream>>>(
       static_cast<const T*>(x), t_in, t_out, tile, static_cast<const T*>(wup),
       static_cast<const T*>(bup), static_cast<const T*>(w), static_cast<const T*>(b),
       static_cast<const T*>(wpost), static_cast<const T*>(bpost), static_cast<T*>(out),
@@ -1058,7 +976,9 @@ cudaError_t dispatch(int c, int up, int post, const void* x, int batch, int t_in
                      const void* bpost, void* out, void* wav, cudaStream_t s) {
 #define MRF_ARGS x, batch, t_in, t_out, tile, wup, bup, w, b, wpost, bpost, out, wav, s
   if (!up && !post) {
-    if (c == 128) return launch<T, 128, false, false>(MRF_ARGS);
+    if constexpr (sizeof(T) == 2) {  // fp32 at C = 128: the cluster kernel, launch_tc_cluster
+      if (c == 128) return launch<T, 128, false, false>(MRF_ARGS);
+    }
     if (c == 64) return launch<T, 64, false, false>(MRF_ARGS);
     if (c == 32) return launch<T, 32, false, false>(MRF_ARGS);
   } else if (up && !post) {
@@ -1076,14 +996,12 @@ cudaError_t dispatch(int c, int up, int post, const void* x, int batch, int t_in
 // int8 mode: one window over one thread-block cluster
 // ---------------------------------------------------------------------------
 
-constexpr int kI8Pad = 25;        // conv-input rows a slice takes from each neighbour: the widest conv's half-width
 constexpr int kI8Threads = 384;  // 170 registers a thread: room for 96 sums
 constexpr int kI8Warps = kI8Threads / 32;
 // 8-channel n-tiles a warp (32 output channels; 64 at C = 256) and the
 // 16-row m-tiles it holds at most: 96 sums a thread
 __host__ __device__ constexpr int i8_nt(int c) { return c >= 256 ? 8 : 4; }
 __host__ __device__ constexpr int i8_mt(int c) { return c >= 256 ? 3 : 6; }
-constexpr int kI8MaxCluster = 8;  // the portable cluster size
 constexpr float kInv127 = 1.f / 127.f;  // fp32(1 / 127), rounded once
 
 // The warp grid at C channels: WN warps across the channels (NT n-tiles
@@ -1232,7 +1150,7 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsi
 
 // Shared memory of one CTA (bytes): the fp32 residual xb of its slice (in
 // fragment order: each value is read and written only by the thread that
-// computes it), the int8 conv input (kI8Pad rows from each neighbour around
+// computes it), the int8 conv input (kHaloRows rows from each neighbour around
 // the slice's rows, rows of C + 16 bytes), the weight ring and every CTA's
 // warps' partial maxima.  Before the chain the upsample's input rows and
 // one parity's two taps (float64), and after it the tail's input rows, reuse
@@ -1258,9 +1176,9 @@ __host__ __device__ inline int up_stage_bytes(int c, int rows) {
 __host__ __device__ inline I8Layout i8_layout(int c, bool up, bool post, int rows, int elem) {
   I8Layout l;
   l.act = align16(16 * i8_wm(c) * i8_nl(c, rows) * c * 4);  // xb: every warp's m-tiles
-  l.ring = l.act + align16((rows + 2 * kI8Pad) * (c + 16));
+  l.ring = l.act + align16((rows + 2 * kHaloRows) * (c + 16));
   l.red = l.ring + i8_ring_bytes(c);
-  l.total = l.red + kI8MaxCluster * kI8Warps * 4;  // every CTA's warps' maxima
+  l.total = l.red + kMaxCluster * kI8Warps * 4;  // every CTA's warps' maxima
   if (up && up_stage_bytes(c, rows) > l.total) l.total = align16(up_stage_bytes(c, rows));
   if (post) {  // the tail's input rows, kPostPad from each neighbour
     const int s = (rows + 2 * kPostPad) * (c + (elem == 2 ? 8 : 4)) * elem;
@@ -1283,8 +1201,8 @@ inline bool i8_plan_ok(int c, bool up, bool post, int tile, int halo, int n_cta,
                        int elem) {
   const int wr = tile + 2 * halo;
   return (c == 32 || c == 64 || c == 128 || c == 256) && tile > 0 &&
-         halo >= (post ? kPostPad : 0) && n_cta >= 1 && n_cta <= kI8MaxCluster &&
-         rows <= i8_max_rows(c, up) && (n_cta == 1 || rows >= kI8Pad) && n_cta * rows >= wr &&
+         halo >= (post ? kPostPad : 0) && n_cta >= 1 && n_cta <= kMaxCluster &&
+         rows <= i8_max_rows(c, up) && (n_cta == 1 || rows >= kHaloRows) && n_cta * rows >= wr &&
          (n_cta - 1) * rows < wr && i8_layout(c, up, post, rows, elem).total <= 232448;
 }
 
@@ -1493,20 +1411,20 @@ __device__ __forceinline__ float i8_finish(const int (&v)[NL][I8Grid<C>::NT][4],
         const uint16_t q =
             ok ? quant_pair(__int_as_float(v[m][nt][j]), __int_as_float(v[m][nt][j + 1]), inv)
                : 0;
-        *reinterpret_cast<uint16_t*>(act + (kI8Pad + r) * SA + s.col(nt)) = q;
+        *reinterpret_cast<uint16_t*>(act + (kHaloRows + r) * SA + s.col(nt)) = q;
       }
     }
   }
   __syncthreads();
-  // the slice's first and last kI8Pad rows into the neighbours' halo rows,
+  // the slice's first and last kHaloRows rows into the neighbours' halo rows,
   // 16 bytes a copy
   constexpr int VR = C / 16;  // 16-byte vectors a row
-  for (int i = threadIdx.x; i < 2 * kI8Pad * VR; i += kI8Threads) {
-    const int side = i / (kI8Pad * VR), r = i % (kI8Pad * VR) / VR, vec = i % VR;
+  for (int i = threadIdx.x; i < 2 * kHaloRows * VR; i += kI8Threads) {
+    const int side = i / (kHaloRows * VR), r = i % (kHaloRows * VR) / VR, vec = i % VR;
     const int nb = side == 0 ? s.rank - 1 : s.rank + 1;
     if (nb < 0 || nb >= s.n_cta) continue;
-    const int src = side == 0 ? kI8Pad + r : s.rows + r;  // own rows 0.. / rows - kI8Pad..
-    const int dst = side == 0 ? kI8Pad + s.rows + r : r;  // its bottom / top halo rows
+    const int src = side == 0 ? kHaloRows + r : s.rows + r;  // own rows 0.. / rows - kHaloRows..
+    const int dst = side == 0 ? kHaloRows + s.rows + r : r;  // its bottom / top halo rows
     *reinterpret_cast<int4*>(cluster.map_shared_rank(act, nb) + dst * SA + vec * 16) =
         *reinterpret_cast<const int4*>(act + src * SA + vec * 16);
   }
@@ -1532,7 +1450,7 @@ __device__ __forceinline__ void conv_i8(int (&acc)[NL][I8Grid<C>::NT][4],
   for (int m = 0; m < NL; ++m) {
     int r = (s.mt0 + m * I8Grid<C>::WM) * 16 + (lane & 15);
     r = r < s.rows ? r : s.rows - 1;  // ragged or idle m-tile: read a valid row
-    a_row[m] = smem_addr(act + (kI8Pad + r - half) * SA + (lane >> 4) * 16);
+    a_row[m] = smem_addr(act + (kHaloRows + r - half) * SA + (lane >> 4) * 16);
 #pragma unroll
     for (int nt = 0; nt < I8Grid<C>::NT; ++nt)
 #pragma unroll
@@ -1630,7 +1548,7 @@ __global__ void __launch_bounds__(kI8Threads, 1) mrf_int8_kernel(
     upsample_f64<T, C>(x + (size_t)bi * t_in * CIN, t_in, s.f0, rows, wup, bup, smem, xup);
   }
   // the conv-input rows start at zero: the window's edges read these
-  for (int i = threadIdx.x * 16; i < (rows + 2 * kI8Pad) * SA; i += kI8Threads * 16)
+  for (int i = threadIdx.x * 16; i < (rows + 2 * kHaloRows) * SA; i += kI8Threads * 16)
     *reinterpret_cast<int4*>(act + i) = make_int4(0, 0, 0, 0);
   I8Ring<C> ring;
   ring.start(smem_addr(smem + L.ring), w);
@@ -1883,31 +1801,300 @@ cudaError_t dispatch_int8(int c, int up, int post, const void* x, int batch, int
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// fp32 at C = 128: one tile over a thread-block cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kTcMaxTile = 512;  // frames of a cluster tile at most
+constexpr int kTcMaxRows = 128;  // rows of a slice at most: two m-tiles of each warp
+constexpr int kTcMt = kTcMaxRows / (16 * Grid<128>::WM);
+constexpr int kTcSS = 128 + 4;   // conv-input row stride (floats): 16-byte rows, 8-row ldmatrix reads conflict-free
+
+// Rows of a slice of branch br (k = 3 + 4 br) when a tile of `tile` frames
+// runs on n CTAs: the branch's window, the tile and a reach of 12 (1 + 2 br)
+// frames on each side, cut into n slices (the last one short).
+__host__ __device__ constexpr int tc_rows(int tile, int n, int br) {
+  return ceil_div(tile + 24 * (1 + 2 * br), n);
+}
+
+// CTAs a cluster for a tile: the fewest, of at most kMaxCluster, whose
+// slices of the widest branch's window fit kTcMaxRows.
+__host__ __device__ constexpr int tc_cluster(int tile) {
+  return ceil_div(tile + 2 * kMaxReach, kTcMaxRows) < kMaxCluster
+             ? ceil_div(tile + 2 * kMaxReach, kTcMaxRows)
+             : kMaxCluster;
+}
+
+// Shared memory of one CTA (bytes): the fp32 residual of the slice's rows
+// ([rows][C]), its conv input with kHaloRows rows of each neighbour on either
+// side ([kHaloRows + rows + kHaloRows][kTcSS]) and the weight ring (2 stages
+// of one [128][64] fp32 slab).
+struct TcLayout {
+  int n, rows, act, ring, total;
+};
+
+__host__ __device__ inline TcLayout tc_layout(int tile) {
+  TcLayout l;
+  l.n = tc_cluster(tile);
+  l.rows = tc_rows(tile, l.n, 2);
+  l.act = align16(l.rows * 128 * 4);
+  l.ring = l.act + align16((l.rows + 2 * kHaloRows) * kTcSS * 4);
+  l.total = l.ring + ring_bytes(128, 4);
+  return l;
+}
+
+// Whether the kernel takes a tile: every slice fits registers and shared
+// memory, and beside a neighbour holds the widest half-width of each branch
+// (5 (1 + 2 br) rows), so that a conv's halo rows come from the next CTA
+// alone.
+inline bool tc_plan_ok(int tile) {
+  if (tile <= 0 || tile % 8 != 0 || tile > kTcMaxTile) return false;
+  const TcLayout l = tc_layout(tile);
+  if (l.n < 1 || l.n > kMaxCluster || l.rows > kTcMaxRows || l.total > 232448) return false;
+  for (int br = 0; br < 3; ++br)
+    if (l.n > 1 && tc_rows(tile, l.n, br) < 5 * (1 + 2 * br)) return false;
+  return true;
+}
+
+// x, out: (B, T, 128) fp32; w: (126, 128, 128) [tap][co][ci], b: (18, 128),
+// as for mrf_level_kernel.  Grid (n, tiles, B) in clusters of (n, 1, 1):
+// cluster (y, z) runs frames [y tile, (y + 1) tile) of batch row z.  In
+// branch br, CTA `rank` owns the slice of window rows [rank rows, (rank + 1)
+// rows) (rows = tc_rows(tile, n, br); window row 0 is frame y tile - reach):
+// its residual and its conv input on chip.  Each conv: the products of the
+// rows the conv still needs inside the slice (conv_products: the exact
+// kernel's three TF32 terms on the weight ring), a cluster barrier (every
+// CTA is done reading its conv input), the epilogue into the slice's own
+// rows, the next conv's edge rows copied into the neighbours' halo rows
+// (16-byte DSMEM stores), and a second cluster barrier.  A row's sums run
+// over the same slabs in the same order whatever CTA computes it, so every
+// cluster size gives the same bits.  The branch sum goes through `out` (L2
+// loads and stores: a frame's owner changes between branches; the cluster
+// barriers order them): the branch outputs in branch order, then / 3.
+__global__ void __launch_bounds__(kThreadsMma, 1) mrf_tc_cluster_kernel(
+    const float* __restrict__ x, int t_len, int tile, const float* __restrict__ w,
+    const float* __restrict__ b, float* __restrict__ out) {
+  constexpr int C = 128, SS = kTcSS, MT = kTcMt;
+  using G = Grid<C>;
+  using Ring = WeightRing<float, C, false>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const TcLayout L = tc_layout(tile);
+  float* xb = reinterpret_cast<float*>(smem);                           // [rows][C]
+  float* act = reinterpret_cast<float*>(smem + L.act) + kHaloRows * SS;  // slice row 0
+  const int rank = blockIdx.x, n_cta = gridDim.x;
+  const int t0 = blockIdx.y * tile;
+  const float* xrow = x + (size_t)blockIdx.z * t_len * C;
+  float* orow = out + (size_t)blockIdx.z * t_len * C;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int n0 = (warp % G::WN) * 8 * G::NT, mt0 = warp / G::WN;
+  Ring ring;
+  ring.start(smem_addr(smem + L.ring), w, nullptr);
+  // every CTA of the cluster runs before the first store into its shared memory
+  cluster.sync();
+
+  // the slice's first and last nh conv-input rows into the halo rows of the
+  // CTAs above and below
+  auto push = [&](int rows, int nh) {
+    constexpr int VR = C / 4;  // 16-byte vectors a row
+    for (int i = threadIdx.x; i < 2 * nh * VR; i += kThreadsMma) {
+      const int side = i / (nh * VR), r = i % (nh * VR) / VR, v = i % VR;
+      const int nb = side == 0 ? rank - 1 : rank + 1;
+      if (nb < 0 || nb >= n_cta) continue;
+      const int src = side == 0 ? r : rows - nh + r;  // own rows 0.. / rows - nh..
+      const int dst = side == 0 ? rows + r : r - nh;  // its rows below / above its slice
+      *reinterpret_cast<float4*>(cluster.map_shared_rank(act, nb) + dst * SS + v * 4) =
+          *reinterpret_cast<const float4*>(act + src * SS + v * 4);
+    }
+  };
+
+  int conv = 0;
+#pragma unroll 1
+  for (int br = 0; br < 3; ++br) {
+    const int k = 3 + 4 * br, h = (k - 1) / 2, reach = 12 * h;
+    const int wlen = tile + 2 * reach;
+    const int rows = ceil_div(wlen, n_cta);
+    const int w0 = rank * rows;                          // window row of slice row 0
+    const int n_own = max(0, min(rows, wlen - w0));      // slice rows inside the window
+    const int f0 = t0 - reach + w0;                      // frame of slice row 0
+    __syncthreads();  // the previous branch's epilogue is done with xb
+    // the residual starts as the level input (0 outside the sequence), the
+    // first conv's input as its LeakyReLU
+    for (int i = threadIdx.x; i < n_own * (C / 4); i += kThreadsMma) {
+      const int r = i / (C / 4), c = i % (C / 4) * 4;
+      const int t = f0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t >= 0 && t < t_len) v = __ldg(reinterpret_cast<const float4*>(xrow + (size_t)t * C + c));
+      *reinterpret_cast<float4*>(xb + r * C + c) = v;
+      *reinterpret_cast<float4*>(act + r * SS + c) =
+          make_float4(lrelu(v.x, kSlope), lrelu(v.y, kSlope), lrelu(v.z, kSlope), lrelu(v.w, kSlope));
+    }
+    __syncthreads();
+    push(rows, h);
+    cluster.sync();
+    int lo = 0, hi = wlen;  // window rows the next conv's input holds
+#pragma unroll 1
+    for (int sb = 0; sb < 3; ++sb) {
+#pragma unroll 1
+      for (int which = 0; which < 2; ++which) {  // conv1 (dilation 2 sb + 1), then conv2
+        const int d = which == 0 ? 2 * sb + 1 : 1;
+        lo += h * d;
+        hi -= h * d;
+        const int clo = max(lo - w0, 0), chi = max(clo, min(hi - w0, n_own));  // slice rows
+        float acc[MT][G::NT][4];
+        const int n_live = conv_products<float, C, MT, Ring>(acc, act, SS, clo, chi, ring, k, d);
+        const bool last = which == 1 && sb == 2;
+        // every CTA is done reading its conv input, own rows and halo rows
+        cluster.sync();
+        const float* bias = b + conv * C;
+        ++conv;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (m >= n_live) break;
+          const int rbase = clo + (mt0 + m * G::WM) * 16 + g;
+#pragma unroll
+          for (int nt = 0; nt < G::NT; ++nt) {
+            const int col = n0 + nt * 8 + 2 * q;
+            const float2 bv = ldg2(bias + col);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int row = rbase + 8 * hh;
+              if (row >= chi) continue;
+              const int t = f0 + row;
+              float v0 = acc[m][nt][2 * hh] + bv.x;
+              float v1 = acc[m][nt][2 * hh + 1] + bv.y;
+              if (which == 1) {  // conv2: into the residual
+                float2* xp = reinterpret_cast<float2*>(xb + row * C + col);
+                v0 = xp->x + v0;
+                v1 = xp->y + v1;
+                if (last) {
+                  // the branch's output: rows of the tile into the branch sum
+                  const int wrow = w0 + row;
+                  if (wrow < reach || wrow >= reach + tile || t >= t_len) continue;
+                  float2* o = reinterpret_cast<float2*>(orow + (size_t)t * C + col);
+                  float2 sum = make_float2(v0, v1);
+                  if (br > 0) {
+                    const float2 prev = __ldcg(o);
+                    sum = make_float2(prev.x + v0, prev.y + v1);
+                  }
+                  if (br == 2) sum = make_float2(sum.x / 3.f, sum.y / 3.f);
+                  __stcg(o, sum);
+                  continue;
+                }
+                *xp = make_float2(v0, v1);
+              }
+              // the next conv's input: LeakyReLU, 0 outside the sequence
+              const bool in = t >= 0 && t < t_len;
+              store2(act + row * SS + col, in ? lrelu(v0, kSlope) : 0.f,
+                     in ? lrelu(v1, kSlope) : 0.f);
+            }
+          }
+        }
+        if (!last) {
+          __syncthreads();
+          push(rows, which == 0 ? h : h * (2 * sb + 3));
+          cluster.sync();
+        }
+      }
+    }
+  }
+}
+
+// Launches the fp32 level at C = 128 in clusters (tc_layout(tile)), or with
+// `info` fills it with the plan (CTAs a cluster, rows of the widest slice,
+// shared memory in bytes), the clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters), and the kernel's registers a thread and
+// local (spill) bytes, and launches nothing.
+cudaError_t launch_tc_cluster(const float* x, int batch, int t_len, int tile, const float* w,
+                              const float* b, float* out, cudaStream_t stream, int* info) {
+  if (!tc_plan_ok(tile)) return cudaErrorInvalidValue;
+  const TcLayout L = tc_layout(tile);
+  auto kernel = mrf_tc_cluster_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(L.n, ceil_div(t_len, tile), batch);
+  cfg.blockDim = dim3(kThreadsMma);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L.n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (info) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes fa;
+    err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return err;
+    info[0] = L.n;
+    info[1] = L.rows;
+    info[2] = L.total;
+    info[3] = clusters;
+    info[4] = fa.numRegs;
+    info[5] = static_cast<int>(fa.localSizeBytes);
+    return cudaSuccess;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, x, t_len, tile, w, b, out);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) one block of the level kernel needs at this tile.
+// Shared memory (bytes) one block (fp32 at C = 128: one CTA of the
+// cluster) of the level kernel needs at this tile; 1 << 30 for a tile the
+// cluster kernel does not take.
 int mrf_smem_bytes(int c, int up, int post, int tile, int elem_size) {
+  if (elem_size == 4 && c == 128 && !up && !post)
+    return tc_plan_ok(tile) ? tc_layout(tile).total : 1 << 30;
   return layout(c, up != 0, post != 0, tile, elem_size).total;
 }
 
-// The largest tile (frames) of the level kernel at C channels (the
-// tensor-core path's branch sum lives in registers).
-int mrf_max_tile(int c) { return c > 0 ? max_tile(c) : 0; }
+// The largest tile (frames) of the level kernel at C channels of
+// `elem_size` bytes: the branch sum lives in registers, except at fp32 C =
+// 128, where a tile runs on a cluster.
+int mrf_max_tile(int c, int elem_size) {
+  if (elem_size == 4 && c == 128) return kTcMaxTile;
+  return c > 0 ? max_tile(c) : 0;
+}
+
+// The cluster plan of the fp32 level at C = 128 for a tile (6 ints: CTAs a
+// cluster, rows of the widest slice, shared memory in bytes, the clusters the
+// card holds at once, registers a thread, local bytes).  Launches nothing.
+int mrf_cluster_info(int tile, int* info) {
+  return launch_tc_cluster(nullptr, 1, tile, tile, nullptr, nullptr, nullptr, nullptr, info);
+}
 
 // Launches one MRF level on `stream`.  Returns a cudaError_t (0 = success).
-// The weight ring copies 16-byte units: on the tensor-core path (bf16, and
-// fp32 at C <= 64) w must be 16-byte aligned, and in bf16 wup too.
+// The weight ring copies 16-byte units: w must be 16-byte aligned, and in
+// bf16 wup too; fp32 at C = 128 (the cluster kernel, no upsample, no tail)
+// also x and out.
 int mrf_level(const void* x, int batch, int t_in, int t_out, int c, int up, int post,
               int is_bf16, int tile, const void* wup, const void* bup, const void* w,
               const void* b, const void* wpost, const void* bpost, void* out,
               void* wav, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= 0 || tile <= 0 || tile % 8 != 0 || tile > max_tile(c)) return cudaErrorInvalidValue;
-  if (on_tc(c, is_bf16 ? 2 : 4) && (reinterpret_cast<uintptr_t>(w) & 15))
-    return cudaErrorMisalignedAddress;
+  if (c <= 0 || tile <= 0 || tile % 8 != 0) return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(w) & 15) return cudaErrorMisalignedAddress;
   if (is_bf16 && (reinterpret_cast<uintptr_t>(wup) & 15)) return cudaErrorMisalignedAddress;
+  if (!is_bf16 && c == 128) {
+    if (up || post || t_in != t_out) return cudaErrorInvalidValue;
+    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15)
+      return cudaErrorMisalignedAddress;
+    return launch_tc_cluster(static_cast<const float*>(x), batch, t_out, tile,
+                             static_cast<const float*>(w), static_cast<const float*>(b),
+                             static_cast<float*>(out), s, nullptr);
+  }
+  if (tile > max_tile(c)) return cudaErrorInvalidValue;
   if (is_bf16)
     return dispatch<bf16>(c, up, post, x, batch, t_in, t_out, tile, wup, bup, w, b,
                           wpost, bpost, out, wav, s);

@@ -18,6 +18,10 @@ the fp32 level kernel at C in {32, 64}; `"xla"` runs the plain composition.
 One deliberate difference: the JAX package's `"auto"` is plain on its CPU
 backend and for fp32 inputs, while the port's runs the exact kernels on
 every device and dtype (they compute the plain composition's function).
+In fp32, the default `compute_dtype` of the `Synthesizer`, every level
+kernel runs three TF32 products per product on the tensor cores; level 1
+(C=128) spreads each tile over a thread-block cluster and runs faster than
+the plain composition (`PERF.md` §6).
 """
 
 from __future__ import annotations

@@ -10,16 +10,18 @@ Replaces the TPU kernels `matcha_tts_tpu/ops/pallas/mrf_packed.py`:
   tanh, returned as the wav `(B, 2 T_in)` instead of the level output.
 
 The kernel (`csrc/mrf.cu`) keeps a time tile and its halo in shared memory
-(on the tensor cores the branch sum in registers) through all 18 convs, so
-the level's intermediates never reach device memory.  It is bound by
-operations (126 C^2 MACs per output frame): the convs run on the tensor
-cores (mma.sync) with the weights streamed once per block through a
-shared-memory cp.async ring, in bf16 as bf16 products and in fp32 at C in
-{32, 64} as three TF32 products each (hi.lo terms, fp32 sums); fp32 at
-C = 128, the fp32 upsample and conv_post run as FMAs on the CUDA cores.  The
-halo is recomputed per tile (see the source note in `csrc/mrf.cu` and
-PERF.md).  On the tensor-core path `w` (and in bf16 `wup`) must be 16-byte
-aligned; a misaligned base raises.
+(the branch sum in registers) through all 18 convs, so the level's
+intermediates never reach device memory.  It is bound by operations (126
+C^2 MACs per output frame): the convs run on the tensor cores (mma.sync)
+with the weights streamed once per block through a shared-memory cp.async
+ring, in bf16 as bf16 products and in fp32 as three TF32 products each
+(hi.lo terms, fp32 sums); the fp32 upsample and conv_post run as FMAs on
+the CUDA cores.  fp32 at C = 128 spreads a tile of up to 512 frames over a
+thread-block cluster (`fp32_split`: each CTA a slice of rows, the halo rows
+of every conv from its neighbours' shared memory), where one block would
+hold 16 frames.  The halo is recomputed per tile (see the source note in
+`csrc/mrf.cu` and PERF.md).  `w` (and in bf16 `wup`; in fp32 at C = 128 `x`
+too) must be 16-byte aligned; a misaligned base raises.
 
 Weights are per tap, packed once from the modules' torch layouts:
 `w (126, C, C)` as [tap][c_out][c_in] in chain order (branch, sub-block,
@@ -76,13 +78,14 @@ N_CONVS = 2 * len(DILATIONS) * len(KERNEL_SIZES)  # 18
 SLOPE = 0.1
 POST_SLOPE = 0.01
 POST_K = 7
-TILES = (256, 128, 64, 32, 16)
+TILES = (512, 256, 128, 64, 32, 16)
+FP32_SLICE_ROWS = 128  # rows of a slice of the fp32 C = 128 cluster kernel at most (`kTcMaxRows`)
 
 INT8_CHANNELS = (32, 64, 128, 256)
 INV127 = 1.0 / 127.0  # rounds to fp32(1 / 127) in a float32 tensor
 INT8_WARPS = 12  # warps of a CTA of the int8 kernel (`kI8Warps` in csrc/mrf.cu)
-INT8_MAX_CLUSTER = 8  # CTAs a cluster: the portable maximum
-INT8_PAD_ROWS = 25  # conv-input rows a slice takes from each neighbour (the widest conv's reach)
+MAX_CLUSTER = 8  # CTAs a cluster of the cluster kernels: the portable maximum
+HALO_ROWS = 25  # conv-input rows a slice takes from each neighbour (the widest conv's reach)
 
 # Kernel launches, counted where each wrapper launches its kernel.
 LAUNCHES = {"mrf": 0, "mrf_up": 0, "mrf_int8": 0, "mrf_up_int8": 0, "mrf_tap": 0}
@@ -206,14 +209,25 @@ def int8_split(c: int, w_rows: int, up: bool = False) -> Tuple[int, int]:
     per row), at most 8, whose slices then hold up to `int8_max_mtiles`.
     The kernel also refuses a slice whose shared memory exceeds the card's
     (`i8_plan_ok`).  A JAX window has 256 rows or more, so a slice beside a
-    neighbour holds more than INT8_PAD_ROWS."""
-    n = min(INT8_MAX_CLUSTER, -(-w_rows // (3 * int8_mtile_rows(c))))
+    neighbour holds more than HALO_ROWS."""
+    n = min(MAX_CLUSTER, -(-w_rows // (3 * int8_mtile_rows(c))))
     rows = -(-w_rows // n)
     if (rows > int8_max_mtiles(c, up) * int8_mtile_rows(c)
-            or (n > 1 and rows < INT8_PAD_ROWS)):
-        raise ValueError(f"no cluster of at most {INT8_MAX_CLUSTER} CTAs holds a window of "
+            or (n > 1 and rows < HALO_ROWS)):
+        raise ValueError(f"no cluster of at most {MAX_CLUSTER} CTAs holds a window of "
                          f"{w_rows} rows at C={c}")
     return n, rows
+
+
+def fp32_split(tile: int) -> Tuple[int, Tuple[int, int, int]]:
+    """(n_cta, rows of a slice in each branch) of the fp32 level kernel at C
+    = 128 for a tile of `tile` frames (`tc_cluster`, `tc_rows` in
+    csrc/mrf.cu): the fewest CTAs, at most MAX_CLUSTER, whose slices of the
+    widest branch's window (tile + 2 x 60 rows) fit FP32_SLICE_ROWS; branch
+    k's window, the tile and a reach of 12, 36, 60 rows on either side, cut
+    into n_cta slices, the last one short."""
+    n = min(MAX_CLUSTER, -(-(tile + 120) // FP32_SLICE_ROWS))
+    return n, tuple(-(-(tile + 2 * reach) // n) for reach in (12, 36, 60))
 
 
 def int8_plan(c: int, t: int, up: bool = False,
@@ -420,8 +434,10 @@ def _lib() -> ctypes.CDLL:
         lib.mrf_level.restype = i32
         lib.mrf_smem_bytes.argtypes = [i32] * 5
         lib.mrf_smem_bytes.restype = i32
-        lib.mrf_max_tile.argtypes = [i32]
+        lib.mrf_max_tile.argtypes = [i32, i32]
         lib.mrf_max_tile.restype = i32
+        lib.mrf_cluster_info.argtypes = [i32, ptr]
+        lib.mrf_cluster_info.restype = i32
         lib.mrf_error_string.argtypes = [i32]
         lib.mrf_error_string.restype = ctypes.c_char_p
         lib.mrf_level_int8.argtypes = [ptr] + [i32] * 11 + [ptr] * 12
@@ -440,7 +456,7 @@ def smem_bytes(c: int, up: bool, post: bool, tile: int, dtype) -> int:
 def pick_tile(c: int, up: bool, post: bool, dtype, t_out: int) -> int:
     """Largest tile the kernel takes (at most `mrf_max_tile`, its block
     within shared memory) and, where possible, not longer than the sequence."""
-    most = _lib().mrf_max_tile(c)
+    most = _lib().mrf_max_tile(c, 2 if dtype == torch.bfloat16 else 4)
     fits = [t for t in TILES
             if t <= most and smem_bytes(c, up, post, t, dtype) <= cuda_build.SMEM_LIMIT]
     if not fits:
@@ -472,6 +488,21 @@ def _launch(x, t_out, c, up, post, wup, bup, w, b, wpost, bpost, out, wav):
     if err != 0:
         raise RuntimeError(f"mrf kernel launch failed: "
                            f"{lib.mrf_error_string(err).decode()}")
+
+
+def fp32_cluster_info(tile: int, lib: Optional[ctypes.CDLL] = None) -> dict:
+    """The fp32 C = 128 kernel's plan for a tile, from the kernel itself
+    (on a card; `lib`: another build of csrc/mrf.cu): CTAs a cluster, rows
+    of the widest slice, shared memory (bytes), the clusters the card holds
+    at once, registers a thread and local (spill) bytes.  Launches nothing."""
+    lib = lib or _lib()
+    info = (ctypes.c_int * 6)()
+    err = lib.mrf_cluster_info(tile, info)
+    if err != 0:
+        raise RuntimeError(f"no fp32 cluster plan for tile {tile}: "
+                           f"{lib.mrf_error_string(err).decode()}")
+    return dict(tile=tile, n_cta=info[0], rows=info[1], smem=info[2],
+                max_active_clusters=info[3], registers=info[4], local_bytes=info[5])
 
 
 def _check_level(x: torch.Tensor, c: int, w: torch.Tensor, b: torch.Tensor):

@@ -1,7 +1,7 @@
 """The port's kernels against their plain versions on a CUDA card (marker
 `gpu`; they skip where there is no card): the MRF levels (with T around
-the tile, batch 3, a misaligned bf16 or fp32 weight base; fp32 at C = 32
-and 64 on the tensor cores bitwise repeatable), MAS (identical
+the tile, batch 3, a misaligned bf16 or fp32 weight base; fp32 bitwise
+repeatable, at C = 128 also the same bits on every cluster split), MAS (identical
 paths), the fused Block1D / ResnetBlock1D (forward and gradients; the
 tiled bf16 kernels at T over several tiles, ragged C_in, batch 1, two
 channel slices, bitwise repeatable), the
@@ -433,11 +433,14 @@ def test_tap_kernel_matches_plain(cuda, t, c):
         mrf_cuda.mrf_tap(a["x"].bfloat16(), a["w"].bfloat16(), a["b"].bfloat16())
 
 
-# fp32 mrf and mrf_up at C = 32 and 64 (tensor cores), with and without the
-# upsample and the tail, and fp32 mrf at C = 128 (CUDA cores): within 1e-4
-# of the plain version, bitwise repeatable.
+# fp32 mrf and mrf_up at C = 32 and 64, with and without the upsample and
+# the tail, and fp32 mrf at C = 128 (the cluster kernel: T = 200 on tiles of
+# 128 frames over 2 CTAs; 700 and 1500 with a partial last tile of 512
+# frames over 5 CTAs; 20, shorter than one slice of 68 rows): within 1e-4 of
+# the plain version, bitwise repeatable; batch 2 throughout.
 @pytest.mark.parametrize("c_in,t_in,c,up,post", [
     (32, 700, 32, False, False), (64, 300, 64, False, False), (128, 200, 128, False, False),
+    (128, 700, 128, False, False), (128, 1500, 128, False, False), (128, 20, 128, False, False),
     (64, 300, 32, True, False), (64, 140, 32, True, True), (128, 150, 64, True, False),
     (128, 70, 64, True, True)])
 def test_fp32_level_matches_plain_and_repeats(cuda, c_in, t_in, c, up, post):
@@ -459,6 +462,46 @@ def test_fp32_tensor_core_level_refuses_misaligned_weights(cuda):
     with pytest.raises(RuntimeError, match="misaligned"):
         mrf_cuda.mrf_tap(a["x"], w, a["b"])
     assert mrf_cuda.LAUNCHES["mrf_tap"] == n0
+
+
+def test_fp32_cluster_level_refuses_misaligned_weights(cuda):
+    a = _operands(128, 300, 128, False, False, cuda)
+    w = torch.empty(a["w"].numel() + 1, device=cuda)[1:].view(a["w"].shape)
+    w.copy_(a["w"])
+    n0 = mrf_cuda.LAUNCHES["mrf"]
+    with pytest.raises(RuntimeError, match="misaligned"):
+        mrf_cuda.mrf(a["x"], w, a["b"])
+    assert mrf_cuda.LAUNCHES["mrf"] == n0
+
+
+def _fp32_level_at_tile(a, tile):
+    """The fp32 C = 128 level through the C entry at a given tile."""
+    lib = mrf_cuda._lib()
+    x = a["x"]
+    out = torch.empty_like(x)
+    err = lib.mrf_level(x.data_ptr(), x.shape[0], x.shape[1], x.shape[1], 128, 0, 0, 0, tile,
+                        None, None, a["w"].data_ptr(), a["b"].data_ptr(), None, None,
+                        out.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, lib.mrf_error_string(err).decode()
+    return out
+
+
+def test_fp32_cluster_level_is_one_function_of_every_split(cuda):
+    """The fp32 C = 128 kernel on every tile the wrapper may pick (clusters
+    of 5, 3, 2 CTAs) and on a tile of 8 frames (one CTA: the single-block
+    evaluation) gives the same bits: a row's sums do not depend on the CTA
+    that holds it.  The kernel's plan is the wrapper's `fp32_split`, within
+    shared memory, and the card holds at least one such cluster."""
+    a = _operands(128, 1100, 128, False, False, cuda)
+    want = _fp32_level_at_tile(a, 8)
+    for tile in mrf_cuda.TILES:
+        info = mrf_cuda.fp32_cluster_info(tile)
+        n, rows = mrf_cuda.fp32_split(tile)
+        assert (info["n_cta"], info["rows"]) == (n, rows[2])
+        assert info["smem"] <= 232448 and info["max_active_clusters"] >= 1
+        assert torch.equal(_fp32_level_at_tile(a, tile), want), tile
+    assert mrf_cuda.fp32_cluster_info(8)["n_cta"] == 1
+    assert float((want - mrf_cuda.mrf_plain(a["x"], a["w"], a["b"])).abs().max()) <= 1e-4
 
 
 # ---------------------------------------------------------------------------

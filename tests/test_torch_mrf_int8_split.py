@@ -6,7 +6,7 @@ The kernel cuts a window of W rows into n_cta slices of `rows` rows (the
 last one padded past the window).  For every conv each slice takes the max
 of |lrelu(v)| over its in-sequence rows, the window's scale is the max of
 the slices' maxima, each slice quantises its own rows, and its conv input is
-those rows with INT8_PAD_ROWS = 25 rows of each neighbour's codes on either
+those rows with HALO_ROWS = 25 rows of each neighbour's codes on either
 side (zeros at the window's edges), enough for the widest conv (k = 11,
 d = 5).  The tail takes 3 rows of each neighbour's level output.  The model
 below does the same in PyTorch, slice by slice, for the plan `int8_split`
@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from matcha_tts_tpu_torch.ops import mrf_cuda
 
-PAD = mrf_cuda.INT8_PAD_ROWS
+PAD = mrf_cuda.HALO_ROWS
 C = 8
 
 
@@ -52,7 +52,7 @@ def _plans():
             tile, halo = mrf_cuda.int8_window(c, tp * r, up, post)
             w = tile + 2 * halo
             plans.add((w, *mrf_cuda.int8_split(c, w, up), c, up, post, tile, halo))
-            for n_cta in range(1, mrf_cuda.INT8_MAX_CLUSTER + 1) if w == 256 else ():
+            for n_cta in range(1, mrf_cuda.MAX_CLUSTER + 1) if w == 256 else ():
                 plans.add((w, n_cta, -(-w // n_cta), c, up, post, tile, halo))
             tp *= 2
     return sorted(plans)
@@ -68,7 +68,7 @@ def test_plans_cover_the_edges():
     checked on the card: `tests/test_torch_cuda.py`) and is the smallest cluster whose
     slices fit 3 m-tiles a warp, 8 at most; the plans include every cluster
     size and slices off the 16-row m-tiles."""
-    assert {p[1] for p in PLANS} == set(range(1, mrf_cuda.INT8_MAX_CLUSTER + 1))
+    assert {p[1] for p in PLANS} == set(range(1, mrf_cuda.MAX_CLUSTER + 1))
     assert any(p[2] % 16 for p in PLANS)
     for w, n, rows, *_ in PLANS:
         assert n * rows >= w > (n - 1) * rows
@@ -78,7 +78,7 @@ def test_plans_cover_the_edges():
         assert (w, n, rows, c, up, post, tile, halo) in PLANS
         rows_3 = 3 * mrf_cuda.int8_mtile_rows(c)
         assert rows <= mrf_cuda.int8_max_mtiles(c, up) * mrf_cuda.int8_mtile_rows(c)
-        assert rows <= rows_3 or n == mrf_cuda.INT8_MAX_CLUSTER
+        assert rows <= rows_3 or n == mrf_cuda.MAX_CLUSTER
         assert n == 1 or -(-w // (n - 1)) > rows_3
 
 

@@ -24,6 +24,12 @@ parent whose int8 entry point is the per-window kernel of before the
 cluster kernel (its library exports `mrf_int8_smem_bytes`) runs on its own
 windows (tile 512, 256, 128, 128 frames at C = 32, 64, 128, 256, halo 64).
 
+The fp32 level at C = 128 (the cluster kernel) takes `tcN` (clusters of N
+CTAs at the tile of 512 frames) and `tcN_TILE` (N CTAs at a largest tile of
+TILE frames) besides the named variants; each row of it prints the
+variant's plan (CTAs, rows of the widest slice, shared memory, clusters
+held at once, registers, spills).
+
 The "no_*" variants and `one_term` are diagnostics that compute wrong (or
 less exact) results on purpose: they drop a part of the kernel to show what
 it costs.  Registers and spills of the level kernels are printed from
@@ -64,7 +70,7 @@ EXCHANGE = """  if (lane < s.n_cta)
 HALO_SYNC = "  cluster.sync();\n  return mx > 0.f ? __fmul_rn(mx, kInv127) : 1.f;\n"
 PRODUCTS = "        conv_i8<C, NL>(v, act, s, k, which == 0 ? 2 * sb + 1 : 1, ring);\n"
 CONV_NEXT = "        ++conv;\n"
-QUANT = "        *reinterpret_cast<uint16_t*>(act + (kI8Pad + r) * SA + s.col(nt)) = q;\n"
+QUANT = "        *reinterpret_cast<uint16_t*>(act + (kHaloRows + r) * SA + s.col(nt)) = q;\n"
 I8_STAGES = "  static constexpr int KC = i8_kc(C), U = i8_slabs(C), S = kRingStages;\n"
 I8_RING_BYTES = "  return kRingStages * i8_slabs(c) * c * i8_kc(c);\n"
 STAGING = """      for (int i = threadIdx.x; i < (hi - lo) * C; i += NTH) {
@@ -83,6 +89,15 @@ A_ADDR = "    a_row[m] = smem_addr(src + (r - half) * ss + (lane >> 4) * (16 / (
 A_LDMATRIX = "      ldmatrix_x4(a_row[m] + a_off + kk * 4, a);\n"
 SPLIT = "  hi = tf32_rna(x);\n  lo = tf32_rna(x - __uint_as_float(hi));\n"
 CHAIN_ADD = "      for (int j = 0; j < 4; ++j) acc[m][nt][j] = __fadd_rn(acc[m][nt][j], part[m][nt][j]);\n"
+# the fp32 C = 128 cluster kernel
+TC_RULE = """  return ceil_div(tile + 2 * kMaxReach, kTcMaxRows) < kMaxCluster
+             ? ceil_div(tile + 2 * kMaxReach, kTcMaxRows)
+             : kMaxCluster;
+"""
+TC_MAX_TILE = "constexpr int kTcMaxTile = 512;"
+TC_PUSH = """      *reinterpret_cast<float4*>(cluster.map_shared_rank(act, nb) + dst * SS + v * 4) =
+          *reinterpret_cast<const float4*>(act + src * SS + v * 4);
+"""
 
 
 def sub(src: str, old: str, new: str) -> str:
@@ -172,7 +187,23 @@ VARIANTS = {
     # one tensor-core chain over a whole conv instead of one a slab
     "long_chain": lambda: sub(sub(SRC, MMA_TF32, MMA_TF32.replace("part[m]", "acc[m]")),
                               CHAIN_ADD, "      for (int j = 0; j < 4; ++j) {}\n"),
+    # fp32 C = 128 diagnostic (wrong results): no halo rows copied into the
+    # neighbours (the DSMEM stores; both cluster barriers kept)
+    "no_halo_exchange": lambda: sub(SRC, TC_PUSH, ""),
 }
+
+
+def tc_variant(name: str) -> str:
+    """`tcN[_TILE]`: the fp32 C = 128 cluster kernel in clusters of N CTAs,
+    at tiles of at most TILE frames (512 by default)."""
+    m = re.fullmatch(r"tc(\d+)(?:_(\d+))?", name)
+    src = sub(SRC, TC_RULE, f"  return {int(m.group(1))};\n")
+    return sub(src, TC_MAX_TILE, f"constexpr int kTcMaxTile = {int(m.group(2) or 512)};")
+
+
+def variant_source(name: str) -> str:
+    return tc_variant(name) if re.fullmatch(r"tc\d+(_\d+)?", name) else VARIANTS[name]()
+
 
 LEVELS = [  # (name, c_in, t_in, c, up, post): the 512-frame bucket
     ("level1", 128, 64 * 512, 128, False, False),
@@ -216,6 +247,9 @@ def build(sources: dict, work: Path) -> dict:
                     "registers" in line or "spill" in line):
                 tmpl = re.search(r"mrf_level_kernelI(f|13__nv_bfloat16)(Li\d+ELb\dELb\d)", entry)
                 print(f"[build] {name} {''.join(tmpl.groups())}: {line.strip()}")
+            elif entry and "mrf_tc_cluster_kernel" in entry and (
+                    "registers" in line or "spill" in line):
+                print(f"[build] {name} fp32 C=128 cluster: {line.strip()}")
             elif entry and "mrf_int8_kernel" in entry and ("registers" in line or "spill" in line):
                 tmpl = re.search(r"mrf_int8_kernelI(f|13__nv_bfloat16)(Li\d+ELb\dELb\d)", entry)
                 print(f"[build] {name} int8 {''.join(tmpl.groups()) if tmpl else entry}: "
@@ -235,6 +269,12 @@ def build(sources: dict, work: Path) -> dict:
         lib.mrf_level.restype = i32
         lib.mrf_smem_bytes.argtypes = [i32] * 5
         lib.mrf_smem_bytes.restype = i32
+        lib.cluster = hasattr(lib, "mrf_cluster_info")  # fp32 C = 128 on a cluster
+        if lib.cluster:
+            lib.mrf_max_tile.argtypes = [i32, i32]
+            lib.mrf_max_tile.restype = i32
+            lib.mrf_cluster_info.argtypes = [i32, ptr]
+            lib.mrf_cluster_info.restype = i32
         lib.mrf_error_string.argtypes = [i32]
         lib.mrf_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -242,12 +282,14 @@ def build(sources: dict, work: Path) -> dict:
 
 
 def tile_for(lib, c, up, post, elem) -> int:
-    """pick_tile's choice for a long sequence, from the variant's own layout."""
+    """pick_tile's choice for a long sequence, from the variant's own layout
+    (a library from before the cluster kernel: tiles of at most 8192 / C)."""
     from matcha_tts_tpu_torch.ops import cuda_build, mrf_cuda
 
+    most = lib.mrf_max_tile(c, elem) if lib.cluster else 8192 // c
     for t in mrf_cuda.TILES:
-        if t <= 8192 // c and (lib.mrf_smem_bytes(c, int(up), int(post), t, elem)
-                               <= cuda_build.SMEM_LIMIT):
+        if t <= most and (lib.mrf_smem_bytes(c, int(up), int(post), t, elem)
+                          <= cuda_build.SMEM_LIMIT):
             return t
     raise ValueError(f"no tile fits at C={c}")
 
@@ -384,7 +426,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     do16, do32 = args.only != "fp32", args.only != "bf16"
     names = args.names or list(VARIANTS)
-    sources = {n: VARIANTS[n]() for n in dict.fromkeys(n.partition("@")[0] for n in names)}
+    sources = {n: variant_source(n) for n in dict.fromkeys(n.partition("@")[0] for n in names)}
     if args.parent:
         sources = {"parent": args.parent.read_text(), **sources}
     with tempfile.TemporaryDirectory() as work:
@@ -428,6 +470,8 @@ def main() -> int:
                     torch.cuda.synchronize()
                     row.update(fp32_tile=tile32, fp32_ms=cs.cuda_ms(run32, 2 if do16 else cs.REPS),
                                fp32_max_abs_err=float((got32 - ref32).abs().max()))
+                    if c == 128 and lib.cluster:
+                        row["fp32_plan"] = mrf_cuda.fp32_cluster_info(tile32, lib)
                 print(f"[variant] {json.dumps(row)}", flush=True)
                 rows.append(row)
             for lvl, t, c in TAP if do32 else ():
