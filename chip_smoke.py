@@ -5,6 +5,7 @@
     python3 chip_smoke.py --attention-only  # phases 1, 2 (attention only), 11 and 16
     python3 chip_smoke.py --mrf-only        # phases 1, 2 (mrf only), 3, 10 and 12
     python3 chip_smoke.py --blocks-only     # phases 1, 2 (unet_blocks only) and 8
+    python3 chip_smoke.py --mas-only        # phases 1, 2 (mas only) and 7
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
@@ -33,10 +34,12 @@ Phases, each of which raises on failure (no phase catches and carries on):
    kernels' relative L2 error is at most 1.25x the stock bf16 composition's;
 6. profile: one main-path call broken down by stage (host clock) and, from
    torch.profiler, by kernel, with the device's busy share of its wall time;
-7. MAS kernel vs plain at the training path's shape (B, T_x, T_y) =
-   (64, 256, 1024) with ragged lengths, and on a small ragged batch with
-   t_y < t_x items: the paths must be identical; timed with CUDA events
-   beside the plain version and the bound (bytes over 3.35 TB/s);
+7. MAS kernel vs plain and the numpy oracle at the training path's shape
+   (B, T_x, T_y) = (64, 256, 1024), the largest training bucket (64, 512,
+   2048) and (140, 64, 256) (more items than SMs), with ragged lengths and
+   t_y < t_x items, and on a small ragged batch: the paths must be
+   identical; each case timed with CUDA events beside the plain version and
+   the bound (bytes over 3.35 TB/s);
 8. Block1D / ResnetBlock1D kernels vs plain at the U-Net's shapes for B = 64,
    T = 1024 (every resnet shape of one estimator pass, and `final_block`):
    fp32 max |diff| <= 1e-4 of the output's max |value|; bf16 vs fp32 plain on
@@ -170,6 +173,7 @@ INT8_DESIGN = ("the JAX kernels' windows, each over a cluster of up to 8 CTAs: s
                "rows through DSMEM, mma.sync s8 on a cp.async weight ring, fp64 upsample on "
                "mma.m8n8k4.f64")
 REPS = 5  # timed launches per kernel and version
+MAS_REPS = 50  # the MAS kernel's (0.02-0.4 ms a launch)
 FP32_ATOL = 1e-4
 BF16_REL_L2 = 1e-2
 E2E_REL_L2 = 1e-2
@@ -194,6 +198,7 @@ FP32_WAV_REL_L2 = 1e-4  # its wav against the fp32 plain composition
 FORCED_MEL_REL_L2 = 1e-2
 
 MAS_SHAPE = (64, 256, 1024)  # (B, T_x, T_y): the training path's bucket
+MAS_CASES = (MAS_SHAPE, (64, 512, 2048), (140, 64, 256))  # + the largest bucket, B > 132
 BLOCK_B, BLOCK_T = 64, 1024
 GRAD_REL_L2 = 1e-4
 TRAIN_STEPS = 3      # fit steps per configuration
@@ -661,29 +666,33 @@ def print_busy(tag: str, what: str, prof, wall: float):
     return busy / (wall * 1e3)
 
 
+def mas_case(b, t_x, t_y, seed, short, dev="cuda"):
+    """Phase 7's inputs: values near -100, ragged lengths (item 0 full,
+    items 1 .. short with t_y < t_x) and their 0/1 mask."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    value = torch.randn(b, t_x, t_y, generator=g) * 4.0 - 100.0
+    tx = torch.randint(max(1, t_x // 4), t_x + 1, (b,), generator=g)
+    ty = torch.minimum(tx * 4 + torch.randint(0, t_y, (b,), generator=g), torch.tensor(t_y))
+    tx[0], ty[0] = t_x, t_y
+    ty[1:1 + short] = torch.clamp(tx[1:1 + short] - 3, min=1)  # t_y < t_x
+    mask = ((torch.arange(t_x)[None, :, None] < tx[:, None, None])
+            & (torch.arange(t_y)[None, None, :] < ty[:, None, None])).float()
+    return value.to(dev), mask.to(dev), tx, ty
+
+
 def check_mas(reps: int) -> dict:
-    """Phase 7: the MAS kernel against its plain version (identical paths)."""
+    """Phase 7: the MAS kernel against its plain version and the numpy
+    oracle (identical paths) at every case of MAS_CASES; the row of the
+    training shape, with every case's row under "cases"."""
     import numpy as np
     import torch
 
     from matcha_tts_tpu_torch.ops import mas, mas_cuda
 
-    dev = torch.device("cuda")
-
-    def case(b, t_x, t_y, seed, short):
-        g = torch.Generator(device="cpu").manual_seed(seed)
-        value = torch.randn(b, t_x, t_y, generator=g) * 4.0 - 100.0
-        tx = torch.randint(max(1, t_x // 4), t_x + 1, (b,), generator=g)
-        ty = torch.minimum(tx * 4 + torch.randint(0, t_y, (b,), generator=g),
-                           torch.tensor(t_y))
-        tx[0], ty[0] = t_x, t_y
-        ty[1:1 + short] = torch.clamp(tx[1:1 + short] - 3, min=1)  # t_y < t_x
-        mask = ((torch.arange(t_x)[None, :, None] < tx[:, None, None])
-                & (torch.arange(t_y)[None, None, :] < ty[:, None, None])).float()
-        return value.to(dev), mask.to(dev), tx, ty
-
     # small ragged batch, against the host oracle as well
-    v, m, _, _ = case(6, 40, 90, 1, 2)
+    v, m, _, _ = mas_case(6, 40, 90, 1, 2)
     small = mas.maximum_path(v, m)
     torch.cuda.synchronize()
     oracle = mas.maximum_path_numpy(v.cpu().numpy(), m.cpu().numpy())
@@ -691,27 +700,34 @@ def check_mas(reps: int) -> dict:
             and np.array_equal(small.cpu().numpy(), oracle)):
         raise AssertionError("MAS kernel: small ragged batch differs from the plain version")
 
-    b, t_x, t_y = MAS_SHAPE
-    v, m, tx, ty = case(b, t_x, t_y, 2, 4)
-    got = mas.maximum_path(v, m)
-    torch.cuda.synchronize()
-    ref = mas.maximum_path_plain(v, m)
-    n_diff = int((got != ref).sum())
-    max_abs = float((got.float() - ref.float()).abs().max())
-    ms = cuda_ms(lambda: mas.maximum_path(v, m), reps)
-    plain_ms = cuda_ms(lambda: mas.maximum_path_plain(v, m), 1)
-    cells = int((tx * ty).sum())
-    nbytes = 4 * (cells + b * (t_x + t_y) + b * t_x * t_y)  # valid values, lengths, path
-    row = dict(shape=list(MAS_SHAPE), differing_cells=n_diff, max_abs_err=max_abs, ms=ms,
-               plain_ms=plain_ms,
-               bound_ms=max(2 * cells / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3,
-               bound_by="bytes")
-    print(f"[mas] {json.dumps(row)}", flush=True)
-    if n_diff:
-        raise AssertionError(f"MAS kernel: {n_diff} cells differ from the plain version")
+    rows = []
+    for seed, (b, t_x, t_y) in enumerate(MAS_CASES, start=2):
+        v, m, tx, ty = mas_case(b, t_x, t_y, seed, 4)
+        got = mas.maximum_path(v, m)
+        torch.cuda.synchronize()
+        ref = mas.maximum_path_plain(v, m)
+        n_diff = int((got != ref).sum())
+        oracle_diff = int((got.cpu().numpy()
+                           != mas.maximum_path_numpy(v.cpu().numpy(), m.cpu().numpy())).sum())
+        max_abs = float((got.float() - ref.float()).abs().max())
+        ms = cuda_ms(lambda: mas.maximum_path(v, m), reps)
+        plain_ms = cuda_ms(lambda: mas.maximum_path_plain(v, m), 1)
+        # bytes once: the valid values, the mask's column 0 and row 0, the path
+        cells = int((tx * ty).sum())
+        nbytes = 4 * (cells + b * (t_x + t_y) + b * t_x * t_y)
+        row = dict(shape=[b, t_x, t_y], differing_cells=n_diff, oracle_differing_cells=oracle_diff,
+                   max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(2 * cells / PEAK_FP32, nbytes / PEAK_BYTES) * 1e3,
+                   bound_by="bytes", plan=mas_cuda.plan(t_x, t_y, v.dtype))
+        print(f"[mas] {json.dumps(row)}", flush=True)
+        if n_diff or oracle_diff:
+            raise AssertionError(f"MAS kernel at {(b, t_x, t_y)}: {n_diff} cells differ from "
+                                 f"the plain version, {oracle_diff} from the numpy oracle")
+        rows.append(row)
+        del v, m, got, ref
     for k in mas_cuda.LAUNCHES:
         mas_cuda.LAUNCHES[k] = 0
-    return row
+    return dict(rows[0], cases=rows)
 
 
 def block_shapes(cfg):
@@ -1890,9 +1906,11 @@ def main() -> int:
     attention_only = "--attention-only" in sys.argv[1:]
     mrf_only = "--mrf-only" in sys.argv[1:]
     blocks_only = "--blocks-only" in sys.argv[1:]
+    mas_only = "--mas-only" in sys.argv[1:]
     t0 = time.perf_counter()
     paths = cuda_build.build_all(["attention"] if attention_only else ["mrf"] if mrf_only
-                                 else ["unet_blocks"] if blocks_only else cuda_build.SOURCES)
+                                 else ["unet_blocks"] if blocks_only else ["mas"] if mas_only
+                                 else cuda_build.SOURCES)
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s: "
           f"{[p.name for p in paths.values()]}", flush=True)
     for name in paths:
@@ -1919,12 +1937,16 @@ def main() -> int:
         check_blocks(MatchaConfig(), REPS)
         print(card)
         return 0
+    if mas_only:  # phase 7 alone: the MAS kernel
+        check_mas(MAS_REPS)
+        print(card)
+        return 0
     table = check_kernels(T_Y, REPS)
     int8_table = check_int8_kernels(T_Y, REPS)
     attn_rows = check_attention(REPS)
     bwd_rows = check_flash_bwd(REPS)
     tap_rows = check_tap(REPS)
-    mas_row = check_mas(REPS)
+    mas_row = check_mas(MAS_REPS)
     block_rows = check_blocks(MatchaConfig(), REPS)
     syn, last, launches = full_width()
     end_to_end(syn, last)
@@ -1965,7 +1987,10 @@ def main() -> int:
          "max_abs_err": mas_row["max_abs_err"],
          "ms": mas_row["ms"], "plain_ms": mas_row["plain_ms"],
          "bound_ms": mas_row["bound_ms"], "bound_by": mas_row["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "cases": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+                   for r in mas_row["cases"]],
+         "design": "one warp a column recurrence in registers, cp.async value ring"},
     ]
     # the fused blocks: per estimator pass at B=64, T=1024 (each shape times
     # its launches in one pass)

@@ -156,7 +156,13 @@ def _mas_case(b, t_x, t_y, seed, dev):
     return value.to(dev), mask.to(dev)
 
 
-@pytest.mark.parametrize("b,t_x,t_y", [(5, 7, 19), (6, 33, 70), (4, 64, 256), (3, 130, 300)])
+# T_x of 1, 31, 33 (a lane's rows past a word), T_y rows that are not
+# 16-byte aligned (staged by plain loads), B above the SM count, the largest
+# training bucket (512, 2048), and T_x = 1000 (32 rows a lane; at fp32 the
+# bits in device memory)
+@pytest.mark.parametrize("b,t_x,t_y", [(5, 7, 19), (6, 33, 70), (4, 64, 256), (3, 130, 300),
+                                       (5, 1, 40), (6, 31, 100), (4, 33, 96), (140, 64, 256),
+                                       (2, 512, 2048), (2, 1000, 1200)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mas_kernel_equals_plain(cuda, b, t_x, t_y, dtype):
     from matcha_tts_tpu_torch.ops import mas, mas_cuda
@@ -172,6 +178,45 @@ def test_mas_kernel_equals_plain(cuda, b, t_x, t_y, dtype):
     assert torch.equal(got, ref)
     oracle = mas.maximum_path_numpy(value.float().cpu().numpy(), mask.cpu().numpy())
     assert (got.float().cpu().numpy() == oracle).all()
+
+
+def test_mas_kernel_values_below_the_fill(cuda):
+    """Values so negative that sums pass the -1e30 fill, with an item of
+    t_y = t_x (the diagonal path): the kernel still equals the plain
+    version (the walk's x == y rule, row 0 never left)."""
+    from matcha_tts_tpu_torch.ops import mas
+
+    value, mask = _mas_case(6, 40, 96, 11, cuda)
+    value = value * 6e27
+    for i, (tx, ty) in enumerate([(40, 40), (34, 96), (38, 96)]):
+        mask[3 + i] = 0.0
+        mask[3 + i, :tx, :ty] = 1.0
+    for dtype in (torch.float32, torch.bfloat16):
+        v = value.to(dtype)
+        assert torch.equal(mas.maximum_path(v, mask), mas.maximum_path_plain(v, mask))
+
+
+def test_mas_kernel_mask_layouts(cuda):
+    """The kernel counts t_x, t_y from the mask's column 0 and row 0 at its
+    strides: a bf16 mask, a bool mask and a transposed view give the same
+    paths as the contiguous fp32 mask."""
+    from matcha_tts_tpu_torch.ops import mas, mas_cuda
+
+    value, mask = _mas_case(6, 40, 96, 7, cuda)
+    ref = mas.maximum_path_plain(value, mask)
+    for m in (mask.bfloat16(), mask.bool(), mask.transpose(1, 2).contiguous().transpose(1, 2)):
+        assert torch.equal(mas_cuda.maximum_path_cuda(value, m), ref)
+
+
+@pytest.mark.parametrize("t_x,t_y", [(1025, 16), (16, 16385)])
+def test_mas_kernel_raises_beyond_its_limits(cuda, t_x, t_y):
+    from matcha_tts_tpu_torch.ops import mas_cuda
+
+    value = torch.zeros(1, t_x, t_y, device=cuda)
+    n0 = mas_cuda.LAUNCHES["mas"]
+    with pytest.raises(ValueError, match="T_x <= 1024 and 1 <= T_y <= 16384"):
+        mas_cuda.maximum_path_cuda(value, torch.ones_like(value))
+    assert mas_cuda.LAUNCHES["mas"] == n0
 
 
 def test_mas_kernel_rejects_cpu_and_bad_shapes(cuda):
