@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mrf-only        # phases 1, 2 (mrf only), 3, 10 and 12
     python3 chip_smoke.py --blocks-only     # phases 1, 2 (unet_blocks only) and 8
     python3 chip_smoke.py --mas-only        # phases 1, 2 (mas only) and 7
+    python3 chip_smoke.py --serving-only    # phases 1, 2 (mrf only) and 20
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
@@ -117,10 +118,28 @@ Phases, each of which raises on failure (no phase catches and carries on):
    default compute_dtype, mrf_kernel="auto"; see `fp32_serving`): three
    sentences, one `mrf` (the fp32 cluster kernel at C = 128) and two
    `mrf_up` launches per call, each wav within relative L2 1e-4 of the fp32
-   plain composition, the generator's device ms per call.
+   plain composition, the generator's device ms per call;
+20. serving at scale, at full width (`MatchaConfig()`, `HiFiGANConfig()`,
+   random weights from seeds 0 and 1, NFE 10, length scale 3, denoiser
+   0.00025; see `serving_at_scale`): `synthesize_batch` of 32 texts over two
+   text buckets in bf16 and fp32 at batch buckets up to 8 and up to 32, one
+   `mrf` and two `mrf_up` launches a call, each row against the same text
+   alone (fp32: equal y_length, wav relative L2 <= 1e-4; bf16: within one
+   frame) and its mel vocoded alone (fp32 relative L2 <= 1e-4, bf16 <=
+   1e-2), seconds of audio per wall second; the peak device memory at
+   (32, 2048) in fp32 and bf16, the fp32 guard's estimate bounding it, its
+   refusal past the budget and the largest accepted fp32 batch run, with
+   the first, middle and last rows of each of these calls held to the same
+   checks;
+   `warmup_grid`; `StreamingVocoder` (chunk 64 to 512, depth 2) on an
+   800-frame mel, one `mrf` and two `mrf_up` a window, joined against the
+   full pass (fp32 max |diff| <= 2e-4, bf16 relative L2 <= 1e-2), the time
+   to the first chunk; `stream_samples` over two sentences with lookahead
+   1 and 0 (the same samples), timed; `TTSServer` under 16 concurrent
+   requests (batched; p50 and p99 latency) and one streamed request.
 
 Phases 10-12 and 16 run right after phase 3, 13-14 after phase 6, 17 with
-phase 9 and 18 after it, 19 after phase 5; the numbers follow the order in
+phase 9 and 18 after it, 19 and 20 after phase 5; the numbers follow the order in
 which the phases were added, and the kernel table and the last two lines
 come last.
 """
@@ -196,6 +215,14 @@ FORCED_SENTENCES = 3  # sentences per forced mode in phase 13
 FP32_SENTENCES = 3  # sentences of the default fp32 serving path in phase 19
 FP32_WAV_REL_L2 = 1e-4  # its wav against the fp32 plain composition
 FORCED_MEL_REL_L2 = 1e-2
+
+SERVE_MAX_BATCHES = (8, 32)  # phase 20: the largest batch bucket of each batched run
+SERVE_WAV_REL_L2 = 1e-4      # fp32 batch row against the same text (or its mel) alone
+SERVE_BF16_VOCODE_REL_L2 = 1e-2  # bf16 batch row against its mel vocoded alone
+STREAM_FP32_MAX_ABS = 2e-4   # streamed chunks against the full generator pass
+STREAM_BF16_REL_L2 = 1e-2
+MEMORY_SHAPE = (32, 2048)    # (batch, frames) whose peak sets the fp32 memory guard
+SERVE_REQUESTS = 16
 
 MAS_SHAPE = (64, 256, 1024)  # (B, T_x, T_y): the training path's bucket
 MAS_CASES = (MAS_SHAPE, (64, 512, 2048), (140, 64, 256))  # + the largest bucket, B > 132
@@ -573,6 +600,453 @@ def fp32_serving(syn) -> dict:
             if label == "path weights":
                 gen_ms.append(ms)
     return dict(launches=launches, calls=calls, generator_ms=gen_ms, wav_rel_l2=worst)
+
+
+def serving_texts() -> list:
+    """Phase 20's 32 texts over two text buckets: 24 pieces of the ten
+    sentences (their halves and middles, 73-119 tokens: the 128 bucket) and
+    8 first quarters (31-55 tokens: the 64 bucket)."""
+    from matcha_tts_tpu_torch.text.tokenizer import encode_text
+
+    long_, short = [], []
+    for s in SENTENCES:
+        w = s.rstrip(".").split()
+        n = len(w)
+        for piece in (w[:n // 2], w[n // 2:], w[n // 4:3 * n // 4], w[:n // 4]):
+            text = " ".join(piece) + "."
+            (short if len(encode_text(text, add_blank=True)) <= 64 else long_).append(text)
+    return long_[:24] + short[:8]
+
+
+def check_rows_alone(syn, dtype, pairs, label) -> tuple:
+    """Each (batch row, the same row run alone at the same frame bucket and
+    noise id) of `pairs`: the same y_length in fp32 and within one frame in
+    bf16; in fp32 the wavs within relative L2 `SERVE_WAV_REL_L2`; and the
+    row's mel vocoded alone against the row's samples, within
+    `SERVE_WAV_REL_L2` in fp32 and `SERVE_BF16_VOCODE_REL_L2` in bf16.
+    Returns the worst (frames, wav rel L2, vocoded rel L2)."""
+    import torch
+
+    def pcm(r):
+        return torch.from_numpy(r.pcm16).float()
+
+    worst_frames, worst_rel, worst_voc = 0, 0.0, 0.0
+    for r, one in pairs:
+        frames = abs(one.y_length - r.y_length)
+        worst_frames = max(worst_frames, frames)
+        if frames > (0 if dtype == "float32" else 1):
+            raise AssertionError(f"{label} {dtype}: y_length {r.y_length} in a batch of "
+                                 f"{r._b} (row {r._row}), {one.y_length} alone")
+        if dtype == "float32":
+            rel = rel_l2(pcm(r), pcm(one))
+            worst_rel = max(worst_rel, rel)
+            if not rel <= SERVE_WAV_REL_L2:
+                raise AssertionError(f"{label} fp32: row {r._row} of {r._b} against the text "
+                                     f"alone: wav rel L2 {rel} > {SERVE_WAV_REL_L2}")
+        # the row's mel at the call's frame bucket through the packed call's
+        # vocoder half at batch 1
+        row = slice(r._row, r._row + 1)
+        alone = syn._vocode_packed(r._out.mel[row], r._out.y_lengths[row]).cpu()
+        alone, got = alone[:r.y_length * r._hop].float(), pcm(r)
+        voc = rel_l2(got, alone)
+        worst_voc = max(worst_voc, voc)
+        tol = SERVE_WAV_REL_L2 if dtype == "float32" else SERVE_BF16_VOCODE_REL_L2
+        if got.shape != alone.shape or not voc <= tol:
+            raise AssertionError(f"{label} {dtype}: row {r._row} of {r._b} against its mel "
+                                 f"vocoded alone: rel L2 {voc} > {tol}")
+    return worst_frames, worst_rel, worst_voc
+
+
+def serving_batches(model, vocoder, cfg, hcfg, texts) -> dict:
+    """Phase 20, batched synthesis: `synthesize_batch` of the 32 texts in bf16
+    and fp32 with batch buckets up to 8 and up to 32 (24 + 8 texts: calls of
+    8 rows, or of 32 and 8).  Launches zeroed before and read after each
+    timed run: one `mrf` and two `mrf_up` a call.  Each row of the
+    32-bucket run against the same text alone (a batch of one at the same
+    frame bucket): in fp32 the same y_length and wav relative L2 <= 1e-4;
+    in bf16 finite and within one frame; and each row's mel vocoded alone
+    against the row (`check_rows_alone`)."""
+    import numpy as np
+    import torch
+
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from matcha_tts_tpu_torch.ops import mrf_cuda
+
+    gen = dict(n_timesteps=10, temperature=0.667, length_scale=3.0)
+    sr, hop = cfg.audio.sample_rate, hcfg.total_upsample
+    out = {"launches": {k: 0 for k in mrf_cuda.LAUNCHES}, "calls": 0, "rates": {}}
+    for dtype in ("bfloat16", "float32"):
+        for max_b in SERVE_MAX_BATCHES:
+            buckets = tuple(b for b in (1, 2, 4, 8, 16, 32) if b <= max_b)
+            syn = Synthesizer(model, cfg, vocoder, hcfg, batch_buckets=buckets,
+                              compute_dtype=dtype, denoise_strength=0.00025, device="cuda")
+            for r in syn.synthesize_batch(texts, **gen):  # first run of the shapes
+                _ = r.y_length
+            calls0 = syn.stats["calls"]
+            zero_forced_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = syn.synthesize_batch(texts, **gen)
+            wavs = [r.wav for r in rows]
+            wall = time.perf_counter() - t0
+            launches, calls = forced_counts(), syn.stats["calls"] - calls0
+            want = {k: 0 for k in launches}
+            want.update(mrf=calls, mrf_up=2 * calls)
+            if launches != want:
+                raise AssertionError(f"phase 20 {dtype} batch <= {max_b}: expected one mrf and "
+                                     f"two mrf_up launches per call over {calls} calls, got "
+                                     f"{launches}")
+            for k in mrf_cuda.LAUNCHES:
+                out["launches"][k] += launches[k]
+            out["calls"] += calls
+            shapes = sorted({(r._b, r._t_wav // hop) for r in rows})
+            audio = sum(len(w) for w in wavs) / sr
+            out["rates"][f"{dtype} batch<={max_b}"] = audio / wall
+            print(f"[serve] {dtype}, batch buckets {buckets}: {calls} calls at (batch, frames) "
+                  f"{shapes}, {audio:.2f} s of audio in {wall * 1e3:.1f} ms wall: "
+                  f"{audio / wall:.1f} s of audio per second", flush=True)
+            if not all(np.isfinite(w).all() for w in wavs):
+                raise AssertionError(f"phase 20 {dtype}: non-finite wav")
+            if max_b != SERVE_MAX_BATCHES[-1]:
+                continue
+            pairs, alone = [], {}
+            for text, r in zip(texts, rows):
+                t_y = r._t_wav // hop
+                if t_y not in alone:  # batches of one at this frame bucket
+                    alone[t_y] = Synthesizer(model, cfg, vocoder, hcfg, batch_buckets=(1,),
+                                             batch_frame_buckets=(t_y,), compute_dtype=dtype,
+                                             denoise_strength=0.00025, device="cuda")
+                pairs.append((r, alone[t_y].synthesize_batch([text], **gen)[0]))
+            frames, rel, voc = check_rows_alone(syn, dtype, pairs, "phase 20")
+            print(f"[serve] {dtype}: each of {len(texts)} rows against the text alone at its "
+                  f"frame bucket: y_length differs by at most {frames} frames"
+                  + (f", wav rel L2 at most {rel:.3e}" if dtype == "float32" else "")
+                  + f"; against its mel vocoded alone: rel L2 at most {voc:.3e}", flush=True)
+    return out
+
+
+def serving_memory(model, vocoder, cfg, hcfg) -> dict:
+    """Phase 20, memory: the peak device memory of one packed call at (32,
+    2048) in fp32 and bf16 (the largest text bucket, forced frame bucket);
+    the fp32 guard's estimate must bound the fp32 peak; it must refuse the
+    smallest batch past the budget, and the largest batch it accepts at 2048
+    frames must run without running out of memory.  Each of these calls
+    draws a noise of its own for each row, and its first, middle and last
+    rows are held to the same rows run alone (`check_rows_alone`): the batch
+    rows past 0 and the long level-3 rows (T = 524288) of the kernels."""
+    import torch
+
+    from matcha_tts_tpu_torch.inference.synthesizer import LazySynthesisResult, Synthesizer
+
+    hop = hcfg.total_upsample
+
+    def run(syn, b, t_y, rows):
+        """The packed call at (b, t_y), rows drawing noise ids 1..b: its
+        results at `rows`, peak memory above the base, the base, seconds."""
+        t_x = syn.text_buckets[-1]
+        x, x_lengths, _ = syn._inputs([[1] * t_x] * b, t_x, b)
+        noise_ids = [i + 1 for i in range(b)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        packed, out = syn._synthesize_packed(x, x_lengths, t_y, 10, 0.667, 3.0, None, 0,
+                                             noise_ids)
+        int(packed[-1])
+        wall = time.perf_counter() - t0
+        p = torch.cuda.max_memory_allocated() - base
+        cache: list = [None]
+        got = [LazySynthesisResult(packed, out, row=r, batch=b, t_wav=t_y * hop, hop=hop,
+                                   shared_cache=cache) for r in rows]
+        return got, (x[:1], x_lengths[:1], noise_ids), p, base, wall
+
+    def check(syn, dtype, b, t_y, got, inputs):
+        x, x_lengths, noise_ids = inputs
+        pairs = []
+        for r in got:
+            packed, out = syn._synthesize_packed(x, x_lengths, t_y, 10, 0.667, 3.0, None, 0,
+                                                 [noise_ids[r._row]])
+            pairs.append((r, LazySynthesisResult(packed, out, row=0, batch=1, t_wav=t_y * hop,
+                                                 hop=hop)))
+        if len(got[0].pcm16) == len(got[-1].pcm16) and (got[0].pcm16 == got[-1].pcm16).all():
+            raise AssertionError(f"memory {dtype} ({b}, {t_y}): rows 0 and {b - 1} drew "
+                                 f"different noise but gave the same samples")
+        frames, rel, voc = check_rows_alone(syn, dtype, pairs, f"memory ({b}, {t_y})")
+        print(f"[memory] {dtype} ({b}, {t_y}): rows {[r._row for r in got]} (y_length "
+              f"{[r.y_length for r in got]}) against each alone: y_length differs by at most "
+              f"{frames} frames" + (f", wav rel L2 at most {rel:.3e}" if dtype == "float32"
+                                    else "")
+              + f"; against its mel vocoded alone: rel L2 at most {voc:.3e}", flush=True)
+
+    b, t_y = MEMORY_SHAPE
+    rows = [0, b // 2, b - 1]
+    syns = {d: Synthesizer(model, cfg, vocoder, hcfg, compute_dtype=d, denoise_strength=0.00025,
+                           device="cuda") for d in ("float32", "bfloat16")}
+    res = {}
+    for d, syn in syns.items():
+        got, inputs, p, base, wall = run(syn, b, t_y, rows)
+        res[d] = p
+        print(f"[memory] {d} ({b}, {t_y}) at T_x {syn.text_buckets[-1]}: peak "
+              f"{p / 1e9:.3f} GB above the {base / 1e9:.3f} GB held before the call "
+              f"({wall * 1e3:.0f} ms)", flush=True)
+        check(syn, d, b, t_y, got, inputs)
+        del got
+    f32 = syns["float32"]
+    per_row = t_y * hop * (hcfg.upsample_initial_channel // 16) * 4
+    est = b * per_row * f32._VOCODER_LIVE_BUFFERS
+    print(f"[memory] fp32 guard: estimate {est / 1e9:.3f} GB at {MEMORY_SHAPE} "
+          f"({f32._VOCODER_LIVE_BUFFERS} live buffers) against the measured "
+          f"{res['float32'] / 1e9:.3f} GB; budget {f32.HBM_BUDGET_BYTES / 1e9:.0f} GB; "
+          f"{res['float32'] / (b * per_row):.2f} buffers' worth measured", flush=True)
+    if not est >= res["float32"]:
+        raise AssertionError(f"the fp32 guard's estimate {est} does not bound the peak "
+                             f"{res['float32']} at {MEMORY_SHAPE}")
+    largest = int(f32.HBM_BUDGET_BYTES // (per_row * f32._VOCODER_LIVE_BUFFERS))
+    f32._check_vocoder_memory(largest, t_y)
+    try:
+        f32._check_vocoder_memory(largest + 1, t_y)
+    except ValueError as e:
+        print(f"[memory] fp32 guard refuses ({largest + 1}, {t_y}): {e}", flush=True)
+    else:
+        raise AssertionError(f"the fp32 guard accepted ({largest + 1}, {t_y})")
+    got, inputs, p, base, wall = run(f32, largest, t_y, [0, largest // 2, largest - 1])
+    print(f"[memory] the largest accepted fp32 triple, ({largest}, {f32.text_buckets[-1]}, "
+          f"{t_y}), ran in {wall:.2f} s with a peak of {p / 1e9:.3f} GB above {base / 1e9:.3f} "
+          f"GB (estimate {largest * per_row * f32._VOCODER_LIVE_BUFFERS / 1e9:.3f} GB; card "
+          f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB)", flush=True)
+    check(f32, "float32", largest, t_y, got, inputs)
+    res["largest_accepted"] = (largest, p)
+    del syns, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def serving_warmup(model, vocoder, cfg, hcfg) -> list:
+    """Phase 20, warmup: `warmup_grid(batch_sizes=(8,))` over text buckets
+    (64, 128) in bf16."""
+    import torch
+
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+
+    syn = Synthesizer(model, cfg, vocoder, hcfg, text_buckets=(64, 128),
+                      compute_dtype="bfloat16", denoise_strength=0.00025, device="cuda")
+    t0 = time.perf_counter()
+    triples = syn.warmup_grid(batch_sizes=(8,), length_scale=3.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[warmup] warmup_grid(batch_sizes=(8,)), text buckets (64, 128), bf16: "
+          f"{triples} in {wall:.2f} s", flush=True)
+    if not triples or any(t[0] != 8 for t in triples):
+        raise AssertionError(f"warmup_grid: {triples}")
+    return triples
+
+
+def serving_stream(model, vocoder, cfg, hcfg, mel) -> dict:
+    """Phase 20, streaming: `StreamingVocoder` at chunk 64 growing to 512,
+    depth 2, on `mel` (T, 80), a full-width mel of about 800 frames:
+    launches zeroed before and read after, one `mrf` and two `mrf_up` a
+    window; the joined chunks against the full `generate` pass:
+    fp32 max |diff| <= 2e-4, bf16 relative L2 <= 1e-2; the time to the first
+    chunk.  Then `stream_samples` over two sentences, a first call with
+    lookahead 1 and then lookahead 1, 0, 0, 1, timed: the samples are
+    y_length * hop of each sentence, and every call gives the same
+    samples."""
+    import numpy as np
+    import torch
+
+    from matcha_tts_tpu_torch.inference.streaming import StreamingVocoder
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from matcha_tts_tpu_torch.models.vocoder import generate
+    from matcha_tts_tpu_torch.ops import mrf_cuda
+
+    gen = dict(n_timesteps=10, temperature=0.667, length_scale=3.0)
+    syn = Synthesizer(model, cfg, vocoder, hcfg, compute_dtype="bfloat16",
+                      denoise_strength=0.00025, device="cuda")
+    n = mel.shape[0]
+    out = {"launches": {k: 0 for k in mrf_cuda.LAUNCHES}, "first_chunk_ms": {}}
+    for dtype, torch_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        sv = StreamingVocoder(vocoder, hcfg, 64, compute_dtype=dtype, max_chunk_frames=512,
+                              pipeline_depth=2, device="cuda")
+        list(sv.stream(mel))  # the first run of the window shapes
+        torch.cuda.synchronize()
+        zero_forced_counts()
+        t0 = time.perf_counter()
+        it = sv.stream(mel)
+        chunks = [next(it)]
+        first = time.perf_counter() - t0
+        chunks += list(it)
+        wall = time.perf_counter() - t0
+        launches = forced_counts()
+        windows = len(chunks)
+        want = {k: 0 for k in launches}
+        want.update(mrf=windows, mrf_up=2 * windows)
+        if launches != want:
+            raise AssertionError(f"streaming {dtype}: expected one mrf and two mrf_up per "
+                                 f"window over {windows} windows, got {launches}")
+        for k in mrf_cuda.LAUNCHES:
+            out["launches"][k] += launches[k]
+        got = torch.from_numpy(np.concatenate(chunks))
+        with torch.no_grad():
+            full = torch.clamp(generate(vocoder, mel[None].to(torch_dtype), hcfg).float(),
+                               -1, 1)[0].cpu()
+        err, rel = float((got - full).abs().max()), rel_l2(got, full)
+        out["first_chunk_ms"][dtype] = first * 1e3
+        print(f"[stream] {dtype}, {n} frames, chunks {[len(c) // 256 for c in chunks]} frames: "
+              f"first chunk after {first * 1e3:.2f} ms, all in {wall * 1e3:.2f} ms "
+              f"({len(got) / 22050 / wall:.1f} s of audio per second); joined vs full pass max "
+              f"|diff| {err:.3e}, rel L2 {rel:.3e} (max |wav| {float(full.abs().max()):.3f})",
+              flush=True)
+        if got.shape != full.shape or not (
+                err <= STREAM_FP32_MAX_ABS if dtype == "float32" else rel <= STREAM_BF16_REL_L2):
+            raise AssertionError(f"streaming {dtype}: joined chunks vs full pass: max |diff| "
+                                 f"{err}, rel L2 {rel}, shapes {got.shape} {full.shape}")
+    text = f"{SENTENCES[0]} {SENTENCES[1]}"
+    want_len = sum(syn.synthesize(s, seed=i, **gen).y_length
+                   for i, s in enumerate(syn.split_text(text))) * hcfg.total_upsample
+    runs = []
+    # the first call also makes the producer's thread, whose per-thread state
+    # (cuDNN's plans) starts empty; the timed calls follow, 1 0 0 1
+    for k, lookahead in enumerate((1, 1, 0, 0, 1)):
+        t0 = time.perf_counter()
+        it = syn.stream_samples(text, lookahead_sentences=lookahead, **gen)
+        chunks = [next(it)]
+        first = time.perf_counter() - t0
+        chunks += list(it)
+        wav = np.concatenate(chunks)
+        print(f"[stream] stream_samples, two sentences, lookahead {lookahead}"
+              f"{' (first call, a new producer thread)' if k == 0 else ''}: {len(chunks)} "
+              f"chunks, {len(wav)} samples (want {want_len}), first chunk after "
+              f"{first * 1e3:.1f} ms, all in {(time.perf_counter() - t0) * 1e3:.1f} ms",
+              flush=True)
+        if len(wav) != want_len or not np.isfinite(wav).all():
+            raise AssertionError(f"stream_samples (lookahead {lookahead}): {len(wav)} samples, "
+                                 f"want {want_len}")
+        if runs and not np.array_equal(wav, runs[0]):
+            raise AssertionError(f"stream_samples: lookahead {lookahead} differs from the first "
+                                 f"run (lookahead 1): max |diff| {np.abs(wav - runs[0]).max()}")
+        runs.append(wav)
+    return out
+
+
+def serving_server(model, vocoder, cfg, hcfg) -> dict:
+    """Phase 20, the server: `TTSServer` on 127.0.0.1, port 0, max_batch 8,
+    batch window 10 ms, bf16; 16 concurrent POSTs (twice: the first burst
+    runs the shapes first), each a valid WAV of y_length * hop samples;
+    `/stats` shows fewer batches than requests and max_batch_seen > 1; one
+    `stream=true` request returns PCM16 of y_length * hop samples; p50 and
+    p99 latency of the second burst."""
+    import io
+    import threading
+    import urllib.request
+    import wave
+
+    import numpy as np
+
+    from matcha_tts_tpu_torch.inference.server import TTSServer
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+
+    syn = Synthesizer(model, cfg, vocoder, hcfg, compute_dtype="bfloat16",
+                      denoise_strength=0.00025, device="cuda")
+    srv = TTSServer(syn, host="127.0.0.1", port=0, max_batch=8, batch_window_ms=10.0).start()
+    url = f"http://127.0.0.1:{srv.port}"
+
+    def post(payload):
+        req = urllib.request.Request(f"{url}/synthesize", data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.headers["Content-Type"], resp.read()
+
+    texts = serving_texts()[-SERVE_REQUESTS:]  # 8 in the 128-token bucket, 8 in the 64
+    try:
+        health = json.loads(urllib.request.urlopen(f"{url}/healthz", timeout=30).read())
+        print(f"[server] /healthz {health}", flush=True)
+        lat = []
+        for burst in range(2):
+            results, errs = [None] * len(texts), []
+
+            def call(i):
+                t0 = time.perf_counter()
+                try:
+                    results[i] = post({"text": texts[i], "n_timesteps": 10, "length_scale": 3.0})
+                except Exception as e:  # noqa: BLE001 -- raised below
+                    errs.append(e)
+                lat.append((burst, time.perf_counter() - t0))
+
+            threads = [threading.Thread(target=call, args=(i,)) for i in range(len(texts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if errs or any(t.is_alive() for t in threads):
+                raise AssertionError(f"server burst {burst}: {errs}")
+            for text, (ctype, body) in zip(texts, results):
+                with wave.open(io.BytesIO(body)) as w:
+                    n = w.getnframes()
+                    ok = (ctype == "audio/wav" and w.getframerate() == 22050
+                          and w.getsampwidth() == 2 and n > 0 and n % hcfg.total_upsample == 0)
+                if not ok:
+                    raise AssertionError(f"server: bad WAV for {text!r}: {ctype}, {n} samples")
+        stats = json.loads(urllib.request.urlopen(f"{url}/stats", timeout=30).read())
+        print(f"[server] /stats after two bursts of {len(texts)}: {stats}", flush=True)
+        if not (stats["batches"] < stats["requests"] and stats["max_batch_seen"] > 1):
+            raise AssertionError(f"server: requests were not batched: {stats}")
+        second = sorted(t for b, t in lat if b == 1)
+        p50, p99 = (float(np.percentile(second, q)) for q in (50, 99))
+        print(f"[server] latency of the second burst of {len(second)} concurrent requests: "
+              f"p50 {p50 * 1e3:.1f} ms, p99 {p99 * 1e3:.1f} ms (first burst max "
+              f"{max(t for b, t in lat if b == 0) * 1e3:.1f} ms)", flush=True)
+        text = SENTENCES[2]
+        t0 = time.perf_counter()
+        ctype, raw = post({"text": text, "n_timesteps": 10, "length_scale": 3.0, "stream": True})
+        wall = time.perf_counter() - t0
+        want = syn.synthesize(text, n_timesteps=10, length_scale=3.0).y_length * 256
+        pcm = np.frombuffer(raw, "<i2")
+        print(f"[server] stream=true: {len(pcm)} PCM16 samples (want {want}) in "
+              f"{wall * 1e3:.1f} ms", flush=True)
+        if ctype != "application/octet-stream" or len(pcm) != want:
+            raise AssertionError(f"server stream: {ctype}, {len(pcm)} samples, want {want}")
+    finally:
+        srv.stop()
+    return {"p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3, "stats": stats}
+
+
+def serving_at_scale() -> dict:
+    """Phase 20: the serving layer at full width (MatchaConfig(),
+    HiFiGANConfig(), random weights from seeds 0 and 1, NFE 10, length scale
+    3, denoiser 0.00025): batched synthesis, memory, warmup, streaming and
+    the HTTP server (see each function).  The generator is the audible copy
+    of the seed-1 one (`audible_copy`, calibrated on one sentence's mel):
+    the seed's own is near-silent (max |wav| about 4e-4, a few PCM16
+    steps), and rounding to PCM16 would hide every comparison of its wavs.
+    Returns the MRF launches of its batched calls and streaming windows."""
+    import torch
+
+    from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+
+    cfg, hcfg = MatchaConfig(), HiFiGANConfig()
+    model = MatchaTTS(cfg, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    syn = Synthesizer(model, cfg, HiFiGANGenerator(hcfg, seed=1, device="cuda"), hcfg,
+                      compute_dtype="bfloat16", device="cuda")
+    r = syn.synthesize(SENTENCES[3], n_timesteps=10, temperature=0.667, length_scale=3.0)
+    n = r.y_length // 2 * 2  # even: every level of the full pass runs the kernels too
+    mel = torch.from_numpy(r.mel[:, :n].T.copy()).to("cuda")  # (T, 80)
+    vocoder = audible_copy(syn.vocoder, hcfg, mel[None], 7)
+    del syn
+    batches = serving_batches(model, vocoder, cfg, hcfg, serving_texts())
+    memory = serving_memory(model, vocoder, cfg, hcfg)
+    triples = serving_warmup(model, vocoder, cfg, hcfg)
+    stream = serving_stream(model, vocoder, cfg, hcfg, mel)
+    server = serving_server(model, vocoder, cfg, hcfg)
+    launches = {k: batches["launches"][k] + stream["launches"][k] for k in batches["launches"]}
+    print(f"[serve] phase 20 in {time.perf_counter() - t0:.1f} s; MRF launches {launches} over "
+          f"{batches['calls']} batched calls and the streamed windows", flush=True)
+    return dict(launches=launches, rates=batches["rates"], memory=memory, warmup=triples,
+                first_chunk_ms=stream["first_chunk_ms"], server=server)
 
 
 def device_busy(prof):
@@ -1907,8 +2381,10 @@ def main() -> int:
     mrf_only = "--mrf-only" in sys.argv[1:]
     blocks_only = "--blocks-only" in sys.argv[1:]
     mas_only = "--mas-only" in sys.argv[1:]
+    serving_only = "--serving-only" in sys.argv[1:]
     t0 = time.perf_counter()
-    paths = cuda_build.build_all(["attention"] if attention_only else ["mrf"] if mrf_only
+    paths = cuda_build.build_all(["attention"] if attention_only
+                                 else ["mrf"] if mrf_only or serving_only
                                  else ["unet_blocks"] if blocks_only else ["mas"] if mas_only
                                  else cuda_build.SOURCES)
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s: "
@@ -1941,6 +2417,10 @@ def main() -> int:
         check_mas(MAS_REPS)
         print(card)
         return 0
+    if serving_only:  # phase 20 alone: batching, streaming and the server
+        serving_at_scale()
+        print(card)
+        return 0
     table = check_kernels(T_Y, REPS)
     int8_table = check_int8_kernels(T_Y, REPS)
     attn_rows = check_attention(REPS)
@@ -1951,6 +2431,7 @@ def main() -> int:
     syn, last, launches = full_width()
     end_to_end(syn, last)
     fp32 = fp32_serving(syn)
+    serving = serving_at_scale()
     profile_path(syn, SENTENCES[0])
     mel = torch.from_numpy(last.mel.T.copy())[None].to("cuda")
     audible = audible_copy(syn.vocoder, syn.hifi_cfg, mel, 7)
@@ -1972,7 +2453,8 @@ def main() -> int:
          **{f"fp32_{k}": table["level1"][f"fp32_{k}"]
             for k in ("ms", "plain_ms", "bound_ms", "tc_bound_ms", "max_abs_err", "plan")},
          "fp32_launches": fp32["launches"]["mrf"],
-         "fp32_generator_ms": fp32["generator_ms"]},
+         "fp32_generator_ms": fp32["generator_ms"],
+         "serving_launches": serving["launches"]["mrf"]},
         {"name": "mrf_up", "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/mrf.cu",
          "replaces": "matcha_tts_tpu/ops/pallas/mrf_packed.py:648",
          "launches": launches["mrf_up"],
@@ -1980,7 +2462,8 @@ def main() -> int:
          "ms": sum(r["bf16_ms"] for r in up),
          "plain_ms": sum(r["bf16_plain_ms"] for r in up),
          "bound_ms": sum(r["bf16_bound_ms"] for r in up),
-         "bound_by": up[0]["bound_by"], "library_ms": None, "design": MRF_DESIGN},
+         "bound_by": up[0]["bound_by"], "library_ms": None, "design": MRF_DESIGN,
+         "serving_launches": serving["launches"]["mrf_up"]},
         {"name": "mas", "route": "cuda", "source": "matcha_tts_tpu_torch/csrc/mas.cu",
          "replaces": "matcha_tts_tpu/ops/pallas/mas.py:162",
          "launches": sum(c["mas"] for c in train["launches"].values()),
@@ -2107,8 +2590,11 @@ def main() -> int:
     shapes = {
         "flash_mha_bwd_dkv": bwd_shapes,
         "flash_mha_bwd_dq": bwd_shapes,
-        "mrf": f"(1, {64 * T_Y}, 128) bf16; fp32_*: the same in fp32 (phase 19's launches)",
-        "mrf_up": f"128 -> 64 at {128 * T_Y}; 64 -> 32 + tail at {256 * T_Y}; bf16",
+        "mrf": f"(1, {64 * T_Y}, 128) bf16; fp32_*: the same in fp32 (phase 19's launches); "
+               f"serving_launches: phase 20's batched calls (batch 8 and 32) and streamed "
+               f"windows, bf16 and fp32",
+        "mrf_up": f"128 -> 64 at {128 * T_Y}; 64 -> 32 + tail at {256 * T_Y}; bf16; "
+                  f"serving_launches as mrf's",
         "mas": f"{MAS_SHAPE} fp32",
         "block1d": f"({BLOCK_B}, {BLOCK_T}, 256 -> 256) bf16",
         "resnet1d": f"one estimator pass at B={BLOCK_B}, T={BLOCK_T}, bf16",

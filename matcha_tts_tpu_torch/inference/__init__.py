@@ -1,1 +1,1 @@
-"""Inference: the bucketed synthesis engine and the CLI."""
+"""Inference: the bucketed synthesis engine, the streaming vocoder, the HTTP server and the CLI."""

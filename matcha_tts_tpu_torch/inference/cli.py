@@ -4,14 +4,16 @@
         [--checkpoint matcha.ckpt] [--vocoder generator_v1] [--nfe 10] \
         [--temperature 0.667] [--length-scale 1.0] [--denoise 0.00025] \
         [--mrf-kernel {xla,tap,packed,int8,auto}] [--output infer_output.wav] \
-        [--device cuda]
+        [--long-form] [--device cuda]
 
 Loads a Lightning `.ckpt` of Matcha-TTS (its `hyper_parameters` may carry the
 whole `MatchaConfig`, attention kernels included) and a HiFi-GAN generator
 checkpoint, converted with `params/convert.py` and loaded with
 `params/from_jax.py`; without checkpoints it runs random weights from seeds 0
 and 1 at the default widths.  Writes the wav, then the alignment as
-`alignment.png` (or `alignment.npy` where matplotlib is missing).  Runs on
+`alignment.png` (or `alignment.npy` where matplotlib is missing).  With
+`--long-form`, or a `|` in the text, the text is split into sentences and
+synthesised as one batch (`Synthesizer.synthesize_long`).  Runs on
 `--device` (default `cuda`; `cpu` runs the kernels' plain versions).
 """
 
@@ -109,11 +111,6 @@ def main(argv=None):
     if args.mrf_kernel is not None and args.vocoder_family != "hifigan":
         parser.error("--mrf-kernel only applies to the HiFi-GAN family "
                      f"(got --vocoder-family {args.vocoder_family})")
-    if args.long_form or "|" in args.text:
-        raise NotImplementedError(
-            "long-form synthesis (--long-form, or '|' in the text) needs "
-            "Synthesizer.synthesize_long, not ported yet (ROADMAP.md Queue 1, "
-            "\"Streaming and long form\")")
     model, cfg, vocoder, hcfg = load_models(args.checkpoint, args.vocoder,
                                             vocoder_family=args.vocoder_family,
                                             device=args.device)
@@ -127,8 +124,13 @@ def main(argv=None):
 
     print(f"Input Text: {args.text}")
     t0 = time.perf_counter()
-    result = syn.synthesize(args.text, n_timesteps=args.nfe, temperature=args.temperature,
-                            length_scale=args.length_scale, seed=args.seed, spk=args.spk)
+    if args.long_form or "|" in args.text:
+        result = syn.synthesize_long(args.text, n_timesteps=args.nfe,
+                                     temperature=args.temperature,
+                                     length_scale=args.length_scale, seed=args.seed)
+    else:
+        result = syn.synthesize(args.text, n_timesteps=args.nfe, temperature=args.temperature,
+                                length_scale=args.length_scale, seed=args.seed, spk=args.spk)
     wav = result.wav
     dt = time.perf_counter() - t0
 

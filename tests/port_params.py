@@ -35,3 +35,32 @@ def numpy_tree(init_fn, seed, gain=1.0, fixed=None):
         return z.astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def small_synth_weights():
+    """The small Matcha and HiFi-GAN configurations of the slice tests (a
+    two-layer encoder, decoder channels (64, 64), HiFi-GAN at 32 channels
+    with V1's upsample rates, so one frame is 256 samples) in both
+    packages, with unit-gain numpy weights: (JAX MatchaConfig, JAX
+    HiFiGANConfig, Matcha tree, vocoder tree, port MatchaConfig, port
+    HiFiGANConfig).  The port loads the trees with `load_jax_tree`."""
+    from matcha_tts_tpu import config as jcfg
+    from matcha_tts_tpu.models import hifigan as jhifigan
+    from matcha_tts_tpu.models.matcha import init_matcha
+    from matcha_tts_tpu_torch import config as tcfg
+
+    cfg = jcfg.MatchaConfig(
+        encoder=jcfg.EncoderConfig(n_channels=64, filter_channels=128, n_heads=2,
+                                   n_layers=2),
+        duration_predictor=jcfg.DurationPredictorConfig(filter_channels_dp=64),
+        decoder=jcfg.DecoderConfig(channels=(64, 64), attention_head_dim=32,
+                                   num_heads=2, num_mid_blocks=1))
+    hcfg = jcfg.HiFiGANConfig(upsample_initial_channel=32)
+    mp = numpy_tree(lambda key: init_matcha(key, cfg), 0,
+                    fixed={"mel_mean": cfg.audio.mel_mean, "mel_std": cfg.audio.mel_std})
+    # unit-gain vocoder weights: HiFi-GAN's own N(0, 0.01) init is
+    # near-silent at this width
+    vp = numpy_tree(lambda key: jhifigan.init_generator(key, hcfg), 1)
+    tc = tcfg.config_from_dict(tcfg.MatchaConfig, jcfg.config_to_dict(cfg))
+    th = tcfg.config_from_dict(tcfg.HiFiGANConfig, jcfg.config_to_dict(hcfg))
+    return cfg, hcfg, mp, vp, tc, th

@@ -5,8 +5,8 @@ with the same reconstructed config), synthesis from that checkpoint with the
 CFM noise injected (encoder atol 1e-4, durations equal, mel atol 1e-3), the
 HiFi-GAN converter with weight-norm folding (exact; the generator it loads
 matches JAX's at atol 1e-4), `main` end to end with `--device cpu`, the
-unported modes' errors, and checkpoint resolution on local paths and a
-localhost server (the port's copy of `utils/fetch.py`)."""
+long form through `main`, the Vocos refusal, and checkpoint resolution on
+local paths and a localhost server (the port's copy of `utils/fetch.py`)."""
 
 import functools
 import re
@@ -152,16 +152,36 @@ def test_cli_writes_a_wav_from_the_trained_checkpoint(tmp_path, monkeypatch, cap
     assert (tmp_path / "alignment.png").exists() or (tmp_path / "alignment.npy").exists()
 
 
-# the refusals name the ROADMAP item by its title (the ids keep the cases'
-# earlier names)
-@pytest.mark.parametrize("argv,item", [(["--long-form"], '"Streaming and long form"'),
-                                       (["--text", "One. | Two."], '"Streaming and long form"'),
+# The Vocos refusal names the ROADMAP item by its title.  The long-form
+# cases (`--long-form`, and a `|` in the text) raised until the long form was
+# ported; they now run on the CPU, on the small models of the slice tests, and
+# write `Synthesizer.synthesize_long`'s wav (the ids keep the cases' names).
+@pytest.mark.parametrize("argv,item", [(["--long-form"], None),
+                                       (["--text", "One. | Two."], None),
                                        (["--vocoder-family", "vocos"], '"Vocos family"')],
                          ids=["argv0-item 13", "argv1-item 13", "argv2-item 10"])
-def test_unported_cli_modes_raise(argv, item, tmp_path, monkeypatch):
+def test_unported_cli_modes_raise(argv, item, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
-        cli.main(argv + ["--device", "cpu", "--output", str(tmp_path / "x.wav")])
+    out = tmp_path / "x.wav"
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
+            cli.main(argv + ["--device", "cpu", "--output", str(out)])
+        return
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from port_params import small_synth_weights
+
+    _, _, mp, vp, tc, th = small_synth_weights()
+    model, voc = load_jax_tree({"matcha": mp, "vocoder": vp}, tc, th, device="cpu")
+    monkeypatch.setattr(cli, "load_models", lambda *a, **kw: (model, tc, voc, th))
+    cli.main(argv + ["--device", "cpu", "--nfe", "2", "--seed", "4", "--output", str(out)])
+    text = argv[1] if argv[0] == "--text" else "Hello! I am running on the PyTorch port."
+    want = Synthesizer(model, tc, voc, th, device="cpu").synthesize_long(
+        text, n_timesteps=2, temperature=0.667, length_scale=1.0, seed=4)
+    assert len(Synthesizer.split_text(text)) == 2
+    wav, sr = read_wav(out)
+    assert sr == 22050 and wav.shape == want.wav.shape and np.abs(want.wav).max() > 1e-3
+    assert np.abs(wav - want.wav).max() <= 1.0 / 32767 + 1e-6
+    assert f"Mel Shape: (80, {want.mel.shape[1]})" in capsys.readouterr().out
 
 
 def test_wav_round_trip(tmp_path):

@@ -6,10 +6,11 @@ paths), the fused Block1D / ResnetBlock1D (forward and gradients; the
 tiled bf16 kernels at T over several tiles, ragged C_in, batch 1, two
 channel slices, bitwise repeatable), the
 attention kernels (with ragged T, items of length 0, flash's row
-statistics and a misaligned bf16 or fp32 base) and the flash backward (dq, dk/dv,
+statistics and a misaligned bf16 or fp32 base), the flash backward (dq, dk/dv,
 with a misaligned fp32 base: fp32 max |diff| <=
 1e-5 of each gradient's max |value|, bf16 relative L2 <= 1e-2 against the
-fp32 plain backward on the same rounded operands, bitwise repeatable).  Run
+fp32 plain backward on the same rounded operands, bitwise repeatable), the
+MRF levels at batch 32 and the streaming vocoder against the full pass.  Run
 on a machine with one (`--noconftest`: tests/conftest.py imports JAX, which
 the port does not need):
 
@@ -797,3 +798,90 @@ def test_flash_backward_refuses_bad_operands(cuda):
         attn_cuda.flash_mha_bwd(q, k, v, mask, o, m.double(), l, do, 2, 0.125)
     with pytest.raises(ValueError):
         attn_cuda.flash_mha_bwd(q, k, v, mask, o, m, l, do.bfloat16(), 2, 0.125)
+
+
+# ---------------------------------------------------------------------------
+# the serving layer's shapes: batch 32, streaming windows
+# ---------------------------------------------------------------------------
+
+
+# batch 32, as `synthesize_batch` gives the levels, at T one tile past a
+# multiple of the tile (so every item ends inside a partial tile): the batch
+# index runs through the grid's y or z dimension, and each item is its own
+# sequence (the last item alone gives the same rows)
+@pytest.mark.parametrize("c_in,t_in,c,up,post", [
+    (128, 3 * 64 + 1, 128, False, False), (128, 128 + 1, 64, True, False),
+    (64, 256 + 1, 32, True, True)])
+def test_level_kernels_at_batch_32(cuda, c_in, t_in, c, up, post):
+    a = _operands(c_in, t_in, c, up, post, cuda)
+    a["x"] = torch.randn(32, t_in, c_in, generator=torch.Generator(device=cuda).manual_seed(32),
+                         device=cuda)
+    kern, plain = ((mrf_cuda.mrf_up, mrf_cuda.mrf_up_plain) if up
+                   else (mrf_cuda.mrf, mrf_cuda.mrf_plain))
+    for dtype in (torch.float32, torch.bfloat16):
+        ad = {k: v.to(dtype) for k, v in a.items()}
+        n0 = dict(mrf_cuda.LAUNCHES)
+        got = _run(kern, ad, up).float()
+        torch.cuda.synchronize()
+        assert mrf_cuda.LAUNCHES["mrf_up" if up else "mrf"] == n0["mrf_up" if up else "mrf"] + 1
+        ref = _run(plain, {k: v.float() for k, v in ad.items()}, up)
+        assert got.shape[0] == 32 and got.shape == ref.shape
+        if dtype == torch.float32:
+            assert float((got - ref).abs().max()) <= 1e-4
+        else:
+            assert float((got - ref).norm() / ref.norm()) <= 1e-2
+        # every item is its own sequence: the last item alone gives its row
+        last = _run(kern, {k: (v[-1:] if k == "x" else v) for k, v in ad.items()}, up).float()
+        assert float((last[0] - got[-1]).abs().max()) <= (1e-5 if dtype == torch.float32
+                                                          else 1e-2)
+
+
+def _unit_gain_generator(cuda):
+    """HiFi-GAN V1 with every conv redrawn at unit gain (HiFi-GAN's own init
+    is near-silent), so the comparison sees real samples."""
+    from matcha_tts_tpu_torch.config import HiFiGANConfig
+    from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+
+    hcfg = HiFiGANConfig()
+    gen = HiFiGANGenerator(hcfg, seed=1, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith("weight"):
+                fan_in = (p.shape[0] * p.shape[2] / hcfg.upsample_rates[int(name.split(".")[1])]
+                          if name.startswith("ups.") else p.shape[1] * p.shape[2])
+                p.normal_(generator=g).mul_(fan_in ** -0.5)
+        gen.conv_post.weight.mul_(0.1)
+    return gen, hcfg
+
+
+def test_streaming_vocoder_replays_the_full_pass(cuda):
+    """`StreamingVocoder` at chunk 64 growing to 256, depth 2 and 0, on a
+    300-frame mel: every window launches one `mrf` and two `mrf_up`, and
+    the joined chunks equal the full pass (fp32 max |diff| <= 2e-4, bf16
+    relative L2 <= 1e-2)."""
+    import numpy as np
+
+    from matcha_tts_tpu_torch.inference.streaming import StreamingVocoder
+    from matcha_tts_tpu_torch.models.vocoder import generate
+
+    gen, hcfg = _unit_gain_generator(cuda)
+    mel = torch.randn(300, 80, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        with torch.no_grad():
+            full = torch.clamp(generate(gen, mel[None].to(dtype), hcfg).float(), -1, 1)[0].cpu()
+        for depth in (2, 0):
+            sv = StreamingVocoder(gen, hcfg, 64, compute_dtype=name, max_chunk_frames=256,
+                                  pipeline_depth=depth, device=cuda)
+            n0 = dict(mrf_cuda.LAUNCHES)
+            chunks = list(sv.stream(mel))
+            n = len(chunks)
+            assert [len(c) // 256 for c in chunks] == [64, 128, 108]
+            assert mrf_cuda.LAUNCHES["mrf"] - n0["mrf"] == n
+            assert mrf_cuda.LAUNCHES["mrf_up"] - n0["mrf_up"] == 2 * n
+            got = torch.from_numpy(np.concatenate(chunks))
+            assert got.shape == full.shape and float(full.abs().max()) > 0.05
+            if dtype == torch.float32:
+                assert float((got - full).abs().max()) <= 2e-4
+            else:
+                assert float((got - full).norm() / full.norm()) <= 1e-2

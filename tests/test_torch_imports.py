@@ -42,6 +42,7 @@ def test_port_imports_no_jax_and_no_jax_package():
             "matcha_tts_tpu_torch.data.dataset",
             "matcha_tts_tpu_torch.data.statistics", "matcha_tts_tpu_torch.ops.attn_cuda",
             "matcha_tts_tpu_torch.inference.cli", "matcha_tts_tpu_torch.params.convert",
+            "matcha_tts_tpu_torch.inference.streaming", "matcha_tts_tpu_torch.inference.server",
             "matcha_tts_tpu_torch.utils.wav", "matcha_tts_tpu_torch.utils.fetch",
             "matcha_tts_tpu_torch.train.distill"} <= expected
     assert res["bad"] == []
@@ -61,8 +62,11 @@ def test_entry_points_default_to_cuda():
     from matcha_tts_tpu_torch.inference import cli as infer_cli
     from matcha_tts_tpu_torch.train import distill
 
+    from matcha_tts_tpu_torch.inference import server
+    from matcha_tts_tpu_torch.inference.streaming import StreamingVocoder
+
     for fn in (MatchaTTS, HiFiGANGenerator, init_vocoder, load_jax_tree, Synthesizer, fit,
-               compute_mel_statistics, infer_cli.load_models):
+               compute_mel_statistics, infer_cli.load_models, StreamingVocoder):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
-    for main in (cli.main, infer_cli.main, distill.main):
+    for main in (cli.main, infer_cli.main, distill.main, server.main):
         assert "cuda" in main.__code__.co_consts  # --device defaults to cuda
