@@ -7,6 +7,7 @@
     python3 chip_smoke.py --blocks-only     # phases 1, 2 (unet_blocks only) and 8
     python3 chip_smoke.py --mas-only        # phases 1, 2 (mas only) and 7
     python3 chip_smoke.py --serving-only    # phases 1, 2 (mrf only) and 20
+    python3 chip_smoke.py --eval-vocoder-only  # phases 1, 2 (mrf only), 21, 22 and 23
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
@@ -136,12 +137,28 @@ Phases, each of which raises on failure (no phase catches and carries on):
    full pass (fp32 max |diff| <= 2e-4, bf16 relative L2 <= 1e-2), the time
    to the first chunk; `stream_samples` over two sentences with lookahead
    1 and 0 (the same samples), timed; `TTSServer` under 16 concurrent
-   requests (batched; p50 and p99 latency) and one streamed request.
+   requests (batched; p50 and p99 latency) and one streamed request;
+21. the judge on the card (see `judge_on_card`): `matcha_tone.ckpt` through
+   `load_models`, the goldens' 12 held-out texts synthesised in fp32 and
+   bf16 and transcribed by the committed CTC ensemble, WER <= the recorded
+   one + 0.15; the judge's logits on the goldens' mels against the CPU's,
+   relative L2 <= 1e-3; the judge timed;
+22. Vocos at full width on every serving entry point (see `vocos_serving`):
+   `synthesize`, `synthesize_batch` (rows against the texts alone),
+   the streaming vocoder and `stream_samples`, `TTSServer`, with no kernel
+   launch; the generator's device ms beside HiFi-GAN's at the 512-frame
+   bucket, the busy share, and the card against the CPU, relative L2 <=
+   1e-4 in fp32;
+23. vocoder GAN training at full width (see `gan_training`): HiFi-GAN with
+   MPD + MSD and Vocos with MPD + MRD, batch 16 x 8192, 20 steps each with
+   mel L1 falling, ms per step, peak memory, busy share; one weight-norm
+   step; no MRF launch; `vocoder_cli --debug_tiny --steps 3` on the card.
+   Phases 21-23 add no kernel: the kernel table is unchanged.
 
 Phases 10-12 and 16 run right after phase 3, 13-14 after phase 6, 17 with
-phase 9 and 18 after it, 19 and 20 after phase 5; the numbers follow the order in
-which the phases were added, and the kernel table and the last two lines
-come last.
+phase 9 and 18 after it, 19 and 20 after phase 5, 21-23 after 18; the numbers
+follow the order in which the phases were added, and the kernel table and the
+last two lines come last.
 """
 
 from __future__ import annotations
@@ -232,6 +249,8 @@ TRAIN_STEPS = 3      # fit steps per configuration
 FIXED_STEPS = 20     # steps on one repeated batch
 N_TRAIN, N_VAL = 64, 8
 LOSS_REL, GNORM_REL = 1e-2, 2e-2
+GAN_STEPS = 20        # phase 23: disc + gen steps per family on one repeated batch
+GAN_BATCH, GAN_SEGMENT = 16, 8192
 DISTILL_STEPS = 4          # distill_fit steps per (loss, attention impl) at full width
 DISTILL_TRAINED_STEPS = 200  # at most, reflow from the trained teacher,
 DISTILL_TRAINED_BATCH = 64   # at lr 1e-3 (at batch 16 the student ended at 1.08x the
@@ -657,11 +676,24 @@ def check_rows_alone(syn, dtype, pairs, label) -> tuple:
     return worst_frames, worst_rel, worst_voc
 
 
-def serving_batches(model, vocoder, cfg, hcfg, texts) -> dict:
+def expected_mrf(hcfg, launches: dict, n: int) -> dict:
+    """The MRF launches of `n` generator passes of the main path: one `mrf`
+    and two `mrf_up` each for HiFi-GAN V1, none for Vocos (no kernel)."""
+    from matcha_tts_tpu_torch.config import HiFiGANConfig
+
+    want = {k: 0 for k in launches}
+    if isinstance(hcfg, HiFiGANConfig):
+        want.update(mrf=n, mrf_up=2 * n)
+    return want
+
+
+def serving_batches(model, vocoder, cfg, hcfg, texts, max_batches=SERVE_MAX_BATCHES,
+                    label="phase 20") -> dict:
     """Phase 20, batched synthesis: `synthesize_batch` of the 32 texts in bf16
     and fp32 with batch buckets up to 8 and up to 32 (24 + 8 texts: calls of
     8 rows, or of 32 and 8).  Launches zeroed before and read after each
-    timed run: one `mrf` and two `mrf_up` a call.  Each row of the
+    timed run: one `mrf` and two `mrf_up` a call (none with Vocos,
+    `expected_mrf`).  Each row of the
     32-bucket run against the same text alone (a batch of one at the same
     frame bucket): in fp32 the same y_length and wav relative L2 <= 1e-4;
     in bf16 finite and within one frame; and each row's mel vocoded alone
@@ -676,7 +708,7 @@ def serving_batches(model, vocoder, cfg, hcfg, texts) -> dict:
     sr, hop = cfg.audio.sample_rate, hcfg.total_upsample
     out = {"launches": {k: 0 for k in mrf_cuda.LAUNCHES}, "calls": 0, "rates": {}}
     for dtype in ("bfloat16", "float32"):
-        for max_b in SERVE_MAX_BATCHES:
+        for max_b in max_batches:
             buckets = tuple(b for b in (1, 2, 4, 8, 16, 32) if b <= max_b)
             syn = Synthesizer(model, cfg, vocoder, hcfg, batch_buckets=buckets,
                               compute_dtype=dtype, denoise_strength=0.00025, device="cuda")
@@ -690,12 +722,10 @@ def serving_batches(model, vocoder, cfg, hcfg, texts) -> dict:
             wavs = [r.wav for r in rows]
             wall = time.perf_counter() - t0
             launches, calls = forced_counts(), syn.stats["calls"] - calls0
-            want = {k: 0 for k in launches}
-            want.update(mrf=calls, mrf_up=2 * calls)
+            want = expected_mrf(hcfg, launches, calls)
             if launches != want:
-                raise AssertionError(f"phase 20 {dtype} batch <= {max_b}: expected one mrf and "
-                                     f"two mrf_up launches per call over {calls} calls, got "
-                                     f"{launches}")
+                raise AssertionError(f"{label} {dtype} batch <= {max_b}: expected {want} over "
+                                     f"{calls} calls, got {launches}")
             for k in mrf_cuda.LAUNCHES:
                 out["launches"][k] += launches[k]
             out["calls"] += calls
@@ -706,8 +736,8 @@ def serving_batches(model, vocoder, cfg, hcfg, texts) -> dict:
                   f"{shapes}, {audio:.2f} s of audio in {wall * 1e3:.1f} ms wall: "
                   f"{audio / wall:.1f} s of audio per second", flush=True)
             if not all(np.isfinite(w).all() for w in wavs):
-                raise AssertionError(f"phase 20 {dtype}: non-finite wav")
-            if max_b != SERVE_MAX_BATCHES[-1]:
+                raise AssertionError(f"{label} {dtype}: non-finite wav")
+            if max_b != max_batches[-1]:
                 continue
             pairs, alone = [], {}
             for text, r in zip(texts, rows):
@@ -717,7 +747,7 @@ def serving_batches(model, vocoder, cfg, hcfg, texts) -> dict:
                                              batch_frame_buckets=(t_y,), compute_dtype=dtype,
                                              denoise_strength=0.00025, device="cuda")
                 pairs.append((r, alone[t_y].synthesize_batch([text], **gen)[0]))
-            frames, rel, voc = check_rows_alone(syn, dtype, pairs, "phase 20")
+            frames, rel, voc = check_rows_alone(syn, dtype, pairs, label)
             print(f"[serve] {dtype}: each of {len(texts)} rows against the text alone at its "
                   f"frame bucket: y_length differs by at most {frames} frames"
                   + (f", wav rel L2 at most {rel:.3e}" if dtype == "float32" else "")
@@ -846,7 +876,7 @@ def serving_stream(model, vocoder, cfg, hcfg, mel) -> dict:
     """Phase 20, streaming: `StreamingVocoder` at chunk 64 growing to 512,
     depth 2, on `mel` (T, 80), a full-width mel of about 800 frames:
     launches zeroed before and read after, one `mrf` and two `mrf_up` a
-    window; the joined chunks against the full `generate` pass:
+    window (none with Vocos); the joined chunks against the full `generate` pass:
     fp32 max |diff| <= 2e-4, bf16 relative L2 <= 1e-2; the time to the first
     chunk.  Then `stream_samples` over two sentences, a first call with
     lookahead 1 and then lookahead 1, 0, 0, 1, timed: the samples are
@@ -879,11 +909,10 @@ def serving_stream(model, vocoder, cfg, hcfg, mel) -> dict:
         wall = time.perf_counter() - t0
         launches = forced_counts()
         windows = len(chunks)
-        want = {k: 0 for k in launches}
-        want.update(mrf=windows, mrf_up=2 * windows)
+        want = expected_mrf(hcfg, launches, windows)
         if launches != want:
-            raise AssertionError(f"streaming {dtype}: expected one mrf and two mrf_up per "
-                                 f"window over {windows} windows, got {launches}")
+            raise AssertionError(f"streaming {dtype}: expected {want} over {windows} windows, "
+                                 f"got {launches}")
         for k in mrf_cuda.LAUNCHES:
             out["launches"][k] += launches[k]
         got = torch.from_numpy(np.concatenate(chunks))
@@ -929,10 +958,10 @@ def serving_stream(model, vocoder, cfg, hcfg, mel) -> dict:
     return out
 
 
-def serving_server(model, vocoder, cfg, hcfg) -> dict:
+def serving_server(model, vocoder, cfg, hcfg, n_requests=SERVE_REQUESTS) -> dict:
     """Phase 20, the server: `TTSServer` on 127.0.0.1, port 0, max_batch 8,
-    batch window 10 ms, bf16; 16 concurrent POSTs (twice: the first burst
-    runs the shapes first), each a valid WAV of y_length * hop samples;
+    batch window 10 ms, bf16; `n_requests` (16) concurrent POSTs (twice: the
+    first burst runs the shapes first), each a valid WAV of y_length * hop samples;
     `/stats` shows fewer batches than requests and max_batch_seen > 1; one
     `stream=true` request returns PCM16 of y_length * hop samples; p50 and
     p99 latency of the second burst."""
@@ -957,7 +986,7 @@ def serving_server(model, vocoder, cfg, hcfg) -> dict:
         with urllib.request.urlopen(req, timeout=300) as resp:
             return resp.headers["Content-Type"], resp.read()
 
-    texts = serving_texts()[-SERVE_REQUESTS:]  # 8 in the 128-token bucket, 8 in the 64
+    texts = serving_texts()[-n_requests:]  # 16: 8 in the 128-token bucket, 8 in the 64
     try:
         health = json.loads(urllib.request.urlopen(f"{url}/healthz", timeout=30).read())
         print(f"[server] /healthz {health}", flush=True)
@@ -2364,6 +2393,326 @@ def distillation() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: the judge, Vocos on the serving entry points, GAN training
+# ---------------------------------------------------------------------------
+
+
+def goldens_batch(goldens):
+    """The goldens' 12 held-out texts as token ids at their text bucket."""
+    import torch
+
+    from matcha_tts_tpu_torch.text.tokenizer import encode_text
+
+    texts = [str(t) for t in goldens["texts"]]
+    tb = int(goldens["text_bucket"])
+    x = torch.zeros((len(texts), tb), dtype=torch.long)
+    x_lengths = torch.ones((len(texts),), dtype=torch.long)
+    for r, t in enumerate(texts):
+        ids = encode_text(t, add_blank=True)[:tb]
+        x[r, :len(ids)] = torch.as_tensor(ids)
+        x_lengths[r] = len(ids)
+    return texts, x.cuda(), x_lengths.cuda()
+
+
+def judge_on_card() -> dict:
+    """Phase 21: `matcha_tone.ckpt` through `load_models`, the goldens' 12
+    held-out texts synthesised at their buckets, NFE and temperature in fp32
+    and bf16, transcribed by the committed 3-member judge on the card: mean
+    WER <= the recorded `wer_synth_heldout` + 0.15 in each.  The judge's
+    logits on the goldens' own mels on the card against the same judge on
+    the CPU (TF32 off): relative L2 <= 1e-3 per member.  The judge timed."""
+    import numpy as np
+    import torch
+
+    from matcha_tts_tpu_torch.eval import ctc_asr
+    from matcha_tts_tpu_torch.eval.wer import normalize_for_wer, word_error_rate
+    from matcha_tts_tpu_torch.inference.cli import load_models
+
+    art = REPO / "tests" / "golden" / "trained"
+    goldens = dict(np.load(art / "goldens.npz"))
+    model, _, _, _ = load_models(checkpoint=str(art / "matcha_tone.ckpt"), device="cuda")
+    judge, jcfg = ctc_asr.load_ctc_asr(art / "ctc_judge.npz", device="cuda")
+    cpu_judge, _ = ctc_asr.load_ctc_asr(art / "ctc_judge.npz", device="cpu")
+    texts, x, x_lengths = goldens_batch(goldens)
+    recorded = float(goldens["wer_synth_heldout"])
+    out = {"recorded": recorded}
+    for dtype in ("float32", "bfloat16"):
+        with torch.no_grad():
+            syn = model.synthesize(x, x_lengths, n_timesteps=int(goldens["nfe"]),
+                                   t_y_max=int(goldens["frame_bucket"]),
+                                   temperature=float(goldens["temperature"]),
+                                   compute_dtype=dtype, seed=7)
+        mel = syn.mel.float().transpose(1, 2).contiguous()
+        for i, n in enumerate(syn.y_lengths.tolist()):
+            mel[i, n:] = ctc_asr.MEL_PAD_VALUE
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hyps = ctc_asr.transcribe_mels(judge, mel, syn.y_lengths)
+        wall = time.perf_counter() - t0
+        wer = float(np.mean([word_error_rate(normalize_for_wer(t), normalize_for_wer(h))
+                             for t, h in zip(texts, hyps)]))
+        out[f"wer_{dtype}"] = wer
+        print(f"[judge] {dtype} synthesis of the 12 held-out texts: WER {wer:.4f} (recorded "
+              f"{recorded:.4f}, bound {recorded + 0.15:.4f}); transcribed in {wall * 1e3:.1f} ms "
+              f"wall; first hypotheses {hyps[:2]}", flush=True)
+        if not wer <= recorded + 0.15:
+            raise AssertionError(f"phase 21 {dtype}: WER {wer} > {recorded} + 0.15: {hyps}")
+    mel = goldens["mel"].transpose(0, 2, 1).copy()
+    lengths = goldens["y_lengths"]
+    for i, n in enumerate(lengths):
+        mel[i, n:] = ctc_asr.MEL_PAD_VALUE
+    mel_c, len_c = torch.from_numpy(mel).cuda(), torch.from_numpy(lengths).long().cuda()
+    worst = 0.0
+    for m, mc in zip(judge, cpu_judge):
+        with torch.no_grad():
+            got = ctc_asr.ctc_logits(m, mel_c, len_c).cpu()
+            want = ctc_asr.ctc_logits(mc, torch.from_numpy(mel), torch.from_numpy(lengths).long())
+        worst = max(worst, rel_l2(got, want))
+    with torch.no_grad():
+        ms = sum(cuda_ms(lambda m=m: ctc_asr.ctc_logits(m, mel_c, len_c), 20) for m in judge)
+    hyps = ctc_asr.transcribe_mels(judge, mel_c, len_c)
+    print(f"[judge] logits on the goldens' mels (12, 512, 80), card vs CPU: worst rel L2 "
+          f"{worst:.3e} over {len(judge)} members; the 3 members' logits {ms:.3f} device ms; "
+          f"transcripts equal the texts: {hyps == texts}", flush=True)
+    if not worst <= 1e-3:
+        raise AssertionError(f"phase 21: judge logits on the card vs the CPU: rel L2 {worst}")
+    out.update(logits_rel_l2=worst, judge_ms=ms)
+    return out
+
+
+def generator_device_ms(gen, cfg, mel, reps: int = 3):
+    """Device ms per generator call (the union of the profiler's device
+    intervals over `reps` calls), or None when the profiler saw nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tts_tpu_torch.models.vocoder import generate
+
+    generate(gen, mel, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            generate(gen, mel, cfg)
+        torch.cuda.synchronize()
+    got = device_busy(prof)
+    return None if got is None else got[0] / reps
+
+
+def vocos_serving() -> dict:
+    """Phase 22: the Vocos family on every serving entry point at full width
+    (`VocosConfig()`, `MatchaConfig()`, random weights from seeds 0 and 1,
+    NFE 10, length scale 3, denoiser 0.00025): `synthesize` on the ten
+    sentences in bf16 and fp32; `synthesize_batch` of phase 20's 32 texts
+    with batch buckets up to 32, each row against the text alone and its
+    mel vocoded alone as phase 20 checks them; the streaming vocoder joined
+    against the full pass and `stream_samples`; `TTSServer` under 4
+    concurrent requests; no kernel launch in any of it.  Then the
+    generator's device ms per call at the 512-frame bucket beside HiFi-GAN
+    V1's main path (bf16, the MRF kernels), the busy share of one
+    `synthesize`, and the Vocos on the card against the same module on the
+    CPU in fp32 on a batch of 8 at that bucket: relative L2 <= 1e-4."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig, VocosConfig
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tts_tpu_torch.models.vocos import Vocos
+
+    cfg, vcfg = MatchaConfig(), VocosConfig()
+    model = MatchaTTS(cfg, seed=0, device="cuda")
+    voc = Vocos(vcfg, seed=1, device="cuda")
+    sr, hop = cfg.audio.sample_rate, vcfg.hop_length
+    gen = dict(n_timesteps=10, temperature=0.667, length_scale=3.0)
+    out = {"rates": {}}
+    t_phase = time.perf_counter()
+    zero_counts()
+    zero_forced_counts()
+    last = None
+    for dtype in ("bfloat16", "float32"):
+        syn = Synthesizer(model, cfg, voc, vcfg, compute_dtype=dtype,
+                          denoise_strength=0.00025, device="cuda")
+        syn.synthesize(SENTENCES[0], **gen).wav  # the first run of the shapes
+        audio = wall = 0.0
+        for i, s in enumerate(SENTENCES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = syn.synthesize(s, **gen)
+            wav = r.wav
+            wall += time.perf_counter() - t0
+            audio += len(wav) / sr
+            if not np.isfinite(wav).all() or len(wav) != r.y_length * hop:
+                raise AssertionError(f"phase 22 {dtype} sentence {i}: {len(wav)} samples for "
+                                     f"{r.y_length} frames")
+            last = r
+        out["rates"][f"synthesize {dtype}"] = audio / wall
+        print(f"[vocos] synthesize, {dtype}, ten sentences: {audio:.2f} s of audio in "
+              f"{wall * 1e3:.1f} ms wall ({audio / wall:.1f} s of audio per second); max |wav| "
+              f"of the last {float(np.abs(last.wav).max()):.3f}", flush=True)
+    batches = serving_batches(model, voc, cfg, vcfg, serving_texts(), max_batches=(32,),
+                              label="phase 22")
+    out["rates"].update(batches["rates"])
+    n = last.y_length // 2 * 2
+    mel = torch.from_numpy(last.mel[:, :n].T.copy()).to("cuda")  # (T, 80)
+    serving_stream(model, voc, cfg, vcfg, mel)
+    out["server"] = serving_server(model, voc, cfg, vcfg, n_requests=4)
+    counts = {**forced_counts(), **read_counts()}
+    print(f"[vocos] kernel launches over the phase: {counts}", flush=True)
+    if any(counts.values()):
+        raise AssertionError(f"phase 22: a kernel launched on the Vocos path: {counts}")
+
+    syn = Synthesizer(model, cfg, voc, vcfg, compute_dtype="bfloat16",
+                      denoise_strength=0.00025, device="cuda")
+    syn.synthesize(SENTENCES[0], **gen).wav
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        syn.synthesize(SENTENCES[0], **gen).wav
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["busy_share"] = print_busy("vocos", "one synthesize (Vocos, bf16)", prof, wall)
+    bucket = torch.randn((1, T_Y, 80), generator=torch.Generator().manual_seed(5)).cuda() - 5
+    hifi = HiFiGANGenerator(HiFiGANConfig(), seed=1, device="cuda")
+    ms = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        ms[f"vocos {dtype}"] = generator_device_ms(voc, vcfg, bucket.to(dtype))
+        ms[f"hifigan {dtype}"] = generator_device_ms(hifi, hifi.cfg, bucket.to(dtype))
+    out["generator_ms"] = ms
+    print(f"[vocos] generator device ms per call at (1, {T_Y}, 80): "
+          + ", ".join(f"{k} {v if v is None else round(v, 4)}" for k, v in ms.items()),
+          flush=True)
+    # a batch of 8: 8 x 513 inverse FFTs, where cuFFT's plan differs from
+    # the single call's (`ops/stft.py::istft`)
+    batch = torch.randn((8, T_Y, 80), generator=torch.Generator().manual_seed(6)) - 5
+    with torch.no_grad():
+        got = voc(batch.cuda()).cpu()
+        want = copy.deepcopy(voc).cpu()(batch)
+    rel = rel_l2(got, want)
+    out["card_vs_cpu_rel_l2"] = rel
+    print(f"[vocos] fp32 generator on the card vs the same module on the CPU at (8, {T_Y}, "
+          f"80): rel L2 {rel:.3e}; phase 22 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not rel <= 1e-4:
+        raise AssertionError(f"phase 22: Vocos on the card vs the CPU: rel L2 {rel}")
+    return out
+
+
+def gan_audio(seed: int, batch: int, n: int):
+    """(batch, n) harmonic tones plus noise with a syllable-rate envelope,
+    22050 Hz, as phase 9's corpus, drawn from `seed`, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 22050
+    rows = []
+    for _ in range(batch):
+        f0 = rng.uniform(90.0, 250.0) * (1 + 0.05 * np.sin(2 * np.pi * 0.7 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / 22050
+        wav = sum(np.sin(h * phase) / h for h in range(1, 6))
+        wav *= 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 3.1 * t + rng.uniform(0, 6)))
+        rows.append(0.2 * wav + 0.01 * rng.standard_normal(n))
+    return torch.from_numpy(np.stack(rows).astype(np.float32)).cuda()
+
+
+def gan_training() -> dict:
+    """Phase 23: vocoder GAN training at full width, batch 16 of 8192-sample
+    segments: `HiFiGANConfig()` against MPD + MSD and `VocosConfig()` against
+    MPD + MRD, GAN_STEPS disc + gen steps each on one repeated batch, finite
+    losses and mel L1 falling; ms per disc + gen step, the peak memory above
+    what was live before the state (weights, optimiser state and a step's
+    activations), the busy share of one step; one step in weight-norm form; no MRF launch (the
+    generator runs its plain composition); then `vocoder_cli --debug_tiny
+    --steps 3` as a subprocess on the card."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from matcha_tts_tpu_torch.config import AudioConfig, HiFiGANConfig, VocosConfig
+    from matcha_tts_tpu_torch.train import weight_norm as wn
+    from matcha_tts_tpu_torch.train.vocoder import (create_gan_state, gan_disc_step,
+                                                    gan_gen_step)
+
+    acfg = AudioConfig()
+    audio = gan_audio(11, GAN_BATCH, GAN_SEGMENT)
+    zero_forced_counts()
+    out = {}
+    t_phase = time.perf_counter()
+
+    def pair(state):
+        state, d_loss = gan_disc_step(state, audio, acfg)
+        state, m = gan_gen_step(state, audio, acfg)
+        vals = {"disc": float(d_loss), **{k: float(v) for k, v in m.items()}}
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"phase 23: non-finite losses {vals}")
+        return vals
+
+    for family, cfg, discs in (("hifigan", HiFiGANConfig(), ("mpd", "msd")),
+                               ("vocos", VocosConfig(), ("mpd", "mrd"))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # what earlier phases left alive
+        torch.cuda.reset_peak_memory_stats()
+        state = create_gan_state(cfg, discriminators=discs, seed=0, device="cuda")
+        losses, times = [], []
+        for _ in range(GAN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(pair(state))
+            times.append(time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pair(state)
+            wall = time.perf_counter() - t0
+        share = print_busy("gan", f"{family} disc + gen step", prof, wall)
+        step_ms = statistics.median(times[2:]) * 1e3
+        mel = [v["mel_l1"] for v in losses]
+        print(f"[gan] {family} + {'+'.join(discs)}, batch {GAN_BATCH} x {GAN_SEGMENT}: "
+              f"{GAN_STEPS} steps, ms per disc + gen step median {step_ms:.1f} (first "
+              f"{times[0] * 1e3:.1f}), peak memory {peak:.2f} GB above what was live before "
+              f"the state; mel_l1 {mel[0]:.4f} -> "
+              f"{mel[-1]:.4f}, gen_loss {losses[0]['gen_loss']:.3f} -> "
+              f"{losses[-1]['gen_loss']:.3f}, disc {losses[0]['disc']:.3f} -> "
+              f"{losses[-1]['disc']:.3f}", flush=True)
+        if not mel[-1] < mel[0]:
+            raise AssertionError(f"phase 23 {family}: mel_l1 did not fall: {mel}")
+        out[family] = dict(step_ms=step_ms, peak_gb=peak, busy_share=share,
+                           mel_l1=(mel[0], mel[-1]))
+        del state
+    state = create_gan_state(HiFiGANConfig(), use_weight_norm=True, seed=0, device="cuda")
+    if not (wn.is_weight_norm(state.generator) and wn.is_weight_norm(state.discriminators)):
+        raise AssertionError("phase 23: the weight-norm state is not in (v, g) form")
+    vals = pair(state)
+    print(f"[gan] hifigan + mpd+msd, weight norm: one step, {vals}", flush=True)
+    del state
+    launches = forced_counts()
+    if launches["mrf"] or launches["mrf_up"]:
+        raise AssertionError(f"phase 23: MRF kernels launched in GAN training: {launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        train, _ = synth_corpus(Path(tmp) / "corpus", 13)
+        cmd = [sys.executable, "-m", "matcha_tts_tpu_torch.train.vocoder_cli",
+               "--train_filelist", train, "--debug_tiny", "--steps", "3", "--batch_size", "4",
+               "--log_every", "1", "--work_dir", str(Path(tmp) / "run")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=tmp, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0 or "done: 3 steps" not in proc.stdout:
+            raise AssertionError(f"vocoder_cli failed:\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+    print(f"[gan] vocoder_cli --debug_tiny --steps 3 on the card: {wall:.1f} s process; "
+          f"{[ln for ln in proc.stdout.splitlines() if ln.startswith('[train 3]')]}; "
+          f"phase 23 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2382,9 +2731,10 @@ def main() -> int:
     blocks_only = "--blocks-only" in sys.argv[1:]
     mas_only = "--mas-only" in sys.argv[1:]
     serving_only = "--serving-only" in sys.argv[1:]
+    eval_vocoder_only = "--eval-vocoder-only" in sys.argv[1:]
     t0 = time.perf_counter()
     paths = cuda_build.build_all(["attention"] if attention_only
-                                 else ["mrf"] if mrf_only or serving_only
+                                 else ["mrf"] if mrf_only or serving_only or eval_vocoder_only
                                  else ["unet_blocks"] if blocks_only else ["mas"] if mas_only
                                  else cuda_build.SOURCES)
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s: "
@@ -2421,6 +2771,12 @@ def main() -> int:
         serving_at_scale()
         print(card)
         return 0
+    if eval_vocoder_only:  # phases 21-23: the judge, Vocos serving, GAN training
+        judge_on_card()
+        vocos_serving()
+        gan_training()
+        print(card)
+        return 0
     table = check_kernels(T_Y, REPS)
     int8_table = check_int8_kernels(T_Y, REPS)
     attn_rows = check_attention(REPS)
@@ -2439,6 +2795,9 @@ def main() -> int:
     cli_on_card(audible, mel)
     train = training(syn)
     dist = distillation()
+    judge_on_card()
+    vocos_serving()
+    gan_training()
 
     up = [table["level2"], table["level3"]]
     kernels = [

@@ -147,7 +147,7 @@ class HiFiGANConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VocosConfig:
-    """Frame-rate iSTFT vocoder (Vocos).  The port does not run it yet."""
+    """Frame-rate iSTFT vocoder (Vocos, `models/vocos.py`)."""
 
     num_mels: int = 80
     dim: int = 512

@@ -7,8 +7,9 @@
         [--long-form] [--device cuda]
 
 Loads a Lightning `.ckpt` of Matcha-TTS (its `hyper_parameters` may carry the
-whole `MatchaConfig`, attention kernels included) and a HiFi-GAN generator
-checkpoint, converted with `params/convert.py` and loaded with
+whole `MatchaConfig`, attention kernels included) and a vocoder checkpoint
+(HiFi-GAN, or Vocos in the public release's names with `--vocoder-family
+vocos`), converted with `params/convert.py` and loaded with
 `params/from_jax.py`; without checkpoints it runs random weights from seeds 0
 and 1 at the default widths.  Writes the wav, then the alignment as
 `alignment.png` (or `alignment.npy` where matplotlib is missing).  With
@@ -32,21 +33,22 @@ def load_models(checkpoint=None, vocoder=None, cfg=None, hcfg=None,
 
     Checkpoints are torch `.ckpt` / `.pt` files (the Lightning `model.`
     prefix is stripped) or http(s) URLs, downloaded once into the cache
-    (`utils/fetch.py`).  Returns (MatchaTTS, MatchaConfig, HiFiGANGenerator,
-    HiFiGANConfig)."""
-    from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig, config_from_dict
-    from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    (`utils/fetch.py`).  `vocoder_family` ("hifigan" or "vocos") picks the
+    vocoder when `hcfg` is not given; a Vocos checkpoint's shapes define its
+    config (the hop and sampling rate are kept from `hcfg`).  Returns
+    (MatchaTTS, MatchaConfig, vocoder, vocoder config)."""
+    from matcha_tts_tpu_torch.config import (HiFiGANConfig, MatchaConfig, VocosConfig,
+                                             config_from_dict)
     from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tts_tpu_torch.models.vocoder import init_vocoder
     from matcha_tts_tpu_torch.params.convert import (convert_hifigan, convert_matcha,
-                                                     load_torch_checkpoint,
-                                                     load_torch_state_dict)
+                                                     convert_vocos, load_torch_checkpoint,
+                                                     load_torch_state_dict,
+                                                     vocos_config_from_state_dict)
     from matcha_tts_tpu_torch.params.from_jax import load_jax_tree
 
-    if vocoder_family != "hifigan":
-        raise NotImplementedError(
-            f"--vocoder-family {vocoder_family}: the Vocos vocoder is not ported "
-            f"yet (ROADMAP.md Queue 1, \"Vocos family\")")
-    hcfg = hcfg or HiFiGANConfig()
+    if hcfg is None:
+        hcfg = VocosConfig() if vocoder_family == "vocos" else HiFiGANConfig()
     if checkpoint:
         print(f"Loading Matcha checkpoint from {checkpoint} ...")
         sd, hyper = load_torch_checkpoint(checkpoint)
@@ -63,13 +65,27 @@ def load_models(checkpoint=None, vocoder=None, cfg=None, hcfg=None,
         cfg = cfg or MatchaConfig()
         model = MatchaTTS(cfg, seed=0, device=device)
 
+    family = "vocos" if isinstance(hcfg, VocosConfig) else "hifigan"
     if vocoder:
-        print(f"Loading hifigan vocoder from {vocoder} ...")
-        tree = convert_hifigan(load_torch_state_dict(vocoder), hcfg)
+        print(f"Loading {family} vocoder from {vocoder} ...")
+        vsd = load_torch_state_dict(vocoder)
+        if family == "vocos":
+            hcfg = vocos_config_from_state_dict(vsd, sampling_rate=hcfg.sampling_rate,
+                                                hop_length=hcfg.hop_length)
+            if hcfg.num_mels != cfg.audio.n_mels:
+                raise ValueError(
+                    f"vocos checkpoint expects {hcfg.num_mels}-mel input but this "
+                    f"acoustic model produces {cfg.audio.n_mels} mels (the published "
+                    f"Vocos mel checkpoints are 100-mel / 24 kHz).  Train or fine-tune "
+                    f"a matching vocos vocoder with `python -m "
+                    f"matcha_tts_tpu_torch.train.vocoder_cli --family vocos`.")
+            tree = convert_vocos(vsd, hcfg)
+        else:
+            tree = convert_hifigan(vsd, hcfg)
         _, voc = load_jax_tree({"vocoder": tree}, cfg, hcfg, device=device)
     else:
-        print("No vocoder checkpoint — using randomly initialized hifigan.")
-        voc = HiFiGANGenerator(hcfg, seed=1, device=device)
+        print(f"No vocoder checkpoint — using randomly initialized {family}.")
+        voc = init_vocoder(hcfg, seed=1, device=device)
     return model, cfg, voc, hcfg
 
 
@@ -80,7 +96,8 @@ def main(argv=None):
     parser.add_argument("--checkpoint", type=str, default=None,
                         help="Matcha checkpoint (.ckpt; http(s) URLs are downloaded once)")
     parser.add_argument("--vocoder", type=str, default=None,
-                        help="HiFi-GAN generator checkpoint (path or http(s) URL)")
+                        help="vocoder checkpoint (path or http(s) URL): a HiFi-GAN "
+                             "generator, or Vocos in the public release's names")
     parser.add_argument("--nfe", type=int, default=10)
     parser.add_argument("--temperature", type=float, default=0.667)
     parser.add_argument("--length-scale", type=float, default=1.0)

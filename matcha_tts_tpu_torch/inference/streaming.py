@@ -1,14 +1,15 @@
 """Streaming vocoder: wav chunk by chunk from a mel, equal to the full pass.
 
-HiFi-GAN is a feedforward stack with a finite receptive field, so the wav
-samples of mel frames [a, b) depend only on frames [a - r, b + r), where r is
-the one-sided receptive radius (13 frames for V1, computed by
-`receptive_radius_frames`).  Each chunk therefore runs the stock generator
+Both vocoder families are feedforward stacks with a finite receptive field,
+so the wav samples of mel frames [a, b) depend only on frames [a - r, b + r),
+where r is the one-sided receptive radius (13 frames for HiFi-GAN V1, 31 for
+the default Vocos, computed by `receptive_radius_frames`).  Each chunk therefore runs the stock generator
 on a window of `chunk + 2r` frames and keeps the interior samples.  Windows
 at an edge of the sequence are aligned to it, so that the generator's own
-zero padding there is the full pass's: the output equals the full pass
-everywhere, not only inside.  The windows come in a few fixed sizes (`chunk
-* 2^k + 2r`), all even, so every MRF level of every window passes the
+zero padding there is the full pass's (and, for Vocos, the iSTFT's edges
+and the replicated last frame): the output equals the full pass everywhere,
+not only inside.  The windows come in a few fixed sizes (`chunk * 2^k +
+2r`), all even, so every HiFi-GAN MRF level of every window passes the
 kernels' gate (`models/hifigan.py::level_plan`) and runs the MRF kernels on
 the card.
 
@@ -21,7 +22,7 @@ stream.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -79,7 +80,7 @@ class StreamingVocoder:
 
     A fetch copies the whole window and the interior is cut on the host."""
 
-    def __init__(self, vocoder, cfg: Optional[HiFiGANConfig] = None,
+    def __init__(self, vocoder, cfg: Union[HiFiGANConfig, VocosConfig, None] = None,
                  chunk_frames: int = 64, context_frames: Optional[int] = None,
                  compute_dtype: str = "float32", max_chunk_frames: Optional[int] = None,
                  pipeline_depth: int = 2, device="cuda"):

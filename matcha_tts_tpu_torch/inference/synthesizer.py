@@ -11,8 +11,10 @@ call per (batch, text) bucket pair (`synthesize_batch`, which the HTTP
 server's batcher calls), runs every shape a deployment will see once ahead
 of traffic (`warmup`, `warmup_grid`), splits long text into sentences
 (`split_text`, `stream`, `synthesize_long`) and streams audio as the vocoder
-produces it (`stream_samples`, through `inference/streaming.py`).  The calls
-are eager; one CUDA graph per bucket is ROADMAP.md work.
+produces it (`stream_samples`, through `inference/streaming.py`).  The
+vocoder is either family (`HiFiGANConfig` or `VocosConfig`, dispatched by
+`models/vocoder.py`).  The calls are eager; one CUDA graph per bucket is
+ROADMAP.md work.
 """
 
 from __future__ import annotations
@@ -23,12 +25,12 @@ import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig
+from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig, VocosConfig
 from matcha_tts_tpu_torch.inference.streaming import StreamingVocoder
 from matcha_tts_tpu_torch.models import vocoder as vocoder_mod
 from matcha_tts_tpu_torch.models.denoiser import DenoiserState, denoise, make_denoiser
@@ -107,8 +109,9 @@ class LazySynthesisResult:
 
 
 class Synthesizer:
-    """Host-facing TTS engine over a `MatchaTTS` and a HiFi-GAN generator,
-    both moved to `device`."""
+    """Host-facing TTS engine over a `MatchaTTS` and a vocoder (a HiFi-GAN
+    generator or a Vocos; `hifi_cfg` is its config), both moved to
+    `device`."""
 
     # frames per interspersed token for the first guess of the frame bucket;
     # the estimate adapts to the observed ratio (times a safety margin), and
@@ -119,7 +122,7 @@ class Synthesizer:
     _PRODUCER_THREADS = 4
 
     def __init__(self, model: MatchaTTS, matcha_cfg: MatchaConfig,
-                 vocoder=None, hifi_cfg: Optional[HiFiGANConfig] = None,
+                 vocoder=None, hifi_cfg: Union[HiFiGANConfig, VocosConfig, None] = None,
                  text_buckets: Sequence[int] = DEFAULT_TEXT_BUCKETS,
                  frame_buckets: Sequence[int] = DEFAULT_FRAME_BUCKETS,
                  batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,

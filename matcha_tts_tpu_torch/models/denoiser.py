@@ -2,10 +2,11 @@
 
 The vocoder's bias spectrum is taken once, by running it in fp32 on an
 88-frame zero mel; denoising subtracts `strength * bias` from the STFT
-magnitude and resynthesises with the original phase.  The probe runs the
-exact generator whatever `mrf_kernel` the serving config asks for (no int8,
-no tap levels), as the JAX package's probe does: on the card through the
-exact fp32 MRF kernels, on the CPU through their plain versions.
+magnitude and resynthesises with the original phase.  For HiFi-GAN the
+probe runs the exact generator whatever `mrf_kernel` the serving config asks
+for (no int8, no tap levels), as the JAX package's probe does: on the card
+through the exact fp32 MRF kernels, on the CPU through their plain versions.
+A Vocos config has no kernel options and is probed as it is.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 
 import torch
 
+from matcha_tts_tpu_torch.config import HiFiGANConfig
 from matcha_tts_tpu_torch.models.vocoder import generate
 from matcha_tts_tpu_torch.ops.stft import istft, stft_magnitude_and_phase
 
@@ -36,8 +38,9 @@ def make_denoiser(vocoder, cfg, filter_length: int = 1024, n_overlap: int = 4,
         raise ValueError(f"Mode {mode} not supported")
     device = next(vocoder.parameters()).device
     mel = torch.zeros((1, 88, cfg.num_mels), dtype=torch.float32, device=device)
-    exact = dataclasses.replace(cfg, mrf_kernel="auto", use_pallas=False, int8_levels=None)
-    bias_audio = generate(vocoder, mel, exact)[0].float()
+    if isinstance(cfg, HiFiGANConfig):
+        cfg = dataclasses.replace(cfg, mrf_kernel="auto", use_pallas=False, int8_levels=None)
+    bias_audio = generate(vocoder, mel, cfg)[0].float()
     hop = int(filter_length / n_overlap)
     mag, _ = stft_magnitude_and_phase(bias_audio, filter_length, hop,
                                       win_length, center=True)

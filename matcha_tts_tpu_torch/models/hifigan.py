@@ -22,6 +22,11 @@ In fp32, the default `compute_dtype` of the `Synthesizer`, every level
 kernel runs three TF32 products per product on the tensor cores; level 1
 (C=128) spreads each tile over a thread-block cluster and runs faster than
 the plain composition (`PERF.md` §6).
+
+`forward_train` is the differentiable plain composition that GAN training
+runs.  Below the generator: the multi-period and multi-scale discriminators
+(MPD, MSD) and the LS-GAN and feature-matching losses of the HiFi-GAN
+recipe, with the JAX package's tree paths as their `state_dict` names.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from matcha_tts_tpu_torch.config import HiFiGANConfig
-from matcha_tts_tpu_torch.models.nn import Conv1d, ConvTranspose1d, conv1d
+from matcha_tts_tpu_torch.models.nn import Conv1d, Conv2d, ConvTranspose1d, conv1d
 from matcha_tts_tpu_torch.ops import mrf_cuda
 
 LRELU_SLOPE = 0.1
@@ -218,7 +223,16 @@ class HiFiGANGenerator(nn.Module):
         """mel (B, T, num_mels) -> audio; `cfg` overrides the kernel options
         (`mrf_kernel`, `use_pallas`, `int8_levels`) of the generator's own
         config for this call, with the same weights."""
-        cfg = cfg or self.cfg
+        return self._run(mel, cfg or self.cfg)
+
+    def forward_train(self, mel: torch.Tensor) -> torch.Tensor:
+        """The differentiable forward that GAN training runs: the plain
+        composition at every level (the MRF kernels have no backward), as
+        the JAX package's training steps pin `mrf_kernel="xla"`."""
+        return self._run(mel, dataclasses.replace(self.cfg, mrf_kernel="xla", use_pallas=False,
+                                                  int8_levels=None))
+
+    def _run(self, mel: torch.Tensor, cfg: HiFiGANConfig) -> torch.Tensor:
         x = self.conv_pre(mel, padding=3)
         n_levels = len(cfg.upsample_rates)
         for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
@@ -281,3 +295,154 @@ def quantization_report(vocoder: HiFiGANGenerator, mels: torch.Tensor,
         "exact_kernel": exact_kernel,
         "quantized_kernel": "int8",
     }
+
+
+# ---------------------------------------------------------------------------
+# discriminators and GAN losses
+# ---------------------------------------------------------------------------
+
+MPD_PERIODS = (2, 3, 5, 7, 11)
+
+
+class DiscriminatorP(nn.Module):
+    """One period of MPD: the audio folded to (T / period, period) and run
+    through (5, 1) convs, strided 3 on the time axis."""
+
+    def __init__(self, period: int, generator: torch.Generator):
+        super().__init__()
+        self.period = period
+        chs = [(1, 32), (32, 128), (128, 512), (512, 1024), (1024, 1024)]
+        self.convs = nn.ModuleList(Conv2d(ic, oc, 5, 1, generator) for ic, oc in chs)
+        self.conv_post = Conv2d(1024, 1, 3, 1, generator)
+
+    def forward(self, audio: torch.Tensor):
+        """(B, T) -> (logits (B, n), feature maps)."""
+        b, t = audio.shape
+        if t % self.period:
+            audio = F.pad(audio[:, None], (0, self.period - t % self.period),
+                          mode="reflect")[:, 0]
+        x = audio.reshape(b, -1, self.period, 1)  # NHWC
+        fmap = []
+        for i, conv in enumerate(self.convs):
+            x = F.leaky_relu(conv(x, stride=(3, 1) if i < 4 else (1, 1), padding=(2, 0)),
+                             LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x, padding=(1, 0))
+        fmap.append(x)
+        return x.reshape(b, -1), fmap
+
+
+# (kernel, stride, groups, padding) of MSD's convs
+_DS_SPEC = ((15, 1, 1, 7), (41, 2, 4, 20), (41, 2, 16, 20), (41, 4, 16, 20),
+            (41, 4, 16, 20), (41, 1, 16, 20), (5, 1, 1, 2))
+_DS_CHANNELS = ((1, 128), (128, 128), (128, 256), (256, 512), (512, 1024), (1024, 1024),
+                (1024, 1024))
+
+
+class DiscriminatorS(nn.Module):
+    """One scale of MSD: grouped 1-D convs over the raw audio."""
+
+    def __init__(self, generator: torch.Generator):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            Conv1d(ic, oc, k, init="kaiming_zero_bias", generator=generator, groups=g)
+            for (ic, oc), (k, _, g, _) in zip(_DS_CHANNELS, _DS_SPEC))
+        self.conv_post = Conv1d(1024, 1, 3, generator=generator)
+
+    def forward(self, audio: torch.Tensor):
+        """(B, T) -> (logits (B, n), feature maps)."""
+        x = audio[..., None]
+        fmap = []
+        for conv, (_, s, _, p) in zip(self.convs, _DS_SPEC):
+            x = F.leaky_relu(conv(x, stride=s, padding=p), LRELU_SLOPE)
+            fmap.append(x)
+        x = self.conv_post(x, padding=1)
+        fmap.append(x)
+        return x.reshape(x.shape[0], -1), fmap
+
+
+def _avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Window 4, stride 2, zero padding 2, divided by 4 (padding counted)."""
+    return F.avg_pool1d(x[:, None], 4, 2, 2, count_include_pad=True)[:, 0]
+
+
+def pair_outputs(discs, ys, y_hats):
+    """Each discriminator on its real and generated audio -> (real logits,
+    fake logits, real feature maps, fake feature maps), one entry each."""
+    outs_r, outs_g, fmaps_r, fmaps_g = [], [], [], []
+    for d, y, y_hat in zip(discs, ys, y_hats):
+        lr, fr = d(y)
+        lg, fg = d(y_hat)
+        outs_r.append(lr)
+        outs_g.append(lg)
+        fmaps_r.append(fr)
+        fmaps_g.append(fg)
+    return outs_r, outs_g, fmaps_r, fmaps_g
+
+
+class MPD(nn.Module):
+    """Multi-period discriminator, weights drawn from `seed`."""
+
+    def __init__(self, *, seed: int = 0, device="cuda"):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.discriminators = nn.ModuleList(DiscriminatorP(p, g) for p in MPD_PERIODS)
+        self.to(device)
+
+    def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
+        """Real and generated audio (B, T) -> (real logits, fake logits, real
+        feature maps, fake feature maps), one entry per period."""
+        n = len(self.discriminators)
+        return pair_outputs(self.discriminators, [y] * n, [y_hat] * n)
+
+
+class MSD(nn.Module):
+    """Multi-scale discriminator (the audio, then pooled x2 and x4), weights
+    drawn from `seed`."""
+
+    def __init__(self, *, seed: int = 0, device="cuda"):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.discriminators = nn.ModuleList(DiscriminatorS(g) for _ in range(3))
+        self.to(device)
+
+    def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
+        ys, y_hats = [y], [y_hat]
+        for _ in range(len(self.discriminators) - 1):
+            ys.append(_avg_pool(ys[-1]))
+            y_hats.append(_avg_pool(y_hats[-1]))
+        return pair_outputs(self.discriminators, ys, y_hats)
+
+
+def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
+    """2 x the sum over every feature map of mean |real - fake|."""
+    loss = 0.0
+    for dr, dg in zip(fmap_r, fmap_g):
+        for rl, gl in zip(dr, dg):
+            loss = loss + torch.mean(torch.abs(rl - gl))
+    return loss * 2.0
+
+
+def discriminator_loss(real_outs, gen_outs):
+    """LS-GAN: sum of mean (1 - D(real))^2 + mean D(fake)^2; also the two
+    terms per discriminator."""
+    loss = 0.0
+    r_losses, g_losses = [], []
+    for dr, dg in zip(real_outs, gen_outs):
+        r = torch.mean(torch.square(1.0 - dr))
+        g = torch.mean(torch.square(dg))
+        loss = loss + r + g
+        r_losses.append(r)
+        g_losses.append(g)
+    return loss, r_losses, g_losses
+
+
+def generator_loss(disc_outs):
+    """LS-GAN: sum of mean (1 - D(fake))^2; also the term per discriminator."""
+    loss = 0.0
+    gen_losses = []
+    for dg in disc_outs:
+        term = torch.mean(torch.square(1.0 - dg))
+        gen_losses.append(term)
+        loss = loss + term
+    return loss, gen_losses

@@ -124,40 +124,74 @@ def _uniform(shape, bound: float, generator: Optional[torch.Generator]):
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
 
 
+def trunc_normal(shape, std: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """N(0, std) truncated at +-2 std (`torch.nn.init.trunc_normal_` with
+    a = -2 std, b = 2 std)."""
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return w * std
+
+
+def _init_weight(shape, fan_in: int, fan_out: int, init: str, std: float,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    if init in ("kaiming", "kaiming_zero_bias"):
+        return _uniform(shape, 1.0 / math.sqrt(fan_in), generator)
+    if init == "xavier":
+        return _uniform(shape, math.sqrt(6.0 / (fan_in + fan_out)), generator)
+    if init == "zero":
+        return torch.zeros(shape)
+    if init == "normal":
+        return torch.randn(shape, generator=generator) * std
+    if init == "trunc_normal":
+        return trunc_normal(shape, std, generator)
+    raise ValueError(f"unknown init {init!r}")
+
+
 class Conv1d(nn.Module):
-    """Conv1d weights (O, I, W) and bias (O,).
+    """Conv1d weights (O, I / groups, W) and bias (O,).
 
     init: "kaiming" (torch's default, U(+-1/sqrt(fan_in))), "xavier"
-    (xavier-uniform weight, kaiming bias), "zero", or "normal" (HiFi-GAN:
-    N(0, std) weight, zero bias)."""
+    (xavier-uniform weight, kaiming bias), "zero", "normal" (HiFi-GAN:
+    N(0, std) weight, zero bias), "trunc_normal" (Vocos: N(0, std)
+    truncated at 2 std, zero bias) or "kaiming_zero_bias" (the
+    discriminators)."""
 
     def __init__(self, in_ch: int, out_ch: int, width: int, bias: bool = True,
                  init: str = "kaiming", std: float = 0.01,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, groups: int = 1):
         super().__init__()
-        shape = (out_ch, in_ch, width)
-        fan_in, fan_out = in_ch * width, out_ch * width
-        kb = 1.0 / math.sqrt(fan_in)
-        if init == "kaiming":
-            w = _uniform(shape, kb, generator)
-        elif init == "xavier":
-            w = _uniform(shape, math.sqrt(6.0 / (fan_in + fan_out)), generator)
-        elif init == "zero":
-            w = torch.zeros(shape)
-        elif init == "normal":
-            w = torch.randn(shape, generator=generator) * std
-        else:
-            raise ValueError(f"unknown init {init!r}")
-        self.weight = nn.Parameter(w)
+        self.groups = groups
+        shape = (out_ch, in_ch // groups, width)
+        fan_in = in_ch // groups * width
+        self.weight = nn.Parameter(_init_weight(shape, fan_in, out_ch * width, init, std,
+                                                generator))
         if bias:
-            b = (torch.zeros(out_ch) if init in ("zero", "normal")
-                 else _uniform((out_ch,), kb, generator))
+            b = (_uniform((out_ch,), 1.0 / math.sqrt(fan_in), generator)
+                 if init in ("kaiming", "xavier") else torch.zeros(out_ch))
             self.bias = nn.Parameter(b)
         else:
             self.bias = None
 
     def forward(self, x, stride=1, padding=0, dilation=1):
-        return conv1d(x, self.weight, self.bias, stride, padding, dilation)
+        return conv1d(x, self.weight, self.bias, stride, padding, dilation, self.groups)
+
+
+class Conv2d(nn.Module):
+    """Conv2d weights (O, I, H, W) and bias (O,), kaiming-uniform weight
+    over the fan-in and zero bias (the discriminators' init).  The op runs
+    on NHWC activations (B, H, W, C), as the JAX package's."""
+
+    def __init__(self, in_ch: int, out_ch: int, kh: int, kw: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        fan_in = in_ch * kh * kw
+        self.weight = nn.Parameter(_uniform((out_ch, in_ch, kh, kw),
+                                            1.0 / math.sqrt(fan_in), generator))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x, stride=(1, 1), padding=(0, 0)):
+        out = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), None, stride, padding)
+        return out.permute(0, 2, 3, 1) + self.bias.to(x.dtype)
 
 
 class ConvTranspose1d(nn.Module):
@@ -189,15 +223,23 @@ class ConvTranspose1d(nn.Module):
 
 
 class Linear(nn.Module):
-    """Linear weights (O, I) and bias (O,), kaiming-uniform over the fan-in."""
+    """Linear weights (O, I) and bias (O,), kaiming-uniform over the fan-in;
+    init="trunc_normal" draws the weight from N(0, std) truncated at 2 std
+    and zeroes the bias (Vocos)."""
 
     def __init__(self, in_f: int, out_f: int, bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, init: str = "kaiming",
+                 std: float = 0.02):
         super().__init__()
         kb = 1.0 / math.sqrt(in_f)
-        self.weight = nn.Parameter(_uniform((out_f, in_f), kb, generator))
-        self.bias = (nn.Parameter(_uniform((out_f,), kb, generator))
-                     if bias else None)
+        self.weight = nn.Parameter(_init_weight((out_f, in_f), in_f, out_f, init, std,
+                                                generator))
+        if not bias:
+            self.bias = None
+        elif init == "kaiming":
+            self.bias = nn.Parameter(_uniform((out_f,), kb, generator))
+        else:
+            self.bias = nn.Parameter(torch.zeros(out_f))
 
     def forward(self, x):
         return linear(x, self.weight, self.bias)

@@ -8,7 +8,10 @@ The reference's Lightning checkpoints keep their state dict under `model.`
 (stripped at load) with the module tree `encoder.*` / `decoder.estimator.*`
 / `mel_mean` / `mel_std`, and their `hyper_parameters` may carry the whole
 `MatchaConfig`; HiFi-GAN checkpoints store `{"generator": ...}` with weight
-norm split into `weight_g` / `weight_v` pairs, folded here.  The layouts:
+norm split into `weight_g` / `weight_v` pairs, folded here.  Vocos state
+dicts use the public Vocos release's names (`backbone.embed`,
+`backbone.norm`, `backbone.convnext.{i}.{dwconv,norm,pwconv1,pwconv2,gamma}`,
+`backbone.final_layer_norm`, `head.out`).  The layouts:
 
 * Conv1d           (O, I, W)  ->  (W, I, O)
 * ConvTranspose1d  (I, O, W)  ->  (W, I, O), kernel flipped
@@ -22,7 +25,7 @@ from typing import Dict
 
 import numpy as np
 
-from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig
+from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig, VocosConfig
 
 Array = np.ndarray
 StateDict = Dict[str, Array]
@@ -322,3 +325,45 @@ def convert_hifigan(sd: StateDict, cfg: HiFiGANConfig) -> dict:
                 "convs": [_conv(sd, f"resblocks.{i}.convs.{j}") for j in range(n_d)],
             })
     return params
+
+
+def _n_convnext_layers(sd: StateDict) -> int:
+    return len({k.split(".")[2] for k in sd if k.startswith("backbone.convnext.")})
+
+
+def vocos_config_from_state_dict(sd: StateDict, sampling_rate: int = 22050,
+                                 hop_length: int = 256) -> VocosConfig:
+    """A `VocosConfig` from an official checkpoint's tensor shapes: num_mels
+    and dim from `backbone.embed.weight` (O, I, W), kernel_size from its
+    width, n_fft from the head, intermediate_dim from pwconv1, num_layers
+    from the key names.  The state dict does not store the hop length or the
+    sampling rate: pass them when the checkpoint's front end is not Matcha's
+    (256-sample hop at 22.05 kHz)."""
+    embed = sd["backbone.embed.weight"]
+    pw1 = sd["backbone.convnext.0.pwconv1.weight"]
+    return VocosConfig(num_mels=int(embed.shape[1]), dim=int(embed.shape[0]),
+                       intermediate_dim=int(pw1.shape[0]),
+                       num_layers=_n_convnext_layers(sd),
+                       kernel_size=int(embed.shape[2]),
+                       n_fft=int(sd["head.out.weight"].shape[0]) - 2,
+                       hop_length=hop_length, sampling_rate=sampling_rate)
+
+
+def convert_vocos(sd: StateDict, cfg: VocosConfig) -> dict:
+    """Official Vocos state dict -> the JAX package's Vocos tree.  The
+    feature extractor's and the iSTFT window's buffers are not read (the
+    window is rebuilt from cfg.n_fft); the head's (magnitude | phase)
+    halves keep the official order."""
+    tree = {"embed": _conv(sd, "backbone.embed"),
+            "norm_pre": _norm_wb(sd, "backbone.norm"),
+            "norm_post": _norm_wb(sd, "backbone.final_layer_norm"),
+            "head": _lin(sd, "head.out"),
+            "blocks": []}
+    for i in range(cfg.num_layers):
+        p = f"backbone.convnext.{i}"
+        tree["blocks"].append({"dwconv": _conv(sd, f"{p}.dwconv"),
+                               "norm": _norm_wb(sd, f"{p}.norm"),
+                               "pw1": _lin(sd, f"{p}.pwconv1"),
+                               "pw2": _lin(sd, f"{p}.pwconv2"),
+                               "gamma": sd[f"{p}.gamma"]})
+    return tree

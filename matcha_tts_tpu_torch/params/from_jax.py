@@ -5,7 +5,9 @@ port's `state_dict` names are the tree's paths joined by dots, so each leaf
 goes to the parameter or buffer of the same path, in the layout of the
 module that owns it:
 
-* `Conv1d`: (W, I, O) -> (O, I, W);
+* `Conv1d`: (W, I, O) -> (O, I, W) (a grouped conv's (W, I / groups, O)
+  alike);
+* `Conv2d`: (H, W, I, O) -> (O, I, H, W);
 * `ConvTranspose1d`: the JAX package stores it flipped as (W, I, O);
   un-flip and go to torch's (I, O, W);
 * `Linear`: (I, O) -> (O, I);
@@ -15,7 +17,9 @@ module that owns it:
 `read_npz` reads a tree saved flat with "/"-joined keys (list indices as
 digits), the JAX package's `.npz` convention.  `to_jax_tree` is the inverse
 of `copy_jax_tree`: a module's parameters (or their gradients) as a JAX tree
-of numpy arrays, which the JAX package can load.
+of numpy arrays, which the JAX package can load.  A weight under weight norm
+(`train/weight_norm.py`) goes to the JAX package's `v` and `g` leaves, each
+in the owner's layout.
 """
 
 from __future__ import annotations
@@ -26,10 +30,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig
+from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig, VocosConfig
 from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
 from matcha_tts_tpu_torch.models.matcha import MatchaTTS
-from matcha_tts_tpu_torch.models.nn import Conv1d, ConvTranspose1d, Linear
+from matcha_tts_tpu_torch.models.nn import Conv1d, Conv2d, ConvTranspose1d, Linear
+from matcha_tts_tpu_torch.models.vocos import Vocos
+
+# the weight-norm parameterisation's names for g and v (torch's own)
+_WN_LEAVES = {"parametrizations.weight.original0": "g",
+              "parametrizations.weight.original1": "v"}
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -49,6 +58,8 @@ def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 def to_torch_layout(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
     if name == "weight" and isinstance(owner, Conv1d):
         return value.transpose(2, 1, 0)
+    if name == "weight" and isinstance(owner, Conv2d):
+        return value.transpose(3, 2, 0, 1)
     if name == "weight" and isinstance(owner, ConvTranspose1d):
         return value[::-1].transpose(1, 2, 0)
     if name == "weight" and isinstance(owner, Linear):
@@ -82,18 +93,19 @@ def copy_jax_tree(module: nn.Module, tree) -> nn.Module:
     return module
 
 
-def load_jax_tree(tree: dict, cfg: MatchaConfig,
-                  hcfg: Optional[HiFiGANConfig] = None, *,
-                  device="cuda") -> Tuple[Optional[MatchaTTS], Optional[HiFiGANGenerator]]:
-    """tree: {"matcha": JAX Matcha tree, "vocoder": JAX HiFi-GAN tree}; either
-    may be absent.  Returns (MatchaTTS or None, HiFiGANGenerator or None) on
-    `device`, holding the tree's weights."""
+def load_jax_tree(tree: dict, cfg: MatchaConfig, hcfg=None, *,
+                  device="cuda") -> Tuple[Optional[MatchaTTS], Optional[nn.Module]]:
+    """tree: {"matcha": JAX Matcha tree, "vocoder": JAX vocoder tree}; either
+    may be absent.  Returns (MatchaTTS or None, the vocoder or None) on
+    `device`, holding the tree's weights: a `Vocos` for a `VocosConfig`,
+    else a `HiFiGANGenerator` (of `HiFiGANConfig()` when `hcfg` is None)."""
     model = vocoder = None
     if tree.get("matcha") is not None:
         model = copy_jax_tree(MatchaTTS(cfg, device="cpu"), tree["matcha"]).to(device)
     if tree.get("vocoder") is not None:
-        vocoder = copy_jax_tree(HiFiGANGenerator(hcfg or HiFiGANConfig(), device="cpu"),
-                                tree["vocoder"]).to(device)
+        empty = (Vocos(hcfg, device="cpu") if isinstance(hcfg, VocosConfig)
+                 else HiFiGANGenerator(hcfg or HiFiGANConfig(), device="cpu"))
+        vocoder = copy_jax_tree(empty, tree["vocoder"]).to(device)
     return model, vocoder
 
 
@@ -101,6 +113,8 @@ def to_jax_layout(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
     """Inverse of `to_torch_layout`."""
     if name == "weight" and isinstance(owner, Conv1d):
         return value.transpose(2, 1, 0)
+    if name == "weight" and isinstance(owner, Conv2d):
+        return value.transpose(2, 3, 1, 0)
     if name == "weight" and isinstance(owner, ConvTranspose1d):
         return value.transpose(2, 0, 1)[::-1]
     if name == "weight" and isinstance(owner, Linear):
@@ -142,10 +156,18 @@ def to_jax_tree(module: nn.Module, grads: bool = False) -> dict:
         if grads:
             g = params[path].grad if path in params else None
             t = torch.zeros_like(t) if g is None else g
-        owner_path, _, name = path.rpartition(".")
-        owner = module.get_submodule(owner_path) if owner_path else module
         value = t.detach().float().cpu().numpy()
-        flat[path] = np.array(to_jax_layout(owner, name, value), dtype=np.float32)
+        owner_path, _, name = path.rpartition(".")
+        for suffix, leaf in _WN_LEAVES.items():
+            if path == suffix or path.endswith("." + suffix):
+                owner_path = path[:-len(suffix)].rstrip(".")
+                owner = module.get_submodule(owner_path) if owner_path else module
+                flat[f"{owner_path}.{leaf}" if owner_path else leaf] = np.array(
+                    to_jax_layout(owner, "weight", value), dtype=np.float32)
+                break
+        else:
+            owner = module.get_submodule(owner_path) if owner_path else module
+            flat[path] = np.array(to_jax_layout(owner, name, value), dtype=np.float32)
     return _nest(flat)
 
 

@@ -118,7 +118,9 @@ class Checkpointer:
     metrics.  A distillation state (`train/distill.py::DistillState`) is
     saved the same way, its student as the model, plus the EMA's state
     dict; `load_model` gives the student back as a `MatchaTTS` for
-    synthesis.
+    synthesis.  A state with a `state_dict` of its own (the vocoder GAN's
+    `train/vocoder.py::GanTrainState`: generator, discriminators and both
+    optimisers) is saved and restored through it.
 
     The `keep` best by val loss survive, plus always the latest, so resume
     never goes back in time.  The metrics of every kept step are indexed in
@@ -158,10 +160,14 @@ class Checkpointer:
         """`state`: a TrainState or a DistillState."""
         if metrics is not None:
             metrics = {k: float(v) for k, v in metrics.items()}
-        payload = {"step": int(step), "model": self._model(state).state_dict(),
-                   "optimizer": state.optimizer.state_dict(),
+        payload = {"step": int(step),
                    "config": None if model_cfg is None else config_to_dict(model_cfg),
                    "metrics": metrics}
+        if hasattr(state, "state_dict"):
+            payload["state"] = state.state_dict()
+        else:
+            payload["model"] = self._model(state).state_dict()
+            payload["optimizer"] = state.optimizer.state_dict()
         if hasattr(state, "ema"):
             payload["ema"] = state.ema.state_dict()
         tmp = self._file(step).with_suffix(".tmp")
@@ -187,8 +193,16 @@ class Checkpointer:
         return torch.load(self._file(step), map_location=device, weights_only=True)
 
     def restore(self, state, step: Optional[int] = None):
-        """Load the latest checkpoint (or `step`) into `state` (a TrainState
-        or a DistillState) in place and return it; None when there is none."""
+        """Load the latest checkpoint (or `step`) into `state` (a TrainState,
+        a DistillState or a GanTrainState) in place and return it; None when
+        there is none."""
+        if hasattr(state, "load_state_dict"):
+            payload = self._load(step, state.device)
+            if payload is None:
+                return None
+            state.load_state_dict(payload["state"])
+            state.step = int(payload["step"])
+            return state
         model = self._model(state)
         payload = self._load(step, model.device)
         if payload is None:

@@ -64,3 +64,16 @@ def small_synth_weights():
     tc = tcfg.config_from_dict(tcfg.MatchaConfig, jcfg.config_to_dict(cfg))
     th = tcfg.config_from_dict(tcfg.HiFiGANConfig, jcfg.config_to_dict(hcfg))
     return cfg, hcfg, mp, vp, tc, th
+
+
+def small_vocos_weights(seed=2):
+    """A small Vocos at the acoustic model's front end (80 mels, hop 256,
+    n_fft 1024; dim 32, two ConvNeXt blocks) in both packages, with
+    unit-gain numpy weights: (JAX VocosConfig, tree, port VocosConfig)."""
+    from matcha_tts_tpu import config as jcfg
+    from matcha_tts_tpu.models import vocos as jvocos
+    from matcha_tts_tpu_torch import config as tcfg
+
+    vcfg = jcfg.VocosConfig(dim=32, intermediate_dim=64, num_layers=2)
+    tree = numpy_tree(lambda key: jvocos.init_vocos(key, vcfg), seed)
+    return vcfg, tree, tcfg.config_from_dict(tcfg.VocosConfig, jcfg.config_to_dict(vcfg))

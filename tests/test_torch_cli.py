@@ -5,7 +5,7 @@ with the same reconstructed config), synthesis from that checkpoint with the
 CFM noise injected (encoder atol 1e-4, durations equal, mel atol 1e-3), the
 HiFi-GAN converter with weight-norm folding (exact; the generator it loads
 matches JAX's at atol 1e-4), `main` end to end with `--device cpu`, the
-long form through `main`, the Vocos refusal, and checkpoint resolution on
+long form and `--vocoder-family vocos` through `main`, and checkpoint resolution on
 local paths and a localhost server (the port's copy of `utils/fetch.py`)."""
 
 import functools
@@ -152,31 +152,38 @@ def test_cli_writes_a_wav_from_the_trained_checkpoint(tmp_path, monkeypatch, cap
     assert (tmp_path / "alignment.png").exists() or (tmp_path / "alignment.npy").exists()
 
 
-# The Vocos refusal names the ROADMAP item by its title.  The long-form
-# cases (`--long-form`, and a `|` in the text) raised until the long form was
-# ported; they now run on the CPU, on the small models of the slice tests, and
-# write `Synthesizer.synthesize_long`'s wav (the ids keep the cases' names).
-@pytest.mark.parametrize("argv,item", [(["--long-form"], None),
-                                       (["--text", "One. | Two."], None),
-                                       (["--vocoder-family", "vocos"], '"Vocos family"')],
+# The long-form cases (`--long-form`, and a `|` in the text) raised until the
+# long form was ported, and `--vocoder-family vocos` until Vocos was; they now
+# run on the CPU, on the small models of the slice tests, and write
+# `Synthesizer.synthesize_long`'s wav (long form) or `synthesize`'s (Vocos; the
+# family reaches `load_models`).  The ids keep the cases' names.
+@pytest.mark.parametrize("argv,family", [(["--long-form"], "hifigan"),
+                                         (["--text", "One. | Two."], "hifigan"),
+                                         (["--vocoder-family", "vocos"], "vocos")],
                          ids=["argv0-item 13", "argv1-item 13", "argv2-item 10"])
-def test_unported_cli_modes_raise(argv, item, tmp_path, monkeypatch, capsys):
+def test_unported_cli_modes_raise(argv, family, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     out = tmp_path / "x.wav"
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
-            cli.main(argv + ["--device", "cpu", "--output", str(out)])
-        return
     from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
-    from port_params import small_synth_weights
+    from port_params import small_synth_weights, small_vocos_weights
 
     _, _, mp, vp, tc, th = small_synth_weights()
+    if family == "vocos":
+        _, vp, th = small_vocos_weights()
     model, voc = load_jax_tree({"matcha": mp, "vocoder": vp}, tc, th, device="cpu")
-    monkeypatch.setattr(cli, "load_models", lambda *a, **kw: (model, tc, voc, th))
+    families = []
+
+    def load(*a, vocoder_family="hifigan", **kw):
+        families.append(vocoder_family)
+        return model, tc, voc, th
+
+    monkeypatch.setattr(cli, "load_models", load)
     cli.main(argv + ["--device", "cpu", "--nfe", "2", "--seed", "4", "--output", str(out)])
+    assert families == [family]
     text = argv[1] if argv[0] == "--text" else "Hello! I am running on the PyTorch port."
-    want = Synthesizer(model, tc, voc, th, device="cpu").synthesize_long(
-        text, n_timesteps=2, temperature=0.667, length_scale=1.0, seed=4)
+    syn = Synthesizer(model, tc, voc, th, device="cpu")
+    kw = dict(n_timesteps=2, temperature=0.667, length_scale=1.0, seed=4)
+    want = syn.synthesize(text, **kw) if family == "vocos" else syn.synthesize_long(text, **kw)
     assert len(Synthesizer.split_text(text)) == 2
     wav, sr = read_wav(out)
     assert sr == 22050 and wav.shape == want.wav.shape and np.abs(want.wav).max() > 1e-3

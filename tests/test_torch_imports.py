@@ -44,7 +44,11 @@ def test_port_imports_no_jax_and_no_jax_package():
             "matcha_tts_tpu_torch.inference.cli", "matcha_tts_tpu_torch.params.convert",
             "matcha_tts_tpu_torch.inference.streaming", "matcha_tts_tpu_torch.inference.server",
             "matcha_tts_tpu_torch.utils.wav", "matcha_tts_tpu_torch.utils.fetch",
-            "matcha_tts_tpu_torch.train.distill"} <= expected
+            "matcha_tts_tpu_torch.train.distill", "matcha_tts_tpu_torch.eval",
+            "matcha_tts_tpu_torch.eval.wer", "matcha_tts_tpu_torch.eval.ctc_asr",
+            "matcha_tts_tpu_torch.models.vocos", "matcha_tts_tpu_torch.train.vocoder",
+            "matcha_tts_tpu_torch.train.weight_norm",
+            "matcha_tts_tpu_torch.train.vocoder_cli"} <= expected
     assert res["bad"] == []
 
 
@@ -65,8 +69,15 @@ def test_entry_points_default_to_cuda():
     from matcha_tts_tpu_torch.inference import server
     from matcha_tts_tpu_torch.inference.streaming import StreamingVocoder
 
+    from matcha_tts_tpu_torch.eval.ctc_asr import CTCASR, load_ctc_asr, train_ctc_asr
+    from matcha_tts_tpu_torch.models.hifigan import MPD, MSD
+    from matcha_tts_tpu_torch.models.vocos import MRD, Vocos
+    from matcha_tts_tpu_torch.train import vocoder_cli
+    from matcha_tts_tpu_torch.train.vocoder import create_gan_state
+
     for fn in (MatchaTTS, HiFiGANGenerator, init_vocoder, load_jax_tree, Synthesizer, fit,
-               compute_mel_statistics, infer_cli.load_models, StreamingVocoder):
+               compute_mel_statistics, infer_cli.load_models, StreamingVocoder, Vocos, MPD,
+               MSD, MRD, CTCASR, load_ctc_asr, train_ctc_asr, create_gan_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
-    for main in (cli.main, infer_cli.main, distill.main, server.main):
+    for main in (cli.main, infer_cli.main, distill.main, server.main, vocoder_cli.main):
         assert "cuda" in main.__code__.co_consts  # --device defaults to cuda

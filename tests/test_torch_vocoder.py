@@ -19,6 +19,7 @@ from matcha_tts_tpu_torch import config as tcfg
 from matcha_tts_tpu_torch.models import denoiser as tden
 from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
 from matcha_tts_tpu_torch.models.vocoder import generate, init_vocoder
+from matcha_tts_tpu_torch.models.vocos import Vocos
 from matcha_tts_tpu_torch.ops import mrf_cuda
 from matcha_tts_tpu_torch.params.from_jax import load_jax_tree
 from port_params import numpy_tree
@@ -89,9 +90,10 @@ def test_unported_vocoder_modes_raise():
     ported: on a 12-frame mel the tap levels fail the tap gate (T >= 4096)
     and run plain, as in the JAX package, so "tap" and the legacy
     `use_pallas` equal "xla"; "int8" with no level quantised equals the
-    exact kernels bit for bit, and quantising changes the wav.  Only the
-    Vocos family still raises.  (tests/test_torch_mrf_int8.py holds the
-    modes to the JAX package.)"""
+    exact kernels bit for bit, and quantising changes the wav.  The Vocos
+    family raised until it was ported; `init_vocoder` now gives the port's
+    `Vocos` for it.  (tests/test_torch_mrf_int8.py holds the modes to the
+    JAX package; tests/test_torch_vocos.py holds Vocos.)"""
     jc = jcfg.HiFiGANConfig()
     params, voc = _pair(jc, 2)
     mel = torch.from_numpy(np.random.default_rng(2).standard_normal((1, 12, 80)).astype(np.float32))
@@ -103,8 +105,7 @@ def test_unported_vocoder_modes_raise():
     assert np.abs(run(mrf_kernel="int8") - exact).max() > 1e-4
     for mode in ("tap", "int8"):
         HiFiGANGenerator(tcfg.HiFiGANConfig(mrf_kernel=mode), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_vocoder(tcfg.VocosConfig(), device="cpu")
+    assert isinstance(init_vocoder(tcfg.VocosConfig(), device="cpu"), Vocos)
 
 
 def test_packed_weights_follow_parameter_updates():
