@@ -8,6 +8,7 @@
     python3 chip_smoke.py --mas-only        # phases 1, 2 (mas only) and 7
     python3 chip_smoke.py --serving-only    # phases 1, 2 (mrf only) and 20
     python3 chip_smoke.py --eval-vocoder-only  # phases 1, 2 (mrf only), 21, 22 and 23
+    python3 chip_smoke.py --parallel-only   # phases 1, 2 (mrf and mas) and 24
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
@@ -153,10 +154,18 @@ Phases, each of which raises on failure (no phase catches and carries on):
    MPD + MSD and Vocos with MPD + MRD, batch 16 x 8192, 20 steps each with
    mel L1 falling, ms per step, peak memory, busy share; one weight-norm
    step; no MRF launch; `vocoder_cli --debug_tiny --steps 3` on the card.
-   Phases 21-23 add no kernel: the kernel table is unchanged.
+   Phases 21-23 add no kernel: the kernel table is unchanged;
+24. data parallelism over torch.distributed on the one card (see
+   `data_parallel`): (a) NCCL at world 1, one full-width `fit` step and
+   `synthesize_batch_sharded`; (b) gloo at world 2 with both ranks on
+   cuda:0: `train_step`, `distill_step` and a GAN step pair against world 1
+   (losses relative 1e-4, updates relative L2 1e-4), the sharded batch in
+   bf16 and fp32, `pod_vocode` and `TTSServer(mesh=)` against world 1; the
+   ranks run through `parallel.launch.spawn` with a deadline; the kernels
+   line gains `dp_launches`, each kernel's launches on these paths.
 
 Phases 10-12 and 16 run right after phase 3, 13-14 after phase 6, 17 with
-phase 9 and 18 after it, 19 and 20 after phase 5, 21-23 after 18; the numbers
+phase 9 and 18 after it, 19 and 20 after phase 5, 21-24 after 18; the numbers
 follow the order in which the phases were added, and the kernel table and the
 last two lines come last.
 """
@@ -2713,6 +2722,633 @@ def gan_training() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+DP_DEADLINE_S = 600      # a spawned group is killed, and the phase fails, past this
+DP_BATCH = 16            # global batch of (b)'s train, distill and GAN steps
+DP_POD_FRAMES = 1024
+DP_REQUESTS = 4
+DP_LOSS_REL = DP_GRAD_REL = 1e-4
+DP_POD_FP32_MAX_ABS = 1e-4
+DP_NOT_SCALING = "two ranks share one card: not a scaling figure"
+
+
+def all_counts() -> dict:
+    from matcha_tts_tpu_torch.ops import mrf_cuda
+
+    return {**mrf_cuda.LAUNCHES, **read_counts()}
+
+
+def zero_all_counts():
+    from matcha_tts_tpu_torch.ops import mrf_cuda
+
+    zero_counts()
+    for k in mrf_cuda.LAUNCHES:
+        mrf_cuda.LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def counted_collectives(log: dict):
+    """Counts torch.distributed's broadcast, all_reduce and barrier calls
+    by name into `log` inside the block."""
+    import torch.distributed as dist
+
+    saved = {n: getattr(dist, n) for n in ("broadcast", "all_reduce", "barrier")}
+
+    def wrap(name, fn):
+        def counted(*a, **kw):
+            log[name] = log.get(name, 0) + 1
+            return fn(*a, **kw)
+        return counted
+
+    for n, fn in saved.items():
+        setattr(dist, n, wrap(n, fn))
+    try:
+        yield log
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def dp_path(name: str, fn):
+    """Run `fn` with the launch counts zeroed before and read after, the
+    collectives counted and the wall time taken (synchronised):
+    (result, {"launches", "collectives", "ms"})."""
+    import torch
+
+    zero_all_counts()
+    log: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counted_collectives(log):
+        out = fn()
+    torch.cuda.synchronize()
+    info = {"launches": {k: v for k, v in all_counts().items() if v},
+            "collectives": log, "ms": (time.perf_counter() - t0) * 1e3}
+    return out, info
+
+
+def dp_setup(work: Path) -> dict:
+    """Phase 24's inputs, on disk for the ranks: the full-width acoustic model
+    (seed 0) and an audible HiFi-GAN V1, a corpus from a seed, the rows of
+    (b)'s batch and the distillation texts."""
+    import torch
+
+    from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig
+    from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+
+    cfg, hcfg = MatchaConfig(), HiFiGANConfig()
+    model = MatchaTTS(cfg, seed=0, device="cuda")
+    mel = torch.randn(1, 256, hcfg.num_mels, generator=torch.Generator(device="cuda")
+                      .manual_seed(3), device="cuda")
+    vocoder = audible_copy(HiFiGANGenerator(hcfg, seed=1, device="cuda"), hcfg, mel, 7)
+    paths = {"weights": str(work / "weights.pt")}
+    torch.save({"model": model.state_dict(), "vocoder": vocoder.state_dict()}, paths["weights"])
+    paths["train"], paths["val"] = synth_corpus(work / "corpus", seed=24)
+    paths["work"] = str(work)
+    return paths
+
+
+def dp_models(paths, device="cuda"):
+    import torch
+
+    from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig
+    from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+
+    sd = torch.load(paths["weights"], map_location=device, weights_only=True)
+    model = MatchaTTS(MatchaConfig(), device=device)
+    model.load_state_dict(sd["model"])
+    vocoder = HiFiGANGenerator(HiFiGANConfig(), device=device)
+    vocoder.load_state_dict(sd["vocoder"])
+    return model, vocoder
+
+
+def dp_synth(paths, dtype: str):
+    from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+
+    model, vocoder = dp_models(paths)
+    return Synthesizer(model, MatchaConfig(), vocoder, HiFiGANConfig(), compute_dtype=dtype,
+                       denoise_strength=0.00025, device="cuda")
+
+
+def dp_rows(results) -> list:
+    return [{"y_length": r.y_length, "pcm16": r.pcm16.copy()} for r in results]
+
+
+def dp_train_batch(paths, shard=None):
+    """(b)'s batch: the first DP_BATCH rows of the corpus (their lengths
+    differ), this rank's rows under `shard`, featurised on the card."""
+    from matcha_tts_tpu_torch.config import MatchaConfig, TrainConfig
+    from matcha_tts_tpu_torch.data.dataset import BucketBatcher, TextMelDataset
+    from matcha_tts_tpu_torch.train.loop import featurize_batch
+
+    cfg = MatchaConfig()
+    ds = TextMelDataset(paths["train"], cfg.audio, seed=None)
+    raw = next(iter(BucketBatcher(ds, TrainConfig(batch_size=DP_BATCH), shuffle=False,
+                                  shard=shard)))
+    return featurize_batch(raw, cfg, "cuda")
+
+
+def dp_flat(module):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1).float() for p in module.parameters()]).cpu()
+
+
+def dp_train_step(paths, mesh):
+    """One fp32 `train_step` of the full-width model with SGD at lr 1: the
+    losses, the pre-clip norm and the update (the clipped reduced
+    gradient)."""
+    import torch
+
+    from matcha_tts_tpu_torch.config import MatchaConfig, TrainConfig
+    from matcha_tts_tpu_torch.parallel.mesh import batch_sharding
+    from matcha_tts_tpu_torch.train.train_state import TrainState, train_step
+
+    batch = dp_train_batch(paths, None if mesh is None else batch_sharding(mesh))
+    model, _ = dp_models(paths)
+    before = dp_flat(model)
+    state = TrainState(0, model, torch.optim.SGD(model.parameters(), lr=1.0))
+    tcfg = TrainConfig(batch_size=DP_BATCH, mixed_precision=False, learning_rate=1.0)
+    m = train_step(state, batch, MatchaConfig(), tcfg, mesh)
+    out = {"metrics": {k: float(v) for k, v in m.items()}, "update": before - dp_flat(model)}
+    out["ms"] = dp_step_ms(lambda: train_step(state, batch, MatchaConfig(), tcfg, mesh))
+    return out
+
+
+def dp_distill_step(paths, mesh):
+    """One `distill_step` (reflow, fp32) of the full-width teacher with SGD
+    at lr 1 over DP_BATCH texts."""
+    import numpy as np
+    import torch
+
+    from matcha_tts_tpu_torch.config import MatchaConfig
+    from matcha_tts_tpu_torch.parallel.mesh import batch_sharding
+    from matcha_tts_tpu_torch.train import distill
+
+    teacher, _ = dp_models(paths)
+    dcfg = distill.DistillConfig(learning_rate=1.0)
+    state = distill.create_distill_state(teacher, dcfg)
+    state.optimizer = torch.optim.SGD(state.student.parameters(), lr=1.0)
+    encoded = distill.encode_texts(SENTENCES, 128)
+    x, xl = distill.text_batch(encoded, np.arange(DP_BATCH) % len(encoded), 128)
+    if mesh is not None:
+        rows = batch_sharding(mesh).rows(DP_BATCH)
+        x, xl = x[rows], xl[rows]
+    before = dp_flat(state.student)
+    x, xl = torch.from_numpy(x).long().cuda(), torch.from_numpy(xl).long().cuda()
+    m = distill.distill_step(state, teacher, x, xl, MatchaConfig(), dcfg, 512, seed=5,
+                             mesh=mesh)
+    out = {"loss": float(m["distill_loss"]), "grad_norm": float(m["grad_norm"]),
+           "update": before - dp_flat(state.student)}
+    out["ms"] = dp_step_ms(lambda: distill.distill_step(state, teacher, x, xl, MatchaConfig(),
+                                                        dcfg, 512, seed=5, mesh=mesh))
+    return out
+
+
+def dp_gan_pair(mesh):
+    """One disc + gen step pair of HiFi-GAN V1 against MPD + MSD at
+    DP_BATCH x GAN_SEGMENT (phase 23's shape) with SGD at lr 1."""
+    import torch
+
+    from matcha_tts_tpu_torch.config import AudioConfig, HiFiGANConfig
+    from matcha_tts_tpu_torch.parallel.mesh import batch_sharding
+    from matcha_tts_tpu_torch.train.vocoder import create_gan_state, gan_disc_step, gan_gen_step
+
+    state = create_gan_state(HiFiGANConfig(), discriminators=("mpd", "msd"), learning_rate=1.0,
+                             seed=0, device="cuda")
+    for opt in (state.gen_opt, state.disc_opt):
+        opt.adam = torch.optim.SGD(opt.params, lr=1.0)
+    audio = gan_audio(11, DP_BATCH, GAN_SEGMENT)
+    if mesh is not None:
+        audio = audio[batch_sharding(mesh).rows(DP_BATCH)]
+    g0, d0 = dp_flat(state.generator), dp_flat(state.discriminators)
+    state, d_loss = gan_disc_step(state, audio, AudioConfig(), mesh)
+    d1 = dp_flat(state.discriminators)
+    state, m = gan_gen_step(state, audio, AudioConfig(), mesh)
+    out = {"losses": {"disc_loss": float(d_loss), **{k: float(v) for k, v in m.items()}},
+           "disc_update": d0 - d1, "gen_update": g0 - dp_flat(state.generator)}
+    out["ms"] = dp_step_ms(lambda: gan_gen_step(gan_disc_step(state, audio, AudioConfig(),
+                                                              mesh)[0], audio, AudioConfig(),
+                                                mesh))
+    return out
+
+
+def dp_step_ms(step) -> float:
+    """Wall ms of one more step, synchronised (the first step warmed the
+    shapes up)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def dp_pod(vocoder, mesh, mel, dtype: str):
+    from matcha_tts_tpu_torch.config import HiFiGANConfig
+    from matcha_tts_tpu_torch.inference.pod_vocoder import pod_vocode
+
+    return pod_vocode(vocoder, mel, mesh, HiFiGANConfig(), compute_dtype=dtype).cpu()
+
+
+def dp_pod_mel():
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    return torch.randn(DP_POD_FRAMES, 80, generator=g, device="cuda")
+
+
+def dp_server(syn, mesh, rank: int):
+    """`TTSServer(mesh=)` on rank 0 under DP_REQUESTS concurrent requests
+    (the other ranks follow): the WAVs' PCM16."""
+    import io
+    import threading
+    import urllib.request
+    import wave
+
+    import numpy as np
+
+    from matcha_tts_tpu_torch.inference.server import TTSServer, follow
+
+    if rank != 0:
+        follow(syn, mesh)
+        return None
+    # a window long enough to take the four requests as one batch, the
+    # composition of world 1's reference batch
+    srv = TTSServer(syn, host="127.0.0.1", port=0, max_batch=8, batch_window_ms=1000.0,
+                    mesh=mesh).start()
+    pcms = [None] * DP_REQUESTS
+
+    def post(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/synthesize",
+            data=json.dumps({"text": SENTENCES[i], "n_timesteps": 10,
+                             "length_scale": 3.0}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r, wave.open(io.BytesIO(r.read())) as w:
+            pcms[i] = np.frombuffer(w.readframes(w.getnframes()), np.int16).copy()
+
+    try:
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(DP_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        stats = dict(srv.batcher.stats)
+    finally:
+        srv.stop()
+    return {"pcm16": pcms, "stats": stats}
+
+
+def dp_rank_setup():
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def dp_rank_nccl(rank: int, paths: dict) -> dict:
+    """Phase 24 (a), NCCL at world 1 on cuda:0: one full-width `fit` step in
+    the default configuration and `synthesize_batch_sharded` of SENTENCES."""
+    import torch
+    import torch.distributed as dist
+
+    from matcha_tts_tpu_torch.config import MatchaConfig, TrainConfig
+    from matcha_tts_tpu_torch.parallel.mesh import make_mesh
+    from matcha_tts_tpu_torch.train.loop import fit
+
+    dp_rank_setup()
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    nccl = torch.cuda.nccl.version()
+    out = {"backend": dist.get_backend(), "mesh_ms": (time.perf_counter() - t0) * 1e3,
+           "nccl": ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)}
+    tcfg = TrainConfig(log_every_n_steps=1, ckpt_every_n_steps=10 ** 6)
+    state, out["fit"] = dp_path("fit", lambda: fit(
+        MatchaConfig(), tcfg, paths["train"], paths["val"], work_dir=paths["work"] + "/fit_a",
+        max_steps=1, resume=False, device="cuda", mesh=mesh))
+    out["fit"]["step"] = state.step
+    from types import SimpleNamespace
+
+    syn = dp_synth(paths, "bfloat16")
+
+    def call():
+        return syn.synthesize_batch_sharded(SENTENCES, mesh, n_timesteps=10, length_scale=3.0)
+
+    call()  # the shapes' first call
+    res, out["sharded"] = dp_path("sharded", call)
+    out["sharded"]["rows"] = dp_rows(res)
+    world1 = [SimpleNamespace(**w) for w in paths["world1_rows"]["bfloat16"]]
+    out["sharded"]["alone"] = check_rows_alone(syn, "bfloat16", list(zip(res, world1)),
+                                               "phase 24 (a) sharded")
+    return out
+
+
+def dp_rank_gloo(rank: int, paths: dict) -> dict:
+    """Phase 24 (b), gloo at world 2, both ranks on cuda:0: every data-parallel
+    path of the port beside world 1's in the parent."""
+    from matcha_tts_tpu_torch.parallel.mesh import make_mesh
+
+    dp_rank_setup()
+    mesh = make_mesh()
+    out = {}
+    keep = rank == 0  # the updates are the same on every rank: rank 0 returns them
+    for name, fn in (("train", lambda: dp_train_step(paths, mesh)),
+                     ("distill", lambda: dp_distill_step(paths, mesh)),
+                     ("gan", lambda: dp_gan_pair(mesh))):
+        res, out[name] = dp_path(name, fn)
+        out[name]["result"] = res if keep else {
+            k: v for k, v in res.items() if not k.endswith("update")}
+    from types import SimpleNamespace
+
+    syns = {}
+    for dtype in ("bfloat16", "float32"):
+        syn = syns[dtype] = dp_synth(paths, dtype)
+
+        def call():
+            return syn.synthesize_batch_sharded(SENTENCES, mesh, n_timesteps=10,
+                                                length_scale=3.0)
+
+        call()  # the shapes' first call
+        res, out[f"sharded_{dtype}"] = dp_path("sharded", call)
+        out[f"sharded_{dtype}"]["rows"] = dp_rows(res)
+        # check_rows_alone: each row against world 1's row (fp32) and its own
+        # gathered mel vocoded alone at batch 1
+        world1 = [SimpleNamespace(**w) for w in paths["world1_rows"][dtype]]
+        out[f"sharded_{dtype}"]["alone"] = check_rows_alone(
+            syn, dtype, list(zip(res, world1)), f"phase 24 (b) rank {rank} sharded")
+        dp_pod(syn.vocoder, mesh, dp_pod_mel(), dtype)
+        res, out[f"pod_{dtype}"] = dp_path("pod", lambda: dp_pod(syn.vocoder, mesh,
+                                                                 dp_pod_mel(), dtype))
+        out[f"pod_{dtype}"]["wav"] = res
+    res, out["server"] = dp_path("server", lambda: dp_server(syns["float32"], mesh, rank))
+    out["server"]["result"] = res
+    return out
+
+
+def dp_world1(paths) -> dict:
+    """World 1 in this process, on the same inputs: the steps, the batches
+    (`synthesize_batch`), the unsharded generator, and their times."""
+    import torch
+
+    out = {}
+    for name, fn in (("train", lambda: dp_train_step(paths, None)),
+                     ("distill", lambda: dp_distill_step(paths, None)),
+                     ("gan", lambda: dp_gan_pair(None))):
+        out[name], _ = dp_path(name, fn)
+    for dtype in ("bfloat16", "float32"):
+        syn = dp_synth(paths, dtype)
+        syn.synthesize_batch(SENTENCES, n_timesteps=10, length_scale=3.0)
+        rows, info = dp_path("batch", lambda: dp_rows(
+            syn.synthesize_batch(SENTENCES, n_timesteps=10, length_scale=3.0)))
+        out[f"batch_{dtype}"] = {"rows": rows, "ms": info["ms"]}
+        mel = dp_pod_mel()
+
+        def full():
+            with torch.no_grad():
+                wav = syn.vocoder(mel[None].to(torch.bfloat16 if dtype == "bfloat16"
+                                               else torch.float32), syn.hifi_cfg)[0]
+            return torch.clamp(wav.float(), -1.0, 1.0).cpu()
+
+        full()
+        wav, info = dp_path("generator", full)
+        out[f"generator_{dtype}"] = {"wav": wav, "ms": info["ms"]}
+        if dtype == "float32":  # the server's batch
+            out["server_batch"] = dp_rows(syn.synthesize_batch(
+                SENTENCES[:DP_REQUESTS], n_timesteps=10, length_scale=3.0))
+        del syn
+    return out
+
+
+def dp_draw_cost(paths, worlds=(2, 4, 8)) -> dict:
+    """What drawing at the global batch's shape costs: the numbers one
+    training loss pass draws at (b)'s batch (dropout masks, the CFM's t and
+    z; counted through a `BatchRows` over the whole batch), and the device
+    ms of drawing that many uniforms at once.  At world W a rank draws them
+    all and keeps 1 / W of them."""
+    import torch
+
+    from matcha_tts_tpu_torch.config import MatchaConfig
+    from matcha_tts_tpu_torch.parallel.mesh import BatchRows
+    from matcha_tts_tpu_torch.train.train_state import _batch_losses
+
+    class Counted(BatchRows):
+        drawn = 0
+
+        def _global(self, shape):
+            g = super()._global(shape)
+            Counted.drawn += math.prod(g)
+            return g
+
+    batch = dp_train_batch(paths)
+    model, _ = dp_models(paths)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n = batch["x"].shape[0]
+    with torch.no_grad():
+        _batch_losses(model, batch, MatchaConfig(), Counted(g, 0, n, n), True, True,
+                      torch.bfloat16)
+    ms = cuda_ms(lambda: torch.rand(Counted.drawn, generator=g, device="cuda"), 20)
+    return {"batch": n, "numbers": Counted.drawn, "ms": ms,
+            "surplus_ms": {w: ms * (1 - 1 / w) for w in worlds}}
+
+
+def dp_check_rows(got, want, dtype: str, label: str) -> float:
+    """Every row's y_length equal to world 1's; in fp32 the wavs within
+    check_rows_alone's relative L2 1e-4 of world 1's.  A bf16 row's wav is
+    held, as check_rows_alone holds it, to its own mel vocoded alone (in the
+    ranks): bf16 rows of other batch compositions differ by more than 1e-2
+    (the CFM's ten steps carry the rounding).  Returns the worst relative
+    L2 against world 1."""
+    import torch
+
+    if [g["y_length"] for g in got] != [w["y_length"] for w in want]:
+        raise AssertionError(f"phase 24 {label} {dtype}: y_lengths "
+                             f"{[g['y_length'] for g in got]} against world 1's "
+                             f"{[w['y_length'] for w in want]}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel = rel_l2(torch.from_numpy(g["pcm16"]).float(), torch.from_numpy(w["pcm16"]).float())
+        worst = max(worst, rel)
+        if dtype == "float32" and not rel <= SERVE_WAV_REL_L2:
+            raise AssertionError(f"phase 24 {label} {dtype}: row {i} wav rel L2 {rel} > "
+                                 f"{SERVE_WAV_REL_L2}")
+    return worst
+
+
+def dp_check_close(label: str, got: dict, want: dict, keys, rel: float) -> None:
+    for k in keys:
+        err = abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+        if not err <= rel:
+            raise AssertionError(f"phase 24 {label}: {k} {got[k]} against world 1's "
+                                 f"{want[k]}: relative {err} > {rel}")
+
+
+def data_parallel() -> dict:
+    """Phase 24: data parallelism over torch.distributed on the one card.
+
+    (a) NCCL at world 1 on cuda:0, a child process through `parallel.launch.
+    spawn`: the group's start, one full-width `fit` step (`MatchaConfig()`,
+    `TrainConfig()`: batch 64, bf16) and `synthesize_batch_sharded` of the ten
+    SENTENCES (bf16), with every collective on the paths counted and the
+    NCCL version.  (b) gloo at world 2, both ranks on cuda:0 (NCCL refuses
+    two ranks on one card): each path against world 1 in this process on the
+    same inputs, fp32 with TF32 off for the steps: one `train_step` of the
+    full-width model at a global batch of 16 with uneven lengths, one
+    `distill_step`, one GAN step pair of HiFi-GAN V1 + MPD + MSD at 16 x
+    8192, each with SGD at lr 1 so that its update is the clipped reduced
+    gradient (losses relative 1e-4, pre-clip norms 1e-4, updates relative L2
+    1e-4); `synthesize_batch_sharded` of SENTENCES in bf16 and fp32 against
+    `synthesize_batch` (every y_length equal; wav relative L2 <= 1e-4 in
+    fp32, <= 1e-2 in bf16); `pod_vocode` of a 1024-frame mel on the audible
+    HiFi-GAN V1 against the unsharded generator (fp32 max |diff| <= 1e-4,
+    bf16 relative L2 <= 1e-2); `TTSServer(mesh=)` under four concurrent
+    requests, each against its row of `synthesize_batch` (bf16).  Every
+    group has a deadline.  The launch counts of each path are zeroed before
+    and read after on every rank; the MRF and MAS kernels must run on the
+    paths that hold them.  Times are printed for world 1 and world 2; two
+    ranks share one card, so world 2's are no scaling figure."""
+    import os
+
+    import torch
+
+    from matcha_tts_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    out = {"dp_launches": {}}
+
+    def add_launches(*infos):
+        for info in infos:
+            for k, v in info["launches"].items():
+                out["dp_launches"][k] = out["dp_launches"].get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = dp_setup(Path(tmp))
+        world1 = dp_world1(paths)
+        cost = dp_draw_cost(paths)
+        paths["world1_rows"] = {d: world1[f"batch_{d}"]["rows"]
+                                for d in ("bfloat16", "float32")}
+        torch.cuda.empty_cache()
+        # one rank on one host: NCCL's bootstrap runs over the loopback
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        t0 = time.perf_counter()
+        (a,) = spawn(dp_rank_nccl, 1, "nccl", "cuda:0", DP_DEADLINE_S, (paths,))
+        a_wall = time.perf_counter() - t0
+        print(f"[dp] (a) {a['backend']} world 1 on cuda:0, NCCL {a['nccl']}: mesh in "
+              f"{a['mesh_ms']:.0f} ms; group of one process in {a_wall:.1f} s", flush=True)
+        for name in ("fit", "sharded"):
+            print(f"[dp] (a) {name}: {a[name]['ms']:.0f} ms, launches {a[name]['launches']}, "
+                  f"collectives {a[name]['collectives']}", flush=True)
+        if a["fit"]["step"] != 1 or not a["fit"]["launches"].get("mas"):
+            raise AssertionError(f"phase 24 (a): fit {a['fit']}")
+        n_calls = a["sharded"]["launches"].get("mrf", 0)
+        if not n_calls or a["sharded"]["launches"].get("mrf_up") != 2 * n_calls:
+            raise AssertionError(f"phase 24 (a): sharded launches {a['sharded']['launches']}")
+        worst = dp_check_rows(a["sharded"]["rows"], world1["batch_bfloat16"]["rows"],
+                              "bfloat16", "(a) sharded")
+        print(f"[dp] (a) synthesize_batch_sharded against synthesize_batch: y_lengths equal, "
+              f"worst wav rel L2 {worst:.2e}; against each row's mel vocoded alone "
+              f"{a['sharded']['alone'][2]:.2e}", flush=True)
+        add_launches(a["fit"], a["sharded"])
+
+        t0 = time.perf_counter()
+        ranks = spawn(dp_rank_gloo, 2, "gloo", "cuda:0", DP_DEADLINE_S, (paths,))
+        b_wall = time.perf_counter() - t0
+    print(f"[dp] (b) gloo world 2 on cuda:0: {b_wall:.1f} s for the group", flush=True)
+    b0 = ranks[0]
+    for r in ranks:
+        dp_check_close("(b) train", r["train"]["result"]["metrics"], world1["train"]["metrics"],
+                       ("loss", "dur_loss", "prior_loss", "cfm_loss", "grad_norm"), DP_LOSS_REL)
+        dp_check_close("(b) distill", r["distill"]["result"], world1["distill"],
+                       ("loss", "grad_norm"), DP_LOSS_REL)
+        dp_check_close("(b) gan", r["gan"]["result"]["losses"], world1["gan"]["losses"],
+                       tuple(world1["gan"]["losses"]), DP_LOSS_REL)
+    errs = {}
+    for name, key in (("train", "update"), ("distill", "update"), ("gan", "disc_update"),
+                      ("gan", "gen_update")):
+        errs[f"{name} {key}"] = e = rel_l2(b0[name]["result"][key], world1[name][key])
+        if not e <= DP_GRAD_REL:
+            raise AssertionError(f"phase 24 (b) {name}: {key} rel L2 {e} > {DP_GRAD_REL}")
+    print(f"[dp] (b) steps against world 1: losses within rel {DP_LOSS_REL}; updates' "
+          f"rel L2 {errs}", flush=True)
+    for name in ("train", "distill", "gan"):
+        print(f"[dp] {name}: ms of a second step, world 1 {world1[name]['ms']:.1f}, world 2 "
+              f"{max(r[name]['result']['ms'] for r in ranks):.1f} ({DP_NOT_SCALING}); "
+              f"launches a rank over both steps "
+              f"{b0[name]['launches']}, collectives a rank {b0[name]['collectives']}; "
+              f"{card_line()}", flush=True)
+    if not all(r["train"]["launches"].get("mas") for r in ranks):
+        raise AssertionError(f"phase 24 (b): no MAS launch in train_step: "
+                             f"{[r['train']['launches'] for r in ranks]}")
+    for dtype in ("bfloat16", "float32"):
+        for r in ranks:
+            worst = dp_check_rows(r[f"sharded_{dtype}"]["rows"],
+                                  world1[f"batch_{dtype}"]["rows"], dtype, "(b) sharded")
+            calls = r[f"sharded_{dtype}"]["launches"].get("mrf", 0)
+            if not calls or r[f"sharded_{dtype}"]["launches"].get("mrf_up") != 2 * calls:
+                raise AssertionError(f"phase 24 (b) sharded {dtype}: launches "
+                                     f"{r[f'sharded_{dtype}']['launches']}")
+        want = world1[f"generator_{dtype}"]["wav"]
+        for r in ranks:
+            got = r[f"pod_{dtype}"]["wav"]
+            if got.shape != want.shape:
+                raise AssertionError(f"phase 24 pod {dtype}: {tuple(got.shape)} samples, "
+                                     f"{tuple(want.shape)} unsharded")
+            if dtype == "float32":
+                err = float((got - want).abs().max())
+                ok = err <= DP_POD_FP32_MAX_ABS
+            else:
+                err = rel_l2(got, want)
+                ok = err <= BF16_REL_L2
+            if not ok:
+                raise AssertionError(f"phase 24 pod {dtype}: error {err} against the unsharded "
+                                     f"generator")
+            if not r[f"pod_{dtype}"]["launches"].get("mrf"):
+                raise AssertionError(f"phase 24 pod {dtype}: no MRF launch "
+                                     f"{r[f'pod_{dtype}']['launches']}")
+        alone = max(r[f"sharded_{dtype}"]["alone"][2] for r in ranks)
+        print(f"[dp] {dtype}: synthesize_batch_sharded y_lengths equal, worst wav rel L2 "
+              f"{worst:.2e} against world 1, {alone:.2e} against each row's mel vocoded "
+              f"alone; world 1 {world1[f'batch_{dtype}']['ms']:.0f} ms, world 2 "
+              f"{max(r[f'sharded_{dtype}']['ms'] for r in ranks):.0f} ms; pod_vocode "
+              f"{'max |diff|' if dtype == 'float32' else 'rel L2'} {err:.2e}, world 1 "
+              f"generator {world1[f'generator_{dtype}']['ms']:.0f} ms, world 2 "
+              f"{max(r[f'pod_{dtype}']['ms'] for r in ranks):.0f} ms ({DP_NOT_SCALING}); "
+              f"launches a rank {b0[f'sharded_{dtype}']['launches']} / "
+              f"{b0[f'pod_{dtype}']['launches']}; {card_line()}", flush=True)
+    srv = b0["server"]["result"]
+    if srv["stats"]["batches"] != 1:
+        raise AssertionError(f"phase 24 server: the {DP_REQUESTS} requests came in "
+                             f"{srv['stats']['batches']} batches, not one")
+    want = world1["server_batch"]
+    got = [{"y_length": len(p) // 256, "pcm16": p} for p in srv["pcm16"]]
+    worst = dp_check_rows(got, want, "float32", "(b) server")
+    if not b0["server"]["launches"].get("mrf") or not ranks[1]["server"]["launches"].get("mrf"):
+        raise AssertionError(f"phase 24 server: launches {[r['server']['launches'] for r in ranks]}")
+    print(f"[dp] TTSServer(mesh=) {DP_REQUESTS} concurrent requests: stats {srv['stats']}, "
+          f"worst wav rel L2 {worst:.2e}; {b0['server']['ms']:.0f} ms ({DP_NOT_SCALING}); "
+          f"launches {[r['server']['launches'] for r in ranks]}; {card_line()}", flush=True)
+    for r in ranks:
+        add_launches(*(r[k] for k in ("train", "distill", "gan", "sharded_bfloat16",
+                                      "sharded_float32", "pod_bfloat16", "pod_float32",
+                                      "server")))
+    out["draw_cost"] = cost
+    print(f"[dp] draws at the global batch's shape: a loss pass at batch {cost['batch']} "
+          f"draws {cost['numbers']} numbers, {cost['ms']:.4f} device ms as one uniform draw; "
+          f"a rank's surplus at world 2, 4, 8: "
+          f"{', '.join(f'{v:.4f}' for v in cost['surplus_ms'].values())} ms; "
+          f"{card_line()}", flush=True)
+    print(f"[dp] phase 24 in {time.perf_counter() - t_phase:.1f} s; launches on the "
+          f"data-parallel paths {out['dp_launches']}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2732,10 +3368,12 @@ def main() -> int:
     mas_only = "--mas-only" in sys.argv[1:]
     serving_only = "--serving-only" in sys.argv[1:]
     eval_vocoder_only = "--eval-vocoder-only" in sys.argv[1:]
+    parallel_only = "--parallel-only" in sys.argv[1:]
     t0 = time.perf_counter()
     paths = cuda_build.build_all(["attention"] if attention_only
                                  else ["mrf"] if mrf_only or serving_only or eval_vocoder_only
                                  else ["unet_blocks"] if blocks_only else ["mas"] if mas_only
+                                 else ["mrf", "mas"] if parallel_only
                                  else cuda_build.SOURCES)
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s: "
           f"{[p.name for p in paths.values()]}", flush=True)
@@ -2777,6 +3415,10 @@ def main() -> int:
         gan_training()
         print(card)
         return 0
+    if parallel_only:  # phase 24 alone: data parallelism
+        data_parallel()
+        print(card)
+        return 0
     table = check_kernels(T_Y, REPS)
     int8_table = check_int8_kernels(T_Y, REPS)
     attn_rows = check_attention(REPS)
@@ -2798,6 +3440,7 @@ def main() -> int:
     judge_on_card()
     vocos_serving()
     gan_training()
+    dp = data_parallel()
 
     up = [table["level2"], table["level3"]]
     kernels = [
@@ -2972,6 +3615,9 @@ def main() -> int:
     }
     for k in kernels:
         k["shapes"] = shapes[k["name"]]
+        # phase 24's launches, summed over its paths and ranks
+        k["dp_launches"] = dp["dp_launches"].get(
+            "flash_mha_bwd" if k["name"].startswith("flash_mha_bwd") else k["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,10 @@
 * Text is phonemised and tokenised once, when the dataset is built.
 * Batches are padded to static (text, frame) buckets, the same buckets as
   the JAX package, so every batch of a bucket has one shape.
+* Under data parallelism (`BucketBatcher(shard=)`) every rank walks the same
+  batch order and reads only its own rows' WAVs; the frame bucket comes
+  from every row's length, read from the WAV headers, so each rank pads to
+  the global batch's buckets.
 
 WAVs are read with `scipy.io.wavfile` (int16 PCM / 32768).  The JAX
 package's native multithreaded WAV reader is not ported (ROADMAP Queue 1,
@@ -52,9 +56,31 @@ def load_wav(path) -> Tuple[np.ndarray, int]:
     return data, sr
 
 
-def create_filelists(data_root, val_fraction: float = 0.05):
+def wav_num_samples(path) -> Tuple[int, int]:
+    """(samples, sample rate) of a WAV file from its header; the samples are
+    memory-mapped, not read."""
+    from scipy.io import wavfile
+
+    sr, data = wavfile.read(path, mmap=True)
+    return int(data.shape[0]), sr
+
+
+def filelist_paths(data_root) -> Tuple[str, str]:
+    """Where `create_filelists` writes `train.txt` and `val.txt`."""
+    return str(Path(data_root) / "train.txt"), str(Path(data_root) / "val.txt")
+
+
+def create_filelists(data_root, val_fraction: float = 0.05, mesh=None):
     """LJSpeech-style `metadata.csv` -> `train.txt` / `val.txt` with full wav
-    paths, at least one item in each."""
+    paths, at least one item in each.  Under a data-parallel `mesh`, rank 0
+    writes them and the others wait for it."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            create_filelists(data_root, val_fraction)
+        dist.barrier()
+        return filelist_paths(data_root)
     data_root = Path(data_root)
     metadata = data_root / "metadata.csv"
     if not metadata.exists():
@@ -67,7 +93,7 @@ def create_filelists(data_root, val_fraction: float = 0.05):
             lines.append("|".join([wav] + parts[1:]) + "\n")
     num_val = max(1, int(len(lines) * val_fraction))
     n_train = max(1, len(lines) - num_val)
-    train_path, val_path = data_root / "train.txt", data_root / "val.txt"
+    train_path, val_path = map(Path, filelist_paths(data_root))
     train_path.write_text("".join(lines[:n_train]), encoding="utf-8")
     val_path.write_text("".join(lines[n_train:]) or lines[-1], encoding="utf-8")
     return str(train_path), str(val_path)
@@ -105,12 +131,21 @@ class TextMelDataset:
     def __len__(self):
         return len(self.items)
 
-    def load_audio(self, idx: int) -> np.ndarray:
-        wav, sr = load_wav(self.items[idx].audio_path)
+    def _check_rate(self, idx: int, sr: int) -> None:
         if sr != self.audio.sample_rate:
             raise ValueError(f"{self.items[idx].audio_path}: expected "
                              f"{self.audio.sample_rate} Hz, got {sr} Hz")
+
+    def load_audio(self, idx: int) -> np.ndarray:
+        wav, sr = load_wav(self.items[idx].audio_path)
+        self._check_rate(idx, sr)
         return wav
+
+    def audio_len(self, idx: int) -> int:
+        """The item's samples, from its WAV header."""
+        n, sr = wav_num_samples(self.items[idx].audio_path)
+        self._check_rate(idx, sr)
+        return n
 
     def n_frames(self, wav_len: int) -> int:
         return n_frames(self.audio, wav_len)
@@ -173,15 +208,21 @@ class PrefetchIterator:
 class BucketBatcher:
     """Fixed-shape numpy batches: token ids padded to a text bucket, raw
     audio padded to exactly `frame_bucket` frames of samples, and the true
-    lengths.  Frame buckets are multiples of 4 (2**num_downsamples)."""
+    lengths.  Frame buckets are multiples of 4 (2**num_downsamples).
+
+    With `shard` (a `parallel.mesh.BatchSharding`) a batch holds this
+    rank's rows of the global batch, at the global batch's buckets; a last
+    batch that does not split evenly over the ranks is left out."""
 
     def __init__(self, dataset: TextMelDataset, cfg: TrainConfig,
-                 shuffle: bool = True, seed: int = 0, drop_last: bool = False):
+                 shuffle: bool = True, seed: int = 0, drop_last: bool = False,
+                 shard=None):
         self.ds = dataset
         self.cfg = cfg
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.shard = shard
         for b in cfg.frame_buckets:
             if b != fix_len_compatibility(b):
                 raise ValueError(f"frame bucket {b} is not a multiple of 4")
@@ -196,19 +237,25 @@ class BucketBatcher:
             idxs = order[start: start + bs]
             if len(idxs) < bs and self.drop_last:
                 break
+            if self.shard is not None and len(idxs) % self.shard.world:
+                break
             yield self.collate([int(i) for i in idxs])
 
     def collate(self, idxs: List[int]) -> Dict[str, np.ndarray]:
         ds, cfg = self.ds, self.cfg
-        toks = [ds.items[i].tokens for i in idxs]
-        spks = [ds.items[i].spk for i in idxs]
-        t_x = pick_bucket(max(len(t) for t in toks), cfg.text_buckets)
-        wavs = [ds.load_audio(i) for i in idxs]
-        frames = [ds.n_frames(len(w)) for w in wavs]
-        t_y = pick_bucket(max(frames), cfg.frame_buckets)
+        t_x = pick_bucket(max(len(ds.items[i].tokens) for i in idxs), cfg.text_buckets)
+        rows = slice(None) if self.shard is None else self.shard.rows(len(idxs))
+        mine = idxs[rows]
+        wavs = [ds.load_audio(i) for i in mine]
+        others = [] if self.shard is None else idxs[:rows.start] + idxs[rows.stop:]
+        lens = [len(w) for w in wavs] + [ds.audio_len(i) for i in others]
+        t_y = pick_bucket(max(ds.n_frames(n) for n in lens), cfg.frame_buckets)
         wav_len = wav_len_for(ds.audio, t_y)
 
-        b = len(idxs)
+        toks = [ds.items[i].tokens for i in mine]
+        spks = [ds.items[i].spk for i in mine]
+        frames = [ds.n_frames(len(w)) for w in wavs]
+        b = len(mine)
         x = np.zeros((b, t_x), np.int32)
         audio = np.zeros((b, wav_len), np.float32)
         x_lengths = np.zeros((b,), np.int32)

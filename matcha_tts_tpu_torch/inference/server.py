@@ -11,6 +11,13 @@
   start with it on.
 * **Streaming.** `stream=true` answers with chunked transfer encoding fed by
   `Synthesizer.stream_samples` (the sample-level streaming vocoder).
+* **Data parallelism.** Under torchrun (`--data-parallel`), rank 0 runs the
+  HTTP server and the batcher; for each group it broadcasts the texts and
+  the group's parameters, and every rank runs its share of
+  `Synthesizer.synthesize_batch_sharded`.  The other ranks wait in
+  `follow`.  While idle, rank 0 broadcasts a heartbeat now and then, so
+  that the waiting collective never reaches its timeout, and at shutdown
+  a stop.  Streams run on rank 0 alone.
 * The standard library's `http.server` only.
 
 Endpoints:
@@ -35,13 +42,8 @@ from typing import Optional
 import torch
 
 from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+from matcha_tts_tpu_torch.parallel.mesh import broadcast_json
 from matcha_tts_tpu_torch.utils.wav import pcm16_bytes, wav_bytes
-
-
-def _no_mesh() -> None:
-    raise NotImplementedError(
-        "serving over a device mesh (--data-parallel / --mesh) is not ported yet "
-        "(ROADMAP.md Queue 1, \"Parallelism\")")
 
 
 @dataclass
@@ -63,13 +65,17 @@ class _Request:
 class DynamicBatcher:
     """Collects requests for up to `batch_window_ms`, groups them by
     parameter key and synthesises each group as one batch on its own
-    thread."""
+    thread.  With a `mesh` (on rank 0), each group goes to every rank and
+    through `Synthesizer.synthesize_batch_sharded`."""
+
+    # the idle rank 0 broadcasts a heartbeat this often, far inside the
+    # process group's timeout
+    HEARTBEAT_S = 30.0
 
     def __init__(self, synth: Synthesizer, max_batch: int = 16,
                  batch_window_ms: float = 10.0, mesh=None):
-        if mesh is not None:
-            _no_mesh()
         self.synth = synth
+        self.mesh = mesh
         self.max_batch = int(max_batch)
         self.window_s = float(batch_window_ms) / 1000.0
         self.q: "queue.Queue[Optional[_Request]]" = queue.Queue()
@@ -105,9 +111,20 @@ class DynamicBatcher:
 
     # -- the batcher thread ----------------------------------------------------
 
+    def _first(self):
+        """Block for the first request (or the shutdown's None); under a mesh,
+        send a heartbeat for each idle `HEARTBEAT_S`."""
+        if self.mesh is None:
+            return self.q.get()
+        while True:
+            try:
+                return self.q.get(timeout=self.HEARTBEAT_S)
+            except queue.Empty:
+                broadcast_json({"op": "ping"})
+
     def _collect(self):
         """Block for the first request, then take more for the batch window."""
-        first = self.q.get()
+        first = self._first()
         if first is None:
             return None
         batch = [first]
@@ -130,17 +147,20 @@ class DynamicBatcher:
         while True:
             batch = self._collect()
             if batch is None:
+                if self.mesh is not None:
+                    broadcast_json({"op": "stop"})
                 return
             groups: dict = {}
             for r in batch:
                 groups.setdefault(r.group_key, []).append(r)
-            for (nfe, temp, ls, seed, spk), reqs in groups.items():
+            for key, reqs in groups.items():
                 t0 = time.monotonic()
+                texts = [r.text for r in reqs]
                 try:
                     with self.device_lock, torch.no_grad():
-                        results = self.synth.synthesize_batch(
-                            [r.text for r in reqs], n_timesteps=nfe, temperature=temp,
-                            length_scale=ls, seed=seed, spk=spk)
+                        if self.mesh is not None:
+                            broadcast_json({"op": "batch", "texts": texts, "key": list(key)})
+                        results = _synthesize_group(self.synth, texts, key, self.mesh)
                         pcms = [res.pcm16 for res in results]
                 except Exception as e:  # every waiter gets the failure
                     for r in reqs:
@@ -157,6 +177,31 @@ class DynamicBatcher:
                     r.future.set_result(pcm)
 
 
+def _synthesize_group(synth: Synthesizer, texts, key, mesh):
+    nfe, temp, ls, seed, spk = key
+    kw = dict(n_timesteps=nfe, temperature=temp, length_scale=ls, seed=seed, spk=spk)
+    if mesh is None:
+        return synth.synthesize_batch(texts, **kw)
+    return synth.synthesize_batch_sharded(texts, mesh, keep_aux=False, **kw)
+
+
+def follow(synth: Synthesizer, mesh) -> None:
+    """The loop of the ranks past 0 of a data-parallel server: run this
+    rank's share of each group that rank 0 broadcasts, until its stop.  A
+    group that fails fails on rank 0 too, where its requests get the
+    error."""
+    while True:
+        msg = broadcast_json(None)
+        if msg["op"] == "stop":
+            return
+        if msg["op"] == "batch":
+            try:
+                with torch.no_grad():
+                    _synthesize_group(synth, msg["texts"], msg["key"], mesh)
+            except Exception as e:  # noqa: BLE001 -- the server answers; this rank goes on
+                print(f"[follow] group failed: {type(e).__name__}: {e}", flush=True)
+
+
 def _device_info(device: torch.device) -> dict:
     if device.type == "cuda":
         names = [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
@@ -166,7 +211,9 @@ def _device_info(device: torch.device) -> dict:
 
 
 class TTSServer:
-    """Threaded HTTP server around a `Synthesizer` and a `DynamicBatcher`."""
+    """Threaded HTTP server around a `Synthesizer` and a `DynamicBatcher`.
+    With a data-parallel `mesh` it runs on rank 0, and the other ranks run
+    `follow`."""
 
     def __init__(self, synth: Synthesizer, host: str = "127.0.0.1", port: int = 0,
                  max_batch: int = 16, batch_window_ms: float = 10.0, mesh=None):
@@ -346,7 +393,11 @@ def main(argv=None):
     ap.add_argument("--vocoder-family", default="hifigan", choices=("hifigan", "vocos"))
     ap.add_argument("--denoise-strength", type=float, default=0.00025)
     ap.add_argument("--data-parallel", "--mesh", action="store_true",
-                    help="shard each batch over a device mesh (not ported yet)")
+                    help="shard each batch over the ranks torchrun started (1-D mesh): "
+                         "rank 0 serves HTTP, every rank synthesizes its share")
+    ap.add_argument("--backend", default=None,
+                    help="torch.distributed backend for --data-parallel (default nccl; "
+                         "gloo for --device cpu)")
     ap.add_argument("--warmup", action="store_true",
                     help="run the batched shapes once before serving")
     ap.add_argument("--warmup-grid", action="store_true",
@@ -360,14 +411,24 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
+    mesh, device = None, args.device
     if args.data_parallel:
-        _no_mesh()
+        from matcha_tts_tpu_torch.parallel import mesh as pmesh
+
+        mesh = pmesh.make_mesh(backend=args.backend,
+                               device=None if args.device == "cuda" else args.device)
+        device = str(pmesh.rank_device())
     if args.compile_cache:
         cuda_build.BUILD_DIR = Path(args.compile_cache)
     model, cfg, vocoder, hcfg = cli.load_models(
-        args.ckpt, args.vocoder, vocoder_family=args.vocoder_family, device=args.device)
+        args.ckpt, args.vocoder, vocoder_family=args.vocoder_family, device=device)
+    if mesh is not None:  # random weights drawn on each rank alike; a checkpoint alike
+        from matcha_tts_tpu_torch.parallel.mesh import replicate
+
+        replicate(mesh, model)
+        replicate(mesh, vocoder)
     synth = Synthesizer(model, cfg, vocoder, hcfg, compute_dtype=args.compute_dtype,
-                        denoise_strength=args.denoise_strength, device=args.device)
+                        denoise_strength=args.denoise_strength, device=device)
     if args.warmup or args.warmup_only or args.warmup_grid:
         print("warming up batched shapes ...")
         # every bucket a batch of at most max_batch requests can pad up to
@@ -380,8 +441,13 @@ def main(argv=None):
             print(f"warmed {synth.warmup(batch_sizes=sizes)} batch shapes")
     if args.warmup_only:
         return
+    if mesh is not None and pmesh.batch_sharding(mesh).rank != 0:
+        follow(synth, mesh)
+        return
+    if mesh is not None:
+        print(f"serving data-parallel over {mesh.size()} ranks")
     TTSServer(synth, host=args.host, port=args.port, max_batch=args.max_batch,
-              batch_window_ms=args.batch_window_ms).serve_forever()
+              batch_window_ms=args.batch_window_ms, mesh=mesh).serve_forever()
 
 
 if __name__ == "__main__":

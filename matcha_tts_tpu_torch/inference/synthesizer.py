@@ -15,6 +15,10 @@ produces it (`stream_samples`, through `inference/streaming.py`).  The
 vocoder is either family (`HiFiGANConfig` or `VocosConfig`, dispatched by
 `models/vocoder.py`).  The calls are eager; one CUDA graph per bucket is
 ROADMAP.md work.
+
+Under a data-parallel mesh (one process per rank), `synthesize_batch_sharded`
+splits each text-bucket group's rows over the ranks: every rank calls it
+with the same texts, runs its rows, and gets every row's result back.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from matcha_tts_tpu_torch.inference.streaming import StreamingVocoder
 from matcha_tts_tpu_torch.models import vocoder as vocoder_mod
 from matcha_tts_tpu_torch.models.denoiser import DenoiserState, denoise, make_denoiser
 from matcha_tts_tpu_torch.models.matcha import MatchaTTS, SynthesisOutput, as_dtype
+from matcha_tts_tpu_torch.parallel.mesh import all_reduce_max, batch_sharding, gather_rows
 from matcha_tts_tpu_torch.text.tokenizer import encode_text
 
 DEFAULT_TEXT_BUCKETS = (64, 128, 192, 256, 384, 512)
@@ -70,7 +75,7 @@ class LazySynthesisResult:
     `shared_cache` (a one-element list), so that the packed buffer crosses
     to the host once per batch, not once per row."""
 
-    def __init__(self, packed: torch.Tensor, out: SynthesisOutput, row: int,
+    def __init__(self, packed: torch.Tensor, out: Optional[SynthesisOutput], row: int,
                  batch: int, t_wav: int, hop: int, shared_cache: Optional[list] = None):
         self._packed = packed
         self._out = out
@@ -99,13 +104,18 @@ class LazySynthesisResult:
     def wav(self) -> np.ndarray:
         return self.pcm16.astype(np.float32) / 32767.0
 
+    def _aux(self) -> SynthesisOutput:
+        if self._out is None:
+            raise ValueError("this result kept no mel and no alignment (keep_aux=False)")
+        return self._out
+
     @property
     def mel(self) -> np.ndarray:
-        return self._out.mel[self._row, :, :self.y_length].float().cpu().numpy()
+        return self._aux().mel[self._row, :, :self.y_length].float().cpu().numpy()
 
     @property
     def attn(self) -> np.ndarray:
-        return self._out.attn[self._row, :, :self.y_length].float().cpu().numpy()
+        return self._aux().attn[self._row, :, :self.y_length].float().cpu().numpy()
 
 
 class Synthesizer:
@@ -360,6 +370,56 @@ class Synthesizer:
                                                      shared_cache=cache)
         return results  # type: ignore[return-value]
 
+    def synthesize_batch_sharded(self, texts: Sequence[str], mesh, n_timesteps: int = 10,
+                                 temperature: float = 0.667, length_scale: float = 1.0,
+                                 seed: int = 0, spk: Optional[int] = None,
+                                 keep_aux: bool = True) -> List[LazySynthesisResult]:
+        """`synthesize_batch` with each text-bucket group's batch split over
+        the mesh's data-parallel ranks; every rank calls it with the same
+        texts and gets every row's result.
+
+        A group's rows are padded with pad rows to a multiple of the rank
+        count (not to a batch bucket), and rank k runs the k-th equal share.
+        The ranks agree on one frame bucket, the bucket of the largest
+        predicted frame count over the whole group (an all_reduce MAX): a
+        row's CFM noise is drawn at (t_y, C) from its content-keyed seed,
+        and on the card the numbers at a frame depend on the whole shape,
+        so a bucket per rank would make a row's audio depend on its rank.
+        The packed buffers (and, with `keep_aux`, the mels and alignments)
+        are gathered on every rank, so a row equals the same text in
+        `synthesize_batch` at the same frame bucket.  `spk` applies to the
+        whole batch."""
+        sh = batch_sharding(mesh)
+        encoded = [self.tokenize(t) for t in texts]
+        results: List[Optional[LazySynthesisResult]] = [None] * len(texts)
+        groups: dict = {}
+        for i in range(len(texts)):
+            groups.setdefault(self._bucket(len(encoded[i]), self.text_buckets), []).append(i)
+        hop = self.hifi_cfg.total_upsample
+        for t_x, idxs in groups.items():
+            b = -(-len(idxs) // sh.world) * sh.world
+            share = sh.rows(b)
+            nb = b // sh.world
+            rows = [encoded[i][:t_x] for i in idxs[share]]
+            x, x_lengths, spks = self._inputs(rows, t_x, nb, spk)
+            noise_ids = [self._noise_id(r) for r in rows] + [0] * (nb - len(rows))
+            frames = self.model.encode_only(x, x_lengths, length_scale, spks).max()
+            t_y = self._bucket(int(all_reduce_max(frames.to(torch.int32), sh.group)),
+                               self.batch_frame_buckets)
+            self._check_vocoder_memory(nb, t_y)
+            self.stats["calls"] += 1
+            packed, out = self._synthesize_packed(x, x_lengths, t_y, n_timesteps, temperature,
+                                                  length_scale, spks, seed, noise_ids)
+            t_wav = t_y * hop
+            pcm = gather_rows(packed[:nb * t_wav].view(nb, t_wav), sh)
+            packed = torch.cat([pcm.reshape(-1), gather_rows(packed[nb * t_wav:], sh)])
+            aux = SynthesisOutput(*(gather_rows(t, sh) for t in out)) if keep_aux else None
+            cache: list = [None]
+            for row, i in enumerate(idxs):
+                results[i] = LazySynthesisResult(packed, aux, row=row, batch=b, t_wav=t_wav,
+                                                 hop=hop, shared_cache=cache)
+        return results  # type: ignore[return-value]
+
     def warmup(self, texts: Optional[Sequence[str]] = None,
                batch_sizes: Optional[Sequence[int]] = None,
                n_timesteps: int = 10, **kw) -> int:
@@ -558,17 +618,17 @@ class Synthesizer:
                         crossfade_ms: float = 0.0, mesh=None, keep_aux: bool = True,
                         **kw) -> SynthesisResult:
         """Long text as sentences: several sentences go as one batch
-        (`synthesize_batch`), one as `synthesize`.  The wavs are joined with
-        `silence_ms` of silence, or with `crossfade_ms > 0` overlap-added under
-        a linear crossfade.  `keep_aux=False` leaves the mel and the alignment
-        on the device (empty in the result)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "synthesize_long(mesh=...): batches sharded over a device mesh are not "
-                "ported yet (ROADMAP.md Queue 1, \"Parallelism\")")
+        (`synthesize_batch`, or with a data-parallel `mesh`
+        `synthesize_batch_sharded`, which every rank calls), one as
+        `synthesize`.  The wavs are joined with `silence_ms` of silence, or
+        with `crossfade_ms > 0` overlap-added under a linear crossfade.
+        `keep_aux=False` leaves the mel and the alignment on the device
+        (empty in the result)."""
         chunks = self.split_text(text)
         sr = self.matcha_cfg.audio.sample_rate
-        if len(chunks) > 1:
+        if mesh is not None and len(chunks) > 1:
+            results = self.synthesize_batch_sharded(chunks, mesh, keep_aux=keep_aux, **kw)
+        elif len(chunks) > 1:
             results = self.synthesize_batch(chunks, **kw)
         else:
             seed = kw.pop("seed", 0)

@@ -16,6 +16,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from matcha_tts_tpu_torch.models import nn
+
 
 def row_seed(seed: int, noise_id: int) -> int:
     return ((int(seed) & 0xFFFFFFFF) << 32) | (int(noise_id) & 0xFFFFFFFF)
@@ -81,21 +83,24 @@ def compute_loss(estimator: Callable, x1: torch.Tensor, mask: torch.Tensor,
                  t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None):
     """OT-CFM loss.  x1 (B, T, C) target mel; mask (B, T); mu aligned
     conditioning.  t ~ U(0, 1) per item (B, 1, 1) and z ~ N(0, I) like x1,
-    both fp32, drawn from `generator` unless given;
+    both fp32, drawn from `generator` (a `torch.Generator` or a
+    `parallel.mesh.BatchRows`) unless given;
     y_t = (1 - (1 - sigma) t) z + t x1; u_t = x1 - (1 - sigma) z; the
     estimator runs in `compute_dtype`.  The loss sums the UNMASKED squared
     error over sum(mask) * C, as the reference does (padded positions add a
-    gradient-free noise floor).  Returns (loss, y_t, pred, u_t)."""
+    gradient-free noise floor); under a `BatchRows` the denominator is the
+    global batch's.  Returns (loss, y_t, pred, u_t)."""
     b = mu.shape[0]
     x1 = x1.float()
     if t is None:
-        t = torch.rand((b, 1, 1), generator=generator, device=x1.device)
+        t = nn.rand((b, 1, 1), generator, x1.device)
     if z is None:
-        z = torch.randn(x1.shape, generator=generator, device=x1.device)
+        z = nn.randn(x1.shape, generator, x1.device)
     t, z = t.float().reshape(b, 1, 1), z.float()
     y_t = (1.0 - (1.0 - sigma_min) * t) * z + t * x1
     u_t = x1 - (1.0 - sigma_min) * z
     cd = compute_dtype
     pred = estimator(y_t.to(cd), mask.to(cd), mu.to(cd), t[:, 0, 0].to(cd)).float()
-    loss = torch.sum(torch.square(pred - u_t)) / (torch.sum(mask.float()) * u_t.shape[-1])
+    loss = torch.sum(torch.square(pred - u_t)) / (
+        nn.batch_total(torch.sum(mask.float()), generator) * u_t.shape[-1])
     return loss, y_t, pred, u_t

@@ -100,14 +100,42 @@ def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(F.softplus(x))
 
 
-def dropout(x: torch.Tensor, p: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+# The training draws take a `torch.Generator` or, under data parallelism, a
+# `parallel.mesh.BatchRows`: it draws at the global batch's shape and keeps
+# this rank's rows, so that a row's numbers do not depend on the world size.
+
+
+def rand(shape, generator, device) -> torch.Tensor:
+    if generator is None or isinstance(generator, torch.Generator):
+        return torch.rand(tuple(shape), generator=generator, device=device)
+    return generator.rand(shape, device)
+
+
+def randn(shape, generator, device) -> torch.Tensor:
+    if generator is None or isinstance(generator, torch.Generator):
+        return torch.randn(tuple(shape), generator=generator, device=device)
+    return generator.randn(shape, device)
+
+
+def randint(high: int, shape, generator, device) -> torch.Tensor:
+    if generator is None or isinstance(generator, torch.Generator):
+        return torch.randint(0, high, tuple(shape), generator=generator, device=device)
+    return generator.randint(high, shape, device)
+
+
+def batch_total(x: torch.Tensor, generator) -> torch.Tensor:
+    """A loss denominator summed over the data-parallel ranks (a
+    `BatchRows`'s), or `x` itself."""
+    return generator.total(x) if hasattr(generator, "total") else x
+
+
+def dropout(x: torch.Tensor, p: float, generator) -> torch.Tensor:
     """Inverted dropout whose keep mask is drawn from `generator` (on x's
     device); with no generator, or p == 0, it is the identity (serving)."""
     if generator is None or p == 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, 0.0)
 
 

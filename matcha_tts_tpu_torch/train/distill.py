@@ -26,7 +26,10 @@ Randomness: step `s` draws from a `torch.Generator` seeded with
 `row_seed(seed, s)`: z0 ~ N(0, I) * temperature, then t (reflow) or the
 grid index (consistency).  `distill_step` takes z0, t and idx as optional
 arguments, so a test can inject the values that the JAX package draws from
-its key.  One device; no data parallelism (ROADMAP Queue 1, "Parallelism").
+its key.  Under a data-parallel mesh (`distill_fit(mesh=)`), every rank
+draws at the global batch's shape and keeps its rows, the loss's
+denominator is the global batch's and the gradients are summed over the
+ranks before the clip, as in `train_state.train_step`.
 """
 
 from __future__ import annotations
@@ -39,11 +42,14 @@ import numpy as np
 import torch
 
 from matcha_tts_tpu_torch.config import MatchaConfig
-from matcha_tts_tpu_torch.models import cfm
+from matcha_tts_tpu_torch.models import cfm, nn
 from matcha_tts_tpu_torch.models.cfm import row_seed
 from matcha_tts_tpu_torch.models.matcha import MatchaTTS
 from matcha_tts_tpu_torch.ops.masking import generate_path, sequence_mask
-from matcha_tts_tpu_torch.train.train_state import clip_by_global_norm_, global_norm
+from matcha_tts_tpu_torch.parallel.mesh import (all_reduce_grads, all_reduce_sum,
+                                                batch_sharding, is_main, replicate)
+from matcha_tts_tpu_torch.train.train_state import (clip_by_global_norm_, global_norm,
+                                                    step_draws)
 
 SAMPLE_TEXTS = (
     "The birch canoe slid on the smooth planks.",
@@ -116,7 +122,7 @@ def _teacher_endpoints(teacher: MatchaTTS, mu_y, y_mask, cfg: MatchaConfig,
     """(z0, x1): noise starts (drawn from `generator` unless given, then
     times the temperature) and their teacher ODE solutions."""
     if z0 is None:
-        z0 = torch.randn(mu_y.shape, generator=generator, device=mu_y.device)
+        z0 = nn.randn(mu_y.shape, generator, mu_y.device)
     z0 = z0.float() * dcfg.temperature
     x1 = cfm.solve(_estimator(teacher, spk_emb), z0, y_mask, mu_y, dcfg.nfe_teacher,
                    solver=cfg.cfm.solver)
@@ -125,16 +131,18 @@ def _teacher_endpoints(teacher: MatchaTTS, mu_y, y_mask, cfg: MatchaConfig,
 
 def _sample_t(b: int, dcfg: DistillConfig, generator=None, device="cpu") -> torch.Tensor:
     if dcfg.t_sampling == "grid":
-        idx = torch.randint(0, dcfg.nfe_student, (b, 1, 1), generator=generator, device=device)
+        idx = nn.randint(dcfg.nfe_student, (b, 1, 1), generator, device)
         return idx.float() / dcfg.nfe_student
     if dcfg.t_sampling == "uniform":
-        return torch.rand((b, 1, 1), generator=generator, device=device)
+        return nn.rand((b, 1, 1), generator, device)
     raise ValueError(f"unknown t_sampling {dcfg.t_sampling!r}")
 
 
-def _masked_mse(a, b, y_mask):
+def _masked_mse(a, b, y_mask, generator=None):
+    """Over the valid frames' elements: the global batch's under a
+    `BatchRows`."""
     sq = torch.square(a - b) * y_mask[..., None]
-    return torch.sum(sq) / (torch.sum(y_mask) * a.shape[-1])
+    return torch.sum(sq) / (nn.batch_total(torch.sum(y_mask), generator) * a.shape[-1])
 
 
 def reflow_loss(student: MatchaTTS, z0, x1, y_mask, mu_y, cfg: MatchaConfig,
@@ -149,7 +157,7 @@ def reflow_loss(student: MatchaTTS, z0, x1, y_mask, mu_y, cfg: MatchaConfig,
     z_t = (1.0 - (1.0 - sigma) * t) * z0 + t * x1
     u = x1 - (1.0 - sigma) * z0
     pred = _estimator(student, spk_emb)(z_t, y_mask, mu_y, t[:, 0, 0])
-    return _masked_mse(pred, u, y_mask)
+    return _masked_mse(pred, u, y_mask, generator)
 
 
 def consistency_loss(student: MatchaTTS, ema: MatchaTTS, teacher: MatchaTTS, z0, x1, y_mask,
@@ -163,7 +171,7 @@ def consistency_loss(student: MatchaTTS, ema: MatchaTTS, teacher: MatchaTTS, z0,
     b = z0.shape[0]
     n = dcfg.nfe_teacher
     if idx is None:
-        idx = torch.randint(0, n, (b,), generator=generator, device=z0.device)
+        idx = nn.randint(n, (b,), generator, z0.device)
     t = (idx.float() / n)[:, None, None]
     dt = 1.0 / n
     z_t = (1.0 - (1.0 - sigma) * t) * z0 + t * x1
@@ -175,19 +183,19 @@ def consistency_loss(student: MatchaTTS, ema: MatchaTTS, teacher: MatchaTTS, z0,
             z_next, y_mask, mu_y, t_next)
     f_s = z_t + (1.0 - t[:, 0, 0])[:, None, None] * _estimator(student, spk_emb)(
         z_t, y_mask, mu_y, t[:, 0, 0])
-    return _masked_mse(f_s, f_e, y_mask)
+    return _masked_mse(f_s, f_e, y_mask, generator)
 
 
 def distill_step(state: DistillState, teacher: MatchaTTS, x, x_lengths, cfg: MatchaConfig,
                  dcfg: DistillConfig, t_y_max: int, spks=None, seed: int = 0,
                  z0: Optional[torch.Tensor] = None, t: Optional[torch.Tensor] = None,
-                 idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                 idx: Optional[torch.Tensor] = None, mesh=None) -> Dict[str, torch.Tensor]:
     """One distillation step in place from a TEXT batch (B, T_x) + lengths;
     returns the metrics (device scalars): the loss and the pre-clip
     gradient norm.  z0, t (reflow) and idx (consistency) are drawn from the
-    step's generator unless given."""
-    device = state.student.device
-    g = torch.Generator(device=device).manual_seed(row_seed(seed, state.step))
+    step's generator unless given.  Under a `mesh`, x holds this rank's rows
+    of the global batch, as in `train_state.train_step`."""
+    g, sh = step_draws(row_seed(seed, state.step), state.student.device, x.shape[0], mesh)
     mu_y, y_mask, spk_emb = expand_conditioning(teacher, x, x_lengths, t_y_max,
                                                 dcfg.length_scale, spks)
     z0, x1 = _teacher_endpoints(teacher, mu_y, y_mask, cfg, dcfg, spk_emb, g, z0)
@@ -202,6 +210,9 @@ def distill_step(state: DistillState, teacher: MatchaTTS, x, x_lengths, cfg: Mat
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     params = list(state.student.parameters())
+    if sh is not None:
+        all_reduce_grads(params, sh.group)
+        loss = all_reduce_sum(loss.detach().clone(), sh.group)
     grads = [p.grad for p in params if p.grad is not None]
     norm = global_norm(grads)
     clip_by_global_norm_(grads, norm, dcfg.grad_clip_norm)
@@ -253,29 +264,36 @@ def text_batch(encoded, rows, text_bucket: int):
 def distill_fit(teacher: MatchaTTS, cfg: MatchaConfig, dcfg: DistillConfig,
                 texts: Sequence[str], steps: int, batch_size: int = 16,
                 text_bucket: int = 128, frame_bucket: int = 512, seed: int = 0,
-                log_every: int = 10, callback=None) -> DistillState:
+                mesh=None, log_every: int = 10, callback=None) -> DistillState:
     """Distillation loop over a text corpus on the teacher's device.  Each
     step samples `batch_size` rows with `numpy.random.default_rng(seed)`, as
     the JAX package does.  Returns the final state; `state.student` is a
-    drop-in `MatchaTTS` for `synthesize(..., n_timesteps=1 or 2)`."""
+    drop-in `MatchaTTS` for `synthesize(..., n_timesteps=1 or 2)`.  With a
+    `mesh`, every rank samples the same global batch and keeps its rows;
+    the teacher is broadcast from rank 0 first, and only rank 0 prints."""
     encoded = encode_texts(texts, text_bucket)
     if not encoded:
         raise ValueError("distill_fit needs a non-empty text corpus")
+    if mesh is not None:
+        mine = batch_sharding(mesh).rows(batch_size)
+        replicate(mesh, teacher)
     state = create_distill_state(teacher, dcfg)
     device = teacher.device
     rng = np.random.default_rng(seed)
     for step in range(steps):
         rows = rng.integers(0, len(encoded), size=batch_size)
         x, x_lengths = text_batch(encoded, rows, text_bucket)
+        if mesh is not None:
+            x, x_lengths = x[mine], x_lengths[mine]
         metrics = distill_step(state, teacher, torch.from_numpy(x).long().to(device),
                                torch.from_numpy(x_lengths).long().to(device), cfg, dcfg,
-                               frame_bucket, seed=seed)
+                               frame_bucket, seed=seed, mesh=mesh)
         loss = float(metrics["distill_loss"])  # also a NaN guard, once per step
         if not np.isfinite(loss):
             raise FloatingPointError(f"non-finite distill loss at step {step + 1}")
         if callback is not None:
             callback(step, metrics)
-        elif (step + 1) % log_every == 0:
+        elif (step + 1) % log_every == 0 and is_main(mesh):
             print(f"[distill {step + 1}] "
                   + " ".join(f"{k}={float(v):.5f}" for k, v in metrics.items()), flush=True)
     return state
@@ -287,6 +305,9 @@ def main(argv=None):
       python -m matcha_tts_tpu_torch.train.distill --teacher matcha.ckpt \\
           --texts corpus.txt --steps 2000 --nfe-student 2 \\
           --work_dir runs/distill [--device cuda]
+
+    Under `torchrun --nproc-per-node N` it runs data-parallel over the N
+    ranks; rank 0 logs and saves.
     """
     import argparse
 
@@ -307,12 +328,19 @@ def main(argv=None):
     ap.add_argument("--work_dir", default="runs/distill")
     ap.add_argument("--ckpt_every", type=int, default=500)
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--chips", type=int, default=None,
+                    help="data-parallel ranks (default: the ranks torchrun started); "
+                         "--batch_size is the global batch")
+    ap.add_argument("--backend", default=None,
+                    help="torch.distributed backend (default nccl; gloo for --device cpu)")
     args = ap.parse_args(argv)
 
     from matcha_tts_tpu_torch.inference.cli import load_models
-    from matcha_tts_tpu_torch.train.loop import Checkpointer, MetricsLogger
+    from matcha_tts_tpu_torch.parallel.mesh import mesh_from_flags
+    from matcha_tts_tpu_torch.train.loop import Checkpointer, MetricsLogger, NullLogger
 
-    teacher, cfg, _, _ = load_models(args.teacher, None, device=args.device)
+    mesh, device = mesh_from_flags(args.chips, args.backend, args.device)
+    teacher, cfg, _, _ = load_models(args.teacher, None, device=device)
     if args.texts:
         with open(args.texts, encoding="utf-8") as f:  # plain lines or wav|text rows
             texts = [raw.strip().split("|")[-1] for raw in f if raw.strip()]
@@ -320,8 +348,8 @@ def main(argv=None):
         texts = list(SAMPLE_TEXTS)
     dcfg = DistillConfig(loss=args.loss, nfe_teacher=args.nfe_teacher,
                          nfe_student=args.nfe_student, learning_rate=args.lr)
-    logger = MetricsLogger(args.work_dir)
-    ckpt = Checkpointer(f"{args.work_dir}/ckpt")
+    main_rank = is_main(mesh)
+    logger = MetricsLogger(args.work_dir) if main_rank else NullLogger()
 
     def cb(step, metrics):
         if (step + 1) % 10 == 0:
@@ -330,13 +358,15 @@ def main(argv=None):
     try:
         state = distill_fit(teacher, cfg, dcfg, texts, steps=args.steps,
                             batch_size=args.batch_size, text_bucket=args.text_bucket,
-                            frame_bucket=args.frame_bucket, callback=cb)
-        ckpt.save(args.steps, state, cfg)
+                            frame_bucket=args.frame_bucket, mesh=mesh, callback=cb)
+        if main_rank:
+            Checkpointer(f"{args.work_dir}/ckpt").save(args.steps, state, cfg)
     finally:
         logger.close()
-    print(f"saved distilled student ({args.loss}, NFE {args.nfe_student}) to "
-          f"{args.work_dir}/ckpt; load it with Checkpointer.load_model and synthesize "
-          f"with n_timesteps={args.nfe_student}")
+    if main_rank:
+        print(f"saved distilled student ({args.loss}, NFE {args.nfe_student}) to "
+              f"{args.work_dir}/ckpt; load it with Checkpointer.load_model and synthesize "
+              f"with n_timesteps={args.nfe_student}")
     return state
 
 

@@ -4,8 +4,15 @@
 log-mel features on the device, runs `train_step`, logs, evaluates and keeps
 checkpoints (the `keep` best by validation loss plus the latest; a run
 resumes from the latest).  A SIGTERM or SIGINT checkpoints after the current
-step and returns.  One device; data parallelism is not ported (ROADMAP
-Queue 1, "Parallelism").
+step and returns.
+
+Under a data-parallel mesh (`fit(mesh=)`, one process per rank), every rank
+walks the same batch order and reads only its own rows' WAVs, padded to the
+global batch's buckets; `train_step` sums the gradients over the ranks.
+Rank 0 alone writes checkpoints and logs; every rank resumes from the same
+checkpoint, evaluates its rows of each validation batch (the losses summed
+over the ranks), and stops after the same step when a signal reaches any
+of them (the flag is all-reduced once per step).
 """
 
 from __future__ import annotations
@@ -19,12 +26,15 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from matcha_tts_tpu_torch.config import (MatchaConfig, TrainConfig, config_from_dict,
                                          config_to_dict)
 from matcha_tts_tpu_torch.data.dataset import BucketBatcher, PrefetchIterator, TextMelDataset
 from matcha_tts_tpu_torch.models.matcha import MatchaTTS
 from matcha_tts_tpu_torch.ops.stft import log_mel_spectrogram, normalize_mel
+from matcha_tts_tpu_torch.parallel.mesh import (all_reduce_sum, any_rank, batch_sharding,
+                                                is_main, replicate, resume_together)
 from matcha_tts_tpu_torch.train.train_state import (TrainState, create_train_state,
                                                     eval_step, train_step)
 
@@ -80,6 +90,16 @@ class MetricsLogger:
             self.tb.close()
 
 
+class NullLogger:
+    """The logger of the ranks past 0, which log nothing."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
 class GracefulShutdown:
     """Turns SIGTERM / SIGINT into a checkpoint-then-return request: the loop
     polls `.requested` once per step and saves before it returns, so a
@@ -124,11 +144,16 @@ class Checkpointer:
 
     The `keep` best by val loss survive, plus always the latest, so resume
     never goes back in time.  The metrics of every kept step are indexed in
-    `index.json`, so a restarted run still ranks against them."""
+    `index.json`, so a restarted run still ranks against them.  With
+    `write=False` (the data-parallel ranks past 0) it reads checkpoints and
+    keeps the index in memory as saves would change it, but writes
+    nothing."""
 
-    def __init__(self, ckpt_dir, keep: int = 3):
+    def __init__(self, ckpt_dir, keep: int = 3, write: bool = True):
         self.dir = Path(ckpt_dir).absolute()
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._index_path = self.dir / "index.json"
         self.index: Dict[int, Optional[Dict]] = {}
@@ -160,6 +185,11 @@ class Checkpointer:
         """`state`: a TrainState or a DistillState."""
         if metrics is not None:
             metrics = {k: float(v) for k, v in metrics.items()}
+        if not self.write:
+            self.index[int(step)] = metrics
+            kept = set(self._kept())
+            self.index = {s: m for s, m in self.index.items() if s in kept}
+            return
         payload = {"step": int(step),
                    "config": None if model_cfg is None else config_to_dict(model_cfg),
                    "metrics": metrics}
@@ -229,11 +259,19 @@ class Checkpointer:
 
 def fit(model_cfg: MatchaConfig, train_cfg: TrainConfig, train_filelist: str,
         val_filelist: str, work_dir: str = "runs/matcha", max_steps: Optional[int] = None,
-        resume: bool = True, device="cuda") -> TrainState:
+        resume: bool = True, device="cuda", mesh=None) -> TrainState:
     """Train from random weights (seeded by `train_cfg.seed`), or resume from
-    the latest checkpoint in `work_dir`."""
+    the latest checkpoint in `work_dir`.  With a `mesh`, data-parallel over
+    its ranks (each on its own `device`), `train_cfg.batch_size` being the
+    global batch, as the module docstring says."""
     work = Path(work_dir)
-    ckpt = Checkpointer(work / "ckpt", keep=train_cfg.ckpt_keep)
+    main = is_main(mesh)
+    shard = None
+    if mesh is not None:
+        shard = batch_sharding(mesh)
+        if train_cfg.batch_size % shard.world:
+            raise ValueError(f"batch_size {train_cfg.batch_size} does not split over the "
+                             f"{shard.world} data-parallel ranks")
     train_ds = TextMelDataset(train_filelist, model_cfg.audio, model_cfg.n_spks,
                               seed=train_cfg.seed)
     val_ds = TextMelDataset(val_filelist, model_cfg.audio, model_cfg.n_spks,
@@ -241,50 +279,66 @@ def fit(model_cfg: MatchaConfig, train_cfg: TrainConfig, train_filelist: str,
     if len(train_ds) == 0:
         raise ValueError(f"empty training filelist: {train_filelist}")
     train_batches = BucketBatcher(train_ds, train_cfg, shuffle=True, seed=train_cfg.seed,
-                                  drop_last=True)
-    val_batches = BucketBatcher(val_ds, train_cfg, shuffle=False)
+                                  drop_last=True, shard=shard)
+    val_batches = BucketBatcher(val_ds, train_cfg, shuffle=False, shard=shard)
 
     state = create_train_state(MatchaTTS(model_cfg, seed=train_cfg.seed, device=device),
                                train_cfg)
-    if resume and ckpt.restore(state) is not None:
+    if mesh is not None:
+        dist.barrier()  # rank 0's last checkpoint is on disk before any rank reads
+    ckpt = Checkpointer(work / "ckpt", keep=train_cfg.ckpt_keep, write=main)
+    if resume and ckpt.restore(state) is not None and main:
         print(f"Resumed from step {state.step}", flush=True)
+    if mesh is not None:
+        resume_together(mesh, state.step)
+        replicate(mesh, state.model)
+        replicate(mesh, state.optimizer)
 
     steps_per_epoch = max(1, len(train_ds) // train_cfg.batch_size)
     total_steps = max_steps or steps_per_epoch * train_cfg.max_epochs
 
-    logger = MetricsLogger(work)
+    logger = MetricsLogger(work) if main else NullLogger()
     shutdown = GracefulShutdown()
     try:
         with shutdown:
             _fit_loop(shutdown, total_steps, state, train_batches, val_batches, model_cfg,
-                      train_cfg, ckpt, logger)
+                      train_cfg, ckpt, logger, mesh)
+        stopped = _stopping(shutdown, mesh)
         if ckpt.latest_step() != state.step:
             # on preemption keep the val pass short: the grace period is the
             # budget for the whole save
             val_metrics = evaluate(state.model, val_batches, model_cfg, train_cfg,
-                                   max_batches=2 if shutdown.requested else 16)
+                                   max_batches=2 if stopped else 16, mesh=mesh)
             logger.log(state.step, "val", val_metrics)
             ckpt.save(state.step, state, model_cfg, metrics=val_metrics)
     finally:
         logger.close()
-    if shutdown.requested:
+    if stopped and main:
         print(f"[shutdown] checkpointed at step {state.step}; rerun with the same "
               f"work_dir to resume", flush=True)
     return state
 
 
+def _stopping(shutdown, mesh) -> bool:
+    """Whether a signal asked to stop; under a mesh, on any rank (every rank
+    then stops after the same step)."""
+    if mesh is not None:
+        shutdown.requested = any_rank(shutdown.requested)
+    return shutdown.requested
+
+
 def _fit_loop(shutdown, total_steps, state, train_batches, val_batches, model_cfg,
-              train_cfg, ckpt, logger):
+              train_cfg, ckpt, logger, mesh=None):
     device = state.model.device
     t0 = time.time()
-    while state.step < total_steps and not shutdown.requested:
+    while state.step < total_steps and not _stopping(shutdown, mesh):
         n_batches = 0
         for raw in PrefetchIterator(iter(train_batches), depth=2):
-            if state.step >= total_steps or shutdown.requested:
+            if state.step >= total_steps or _stopping(shutdown, mesh):
                 break
             n_batches += 1
             batch = featurize_batch(raw, model_cfg, device)
-            metrics = train_step(state, batch, model_cfg, train_cfg)
+            metrics = train_step(state, batch, model_cfg, train_cfg, mesh)
             step = state.step
             if step % train_cfg.log_every_n_steps == 0:
                 # a non-finite loss poisons the run: stop loudly instead of
@@ -294,14 +348,18 @@ def _fit_loop(shutdown, total_steps, state, train_batches, val_batches, model_cf
                     ckpt.save(step, state, model_cfg)
                     raise FloatingPointError(f"non-finite loss {loss} at step {step}; "
                                              f"state checkpointed for post-mortem")
+                frames = torch.tensor(int(np.sum(raw["y_lengths"])), device=device)
+                if mesh is not None:
+                    all_reduce_sum(frames, batch_sharding(mesh).group)
                 dt = time.time() - t0
                 logger.log(step, "train", metrics,
                            {"sec_per_step": dt / train_cfg.log_every_n_steps,
-                            "frames_in_batch": int(np.sum(raw["y_lengths"]))})
+                            "frames_in_batch": int(frames)})
                 t0 = time.time()
             if step % train_cfg.ckpt_every_n_steps == 0:
                 # validate first, so the checkpoint is ranked by val loss
-                val_metrics = evaluate(state.model, val_batches, model_cfg, train_cfg)
+                val_metrics = evaluate(state.model, val_batches, model_cfg, train_cfg,
+                                       mesh=mesh)
                 logger.log(step, "val", val_metrics)
                 ckpt.save(step, state, model_cfg, metrics=val_metrics)
         if n_batches == 0:
@@ -309,16 +367,18 @@ def _fit_loop(shutdown, total_steps, state, train_batches, val_batches, model_cf
 
 
 def evaluate(model: MatchaTTS, val_batches, model_cfg: MatchaConfig, train_cfg: TrainConfig,
-             max_batches: int = 16) -> Dict[str, float]:
+             max_batches: int = 16, mesh=None) -> Dict[str, float]:
     """Mean of the eval losses over up to `max_batches` validation batches
-    (batch i draws its CFM noise from seed i)."""
+    (batch i draws its CFM noise from seed i).  Under a `mesh` each batch's
+    losses are the global batch's, the same on every rank."""
     sums: Dict[str, float] = {}
     n = 0
     for i, raw in enumerate(val_batches):
         if i >= max_batches:
             break
         batch = featurize_batch(raw, model_cfg, model.device)
-        for k, v in eval_step(model, batch, model_cfg, train_cfg.prior_loss, seed=i).items():
+        for k, v in eval_step(model, batch, model_cfg, train_cfg.prior_loss, seed=i,
+                              mesh=mesh).items():
             sums[k] = sums.get(k, 0.0) + float(v)
         n += 1
     return {k: v / max(n, 1) for k, v in sums.items()}

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from matcha_tts_tpu_torch.config import MatchaConfig
-from matcha_tts_tpu_torch.models import cfm
+from matcha_tts_tpu_torch.models import cfm, nn
 from matcha_tts_tpu_torch.models.matcha import DType, MatchaTTS, as_dtype
 from matcha_tts_tpu_torch.ops.mas import maximum_path
 from matcha_tts_tpu_torch.ops.masking import sequence_mask
@@ -39,10 +39,11 @@ def log_gaussian_prior(mu: torch.Tensor, y: torch.Tensor, n_feats: int) -> torch
 
 
 def duration_loss(logw: torch.Tensor, logw_: torch.Tensor,
-                  lengths: torch.Tensor) -> torch.Tensor:
+                  lengths: torch.Tensor, generator=None) -> torch.Tensor:
     """Squared error of the (already masked) log-durations over the token
-    count."""
-    return torch.sum(torch.square(logw - logw_)) / torch.sum(lengths)
+    count (the global batch's under a `BatchRows`)."""
+    return torch.sum(torch.square(logw - logw_)) / nn.batch_total(torch.sum(lengths),
+                                                                 generator)
 
 
 def matcha_losses(model: MatchaTTS, x: torch.Tensor, x_lengths: torch.Tensor,
@@ -56,7 +57,10 @@ def matcha_losses(model: MatchaTTS, x: torch.Tensor, x_lengths: torch.Tensor,
 
     `generator` draws the CFM noise (t, z), and the dropout masks when
     `train`; `t` (B,) and `z` (B, T_y, n_feats) may be injected instead of
-    drawn."""
+    drawn.  Under data parallelism it is a `parallel.mesh.BatchRows`: the
+    draws are the global batch's rows and the three denominators are
+    summed over the ranks, so each rank's losses are its share of the
+    global ones."""
     cd = as_dtype(compute_dtype)
     drop = generator if train else None
     spk_emb = model._speaker(spks)
@@ -72,7 +76,7 @@ def matcha_losses(model: MatchaTTS, x: torch.Tensor, x_lengths: torch.Tensor,
         attn = maximum_path(log_prior, attn_mask)  # (B, T_x, T_y)
 
     logw_ = torch.log(1e-8 + torch.sum(attn, dim=-1, keepdim=True)) * x_mask[..., None]
-    dur_loss = duration_loss(logw, logw_, x_lengths)
+    dur_loss = duration_loss(logw, logw_, x_lengths, generator)
 
     mu_y = torch.bmm(attn.transpose(1, 2), mu_x)  # (B, T_y, C)
 
@@ -85,7 +89,7 @@ def matcha_losses(model: MatchaTTS, x: torch.Tensor, x_lengths: torch.Tensor,
     if prior_loss_enabled:
         prior = torch.sum(0.5 * (torch.square(y - mu_y) + math.log(2 * math.pi))
                           * y_mask[..., None])
-        prior = prior / (torch.sum(y_mask) * cfg.encoder.n_feats)
+        prior = prior / (nn.batch_total(torch.sum(y_mask), generator) * cfg.encoder.n_feats)
     else:
         prior = torch.zeros((), dtype=y.dtype, device=y.device)
 

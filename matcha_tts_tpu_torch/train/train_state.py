@@ -4,7 +4,9 @@ The model holds fp32 master weights; with `mixed_precision` the step
 computes in bf16 (each op casts the weights to the activation dtype, with
 fp32 accumulation), which needs no loss scaling.  Each step draws its
 dropout masks and CFM noise from a generator seeded by (seed, step), as the
-JAX package folds the step into its key.
+JAX package folds the step into its key.  Under a data-parallel mesh every
+rank seeds it alike and keeps its rows of each draw (`parallel.mesh.
+BatchRows`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 from matcha_tts_tpu_torch.config import MatchaConfig, TrainConfig
 from matcha_tts_tpu_torch.models.cfm import row_seed
 from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+from matcha_tts_tpu_torch.parallel.mesh import (BatchRows, all_reduce_grads, all_reduce_sum,
+                                                batch_sharding)
 from matcha_tts_tpu_torch.train.losses import matcha_losses
 
 
@@ -55,16 +59,45 @@ def _batch_losses(model, batch, model_cfg, generator, train, prior_loss, compute
                          prior_loss_enabled=prior_loss, compute_dtype=compute_dtype)
 
 
+def step_draws(seed: int, device, local_b: int, mesh=None):
+    """The step's generator seeded by `seed`, or under a mesh the
+    `BatchRows` over it for this rank's `local_b` rows, and the rank's
+    `BatchSharding` (None without a mesh)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if mesh is None:
+        return g, None
+    sh = batch_sharding(mesh)
+    return BatchRows.for_rank(g, sh, local_b), sh
+
+
+def _metrics(out, sh) -> Dict[str, torch.Tensor]:
+    """The losses; under a mesh the ranks' shares summed to the global ones."""
+    losses = torch.stack([out.total, out.dur_loss, out.prior_loss, out.cfm_loss]).detach()
+    if sh is not None:
+        all_reduce_sum(losses, sh.group)
+    return dict(zip(("loss", "dur_loss", "prior_loss", "cfm_loss"), losses.unbind()))
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               model_cfg: MatchaConfig, train_cfg: TrainConfig) -> Dict[str, torch.Tensor]:
+               model_cfg: MatchaConfig, train_cfg: TrainConfig,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """One optimizer step in place; returns the metrics (device scalars):
-    the losses and the pre-clip gradient norm."""
+    the losses and the pre-clip gradient norm.
+
+    Under a `mesh`, `batch` holds this rank's rows of the global batch: the
+    draws are the global batch's rows, each rank's loss is its numerator
+    over the global denominators, and the gradients are summed over the
+    ranks before the clip, so that the step is the global batch's step at
+    world 1."""
     model = state.model
-    g = torch.Generator(device=model.device).manual_seed(row_seed(train_cfg.seed, state.step))
+    draws, sh = step_draws(row_seed(train_cfg.seed, state.step), model.device,
+                           batch["x"].shape[0], mesh)
     cd = torch.bfloat16 if train_cfg.mixed_precision else torch.float32
-    out = _batch_losses(model, batch, model_cfg, g, True, train_cfg.prior_loss, cd)
+    out = _batch_losses(model, batch, model_cfg, draws, True, train_cfg.prior_loss, cd)
     state.optimizer.zero_grad(set_to_none=True)
     out.total.backward()
+    if sh is not None:
+        all_reduce_grads(model.parameters(), sh.group)
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     norm = global_norm(grads)
     clip_by_global_norm_(grads, norm, train_cfg.grad_clip_norm)
@@ -72,16 +105,14 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         group["lr"] = train_cfg.learning_rate
     state.optimizer.step()
     state.step += 1
-    return {"loss": out.total.detach(), "dur_loss": out.dur_loss.detach(),
-            "prior_loss": out.prior_loss.detach(), "cfm_loss": out.cfm_loss.detach(),
-            "grad_norm": norm}
+    return {**_metrics(out, sh), "grad_norm": norm}
 
 
 @torch.no_grad()
 def eval_step(model: MatchaTTS, batch: Dict[str, torch.Tensor], model_cfg: MatchaConfig,
-              prior_loss: bool = True, seed: int = 0) -> Dict[str, torch.Tensor]:
-    """The losses in fp32 with dropout off; the CFM noise from `seed`."""
-    g = torch.Generator(device=model.device).manual_seed(seed)
-    out = _batch_losses(model, batch, model_cfg, g, False, prior_loss, torch.float32)
-    return {"loss": out.total, "dur_loss": out.dur_loss, "prior_loss": out.prior_loss,
-            "cfm_loss": out.cfm_loss}
+              prior_loss: bool = True, seed: int = 0, mesh=None) -> Dict[str, torch.Tensor]:
+    """The losses in fp32 with dropout off; the CFM noise from `seed`.  Under
+    a `mesh`, the global batch's losses on every rank."""
+    draws, sh = step_draws(seed, model.device, batch["x"].shape[0], mesh)
+    out = _batch_losses(model, batch, model_cfg, draws, False, prior_loss, torch.float32)
+    return _metrics(out, sh)

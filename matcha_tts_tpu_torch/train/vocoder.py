@@ -19,8 +19,14 @@ Deciding it reads one flag from the device per step.
 
 The generator runs its differentiable plain composition (`forward_train`):
 the MRF kernels have no backward, so no kernel runs in GAN training.  The
-steps run in fp32, on the device of the state's modules.  One device; data
-parallelism is not ported (ROADMAP Queue 1, "Parallelism").
+steps run in fp32, on the device of the state's modules.
+
+Under a data-parallel mesh (`mesh=`, one process per rank) each rank holds
+its rows of the global batch of segments and both steps average the
+gradients over the ranks before the optimiser (its clip and finiteness
+check included).  Every GAN loss is a plain mean over a shape that is the
+same on every rank, so the average of the ranks' losses and gradients is
+the global batch's exactly.  The steps draw no random numbers.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from matcha_tts_tpu_torch.config import AudioConfig
 from matcha_tts_tpu_torch.models import hifigan, vocos
 from matcha_tts_tpu_torch.models.vocoder import init_vocoder
 from matcha_tts_tpu_torch.ops.stft import log_mel_spectrogram
+from matcha_tts_tpu_torch.parallel.mesh import all_reduce_grads, all_reduce_sum, batch_sharding
 from matcha_tts_tpu_torch.train import weight_norm as wn
 from matcha_tts_tpu_torch.train.train_state import clip_by_global_norm_, global_norm
 
@@ -164,16 +171,13 @@ def random_segment(generator: torch.Generator, audio: np.ndarray, segment_size: 
     return audio[start:start + segment_size], start
 
 
-def random_segment_np(rng: np.random.Generator, audio: np.ndarray, segment_size: int,
-                      hop: int) -> np.ndarray:
-    """`random_segment` with a numpy Generator, for the host data loop."""
-    if len(audio) <= segment_size:
-        out = np.zeros(segment_size, np.float32)
-        out[:len(audio)] = audio
-        return out
-    max_start = (len(audio) - segment_size) // hop
-    start = int(rng.integers(0, max_start + 1)) * hop
-    return audio[start:start + segment_size]
+def segment_start(rng: np.random.Generator, n: int, segment_size: int, hop: int) -> int:
+    """The start of `random_segment`'s crop of audio of `n` samples, drawn
+    from a numpy Generator, for the host data loop: 0, without a draw,
+    when the audio is no longer than the segment (it is zero-padded)."""
+    if n <= segment_size:
+        return 0
+    return int(rng.integers(0, (n - segment_size) // hop + 1)) * hop
 
 
 def _mel(audio: torch.Tensor, acfg: AudioConfig, f_max: float) -> torch.Tensor:
@@ -199,10 +203,21 @@ def _frozen(module: nn.Module):
             p.requires_grad_(True)
 
 
-def gan_disc_step(state: GanTrainState, audio: torch.Tensor,
-                  acfg: AudioConfig) -> Tuple[GanTrainState, torch.Tensor]:
+def _mean_over_ranks(params, losses: torch.Tensor, mesh) -> torch.Tensor:
+    """Average the gradients of `params` and the stacked `losses` over the
+    data-parallel ranks (nothing without a mesh)."""
+    if mesh is None:
+        return losses
+    sh = batch_sharding(mesh)
+    all_reduce_grads(params, sh.group, average=True)
+    return all_reduce_sum(losses.clone(), sh.group) / sh.world
+
+
+def gan_disc_step(state: GanTrainState, audio: torch.Tensor, acfg: AudioConfig,
+                  mesh=None) -> Tuple[GanTrainState, torch.Tensor]:
     """Discriminator update (LS-GAN): real audio (B, L) against the
-    generator's audio from its mel.  Returns the state and the loss."""
+    generator's audio from its mel.  Returns the state and the loss.  Under
+    a `mesh`, `audio` is this rank's rows of the global batch."""
     with torch.no_grad():
         fake = state.generator.forward_train(_mel(audio, acfg, acfg.f_max).transpose(1, 2))
     n = min(audio.shape[-1], fake.shape[-1])
@@ -210,14 +225,16 @@ def gan_disc_step(state: GanTrainState, audio: torch.Tensor,
     loss = sum(hifigan.discriminator_loss(o[0], o[1])[0] for o in outs.values())
     state.disc_opt.zero_grad()
     loss.backward()
+    loss = _mean_over_ranks(state.disc_opt.params, loss.detach(), mesh)
     state.disc_opt.step()
-    return state, loss.detach()
+    return state, loss
 
 
-def gan_gen_step(state: GanTrainState, audio: torch.Tensor,
-                 acfg: AudioConfig) -> Tuple[GanTrainState, Dict[str, torch.Tensor]]:
+def gan_gen_step(state: GanTrainState, audio: torch.Tensor, acfg: AudioConfig,
+                 mesh=None) -> Tuple[GanTrainState, Dict[str, torch.Tensor]]:
     """Generator update: adv + feature matching + 45 x mel L1.  Returns the
-    state and {"gen_loss", "mel_l1", "fm_loss"} (device scalars)."""
+    state and {"gen_loss", "mel_l1", "fm_loss"} (device scalars).  Under a
+    `mesh`, as `gan_disc_step`."""
     with torch.no_grad():
         mel_real = _mel(audio, acfg, acfg.f_max)
         mel_real_full = _mel(audio, acfg, acfg.sample_rate / 2.0)
@@ -232,7 +249,8 @@ def gan_gen_step(state: GanTrainState, audio: torch.Tensor,
         total = adv + fm + 45.0 * mel_loss
         state.gen_opt.zero_grad()
         total.backward()
+    losses = _mean_over_ranks(state.gen_opt.params,
+                              torch.stack([total, mel_loss, fm]).detach(), mesh)
     state.gen_opt.step()
     state.step += 1
-    return state, {"gen_loss": total.detach(), "mel_l1": mel_loss.detach(),
-                   "fm_loss": fm.detach()}
+    return state, dict(zip(("gen_loss", "mel_l1", "fm_loss"), losses.unbind()))

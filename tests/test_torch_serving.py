@@ -40,6 +40,7 @@ from matcha_tts_tpu_torch.inference.server import TTSServer
 from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
 from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
 from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+from matcha_tts_tpu_torch.parallel import mesh as pmesh
 from matcha_tts_tpu_torch.params.from_jax import load_jax_tree
 from port_params import small_synth_weights
 
@@ -221,16 +222,34 @@ def test_synthesize_long_matches_jax(join):
     assert tsyn.synthesize_long("", n_timesteps=2).wav.shape == (0,)
 
 
-def test_mesh_refusals_name_parallelism():
+def test_mesh_refusals_name_parallelism(tmp_path):
+    """The mesh paths now run (their refusals are gone): at world 1, a gloo
+    group of one in this process, `synthesize_long(mesh=)` equals the path
+    without a mesh and `TTSServer(mesh=)` answers; `--data-parallel` and
+    `--mesh` on the CPU without `--backend` refuse to pick gloo."""
     _, tsyn = _pair()
-    item = 'ROADMAP.md Queue 1, "Parallelism"'
-    with pytest.raises(NotImplementedError, match=item):
-        tsyn.synthesize_long("One. Two.", mesh=object())
-    with pytest.raises(NotImplementedError, match=item):
-        TTSServer(tsyn, mesh=object())
     for flag in ("--data-parallel", "--mesh"):
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match="pass backend='gloo'"):
             srv_mod.main([flag, "--device", "cpu"])
+    pmesh.init_process("gloo", "cpu", init_method=f"file://{tmp_path}/store", rank=0,
+                       world_size=1)
+    try:
+        mesh = pmesh.make_mesh()
+        got = tsyn.synthesize_long("One. Two.", mesh=mesh, n_timesteps=2, temperature=0.0)
+        want = tsyn.synthesize_long("One. Two.", n_timesteps=2, temperature=0.0)
+        np.testing.assert_allclose(got.wav, want.wav, atol=TWO_LSB)
+        assert got.mel.shape == want.mel.shape
+        srv = TTSServer(tsyn, mesh=mesh).start()
+        try:
+            body = _post(srv, {"text": "One.", "n_timesteps": 2, "temperature": 0.0}).read()
+        finally:
+            srv.stop()
+        with wave.open(io.BytesIO(body)) as w:
+            pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        alone = tsyn.synthesize_batch(["One."], n_timesteps=2, temperature=0.0)[0].pcm16
+        assert _pcm_diff(pcm, alone) <= 1
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # -- the HTTP server ---------------------------------------------------------

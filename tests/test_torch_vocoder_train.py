@@ -23,11 +23,13 @@ one 2048-sample segment:
 * weight norm's round trip and its (v, g) against the JAX package's;
 * a checkpoint restored into a fresh state resumes bit for bit;
 * `vocoder_cli --debug_tiny` for 2 steps on a corpus synthesised from a
-  seed, a resume, the `gan_meta.json` refusal, and `--data_parallel`'s.
+  seed, a resume, the `gan_meta.json` refusal, and a step under
+  `--data_parallel` in a world of one.
 """
 
 import copy
 import functools
+import socket
 
 import jax
 import jax.numpy as jnp
@@ -330,8 +332,23 @@ def test_vocoder_cli_trains_resumes_and_refuses(tmp_path, capsys):
     assert (work / "metrics.jsonl").read_text().count('"split": "train"') == 3
     with pytest.raises(SystemExit, match="gan_meta|holds checkpoints"):
         vocoder_cli.main(base + ["--steps", "4", "--weight_norm"])
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1, "Parallelism"'):
+    # --data_parallel runs under torchrun's environment (a world of one here);
+    # on the CPU it needs the backend named
+    with pytest.raises(ValueError, match="pass backend='gloo'"):
         vocoder_cli.main(base + ["--data_parallel"])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                         WORLD_SIZE="1", LOCAL_RANK="0").items():
+            mp.setenv(k, v)
+        try:
+            state = vocoder_cli.main(base + ["--steps", "4", "--data_parallel",
+                                             "--backend", "gloo"])
+        finally:
+            torch.distributed.destroy_process_group()
+    assert state.step == 4 and "resumed from step 3" in capsys.readouterr().out
 
 
 def test_vocos_generator_gradients_reach_every_parameter():
