@@ -9,6 +9,7 @@
     python3 chip_smoke.py --serving-only    # phases 1, 2 (mrf only) and 20
     python3 chip_smoke.py --eval-vocoder-only  # phases 1, 2 (mrf only), 21, 22 and 23
     python3 chip_smoke.py --parallel-only   # phases 1, 2 (mrf and mas) and 24
+    python3 chip_smoke.py --export-only     # phases 1, 2 (mrf, attention, unet_blocks) and 25
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
@@ -163,9 +164,22 @@ Phases, each of which raises on failure (no phase catches and carries on):
    bf16 and fp32, `pod_vocode` and `TTSServer(mesh=)` against world 1; the
    ranks run through `parallel.launch.spawn` with a deadline; the kernels
    line gains `dp_launches`, each kernel's launches on these paths.
+25. the serving graph exported ahead of time (`inference/export.py`,
+   `torch.export` with the kernels as `torch.library` ops; see
+   `export_phase`): a bf16 grid over batch buckets 1 and 8 through
+   `export_bucket_grid` / `load_bucket_grid`, an fp32 artifact and a forced
+   one (int8 MRF levels, flash attention) at batch 1, each replay held to
+   the live `_synthesize_packed` on the same noise (y_lengths and durations
+   equal, PCM16 within 2 LSB, mel relative L2 <= 1e-2 in bf16 and max
+   |diff| <= 1e-4 in fp32) with its launches counted; the batch-1 artifact
+   on a second pair of state dicts; export, load and replay times; the
+   native host libraries, the native MAS against the numpy oracle, and one
+   training batch collated with the native WAV reader against scipy (equal
+   batches, host ms); the kernels line gains `export_launches`, each
+   kernel's launches over the replays.
 
 Phases 10-12 and 16 run right after phase 3, 13-14 after phase 6, 17 with
-phase 9 and 18 after it, 19 and 20 after phase 5, 21-24 after 18; the numbers
+phase 9 and 18 after it, 19 and 20 after phase 5, 21-25 after 18; the numbers
 follow the order in which the phases were added, and the kernel table and the
 last two lines come last.
 """
@@ -3349,6 +3363,310 @@ def data_parallel() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: AOT export of the serving graph (torch.export)
+# ---------------------------------------------------------------------------
+
+EXPORT_BATCHES = (1, 8)     # the default grid's batch buckets
+EXPORT_PCM_LSB = 2          # replay against the live call: PCM16 within 2 LSB
+EXPORT_MEL_REL_L2 = 1e-2    # bf16 mel
+EXPORT_FP32_MAX_ABS = 1e-4  # fp32 mel
+EXPORT_TIMED_CALLS = 3      # replayed and eager calls timed (host clock, synchronized)
+COLLATE_ROWS = 64           # TrainConfig().batch_size
+COLLATE_SECONDS = (1.0, 10.0)  # clip lengths drawn uniformly: LJSpeech's range
+COLLATE_REPS = 5            # native and scipy collates, alternated
+
+
+def export_compare(label: str, got, want, fp32: bool) -> dict:
+    """Hold a replay's (packed, mel, attn, durations, y_lengths) to the live
+    call's: y_lengths and durations first (whole frames), then PCM16 within
+    EXPORT_PCM_LSB and the mel (bf16 relative L2, fp32 max |diff|)."""
+    import torch
+
+    packed, mel, _, dur, y_lengths = got
+    want_packed, want_out = want
+    if not torch.equal(y_lengths, want_out.y_lengths) or not torch.equal(dur, want_out.durations):
+        raise AssertionError(f"phase 25 {label}: y_lengths {y_lengths.tolist()} / durations "
+                             f"differ from the live call's {want_out.y_lengths.tolist()}")
+    lsb = int((packed.int() - want_packed.int()).abs().max())
+    if lsb > EXPORT_PCM_LSB:
+        raise AssertionError(f"phase 25 {label}: PCM16 {lsb} LSB off the live call")
+    err = (float((mel - want_out.mel).abs().max()) if fp32
+           else rel_l2(mel.float(), want_out.mel.float()))
+    if not math.isfinite(err) or err > (EXPORT_FP32_MAX_ABS if fp32 else EXPORT_MEL_REL_L2):
+        raise AssertionError(f"phase 25 {label}: mel {'max |diff|' if fp32 else 'rel L2'} {err}")
+    return {"pcm_lsb": lsb, "mel_max_abs" if fp32 else "mel_rel_l2": err,
+            "y_lengths": y_lengths.tolist()}
+
+
+def collate_time() -> dict:
+    """One training batch collated by `BucketBatcher.collate` with the
+    native WAV reader and with scipy's (`wavio_native.native_available`
+    swapped out): COLLATE_ROWS PCM16 mono clips at 22050 Hz of seeded
+    lengths in COLLATE_SECONDS, written to a temporary directory (so read
+    from a warm page cache), COLLATE_REPS collates each, alternated; the
+    two batches must be equal.  Host ms."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from matcha_tts_tpu_torch.config import AudioConfig, TrainConfig
+    from matcha_tts_tpu_torch.data.dataset import BucketBatcher, TextMelDataset
+    from matcha_tts_tpu_torch.native import wavio_native
+
+    rng = np.random.default_rng(64)
+    lo, hi = COLLATE_SECONDS
+    lengths = (rng.uniform(lo, hi, COLLATE_ROWS) * 22050).astype(int)
+    ms = {"native": [], "scipy": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        lines = []
+        for i, n in enumerate(lengths):
+            path = Path(tmp) / f"{i}.wav"
+            wavfile.write(path, 22050, (rng.standard_normal(n) * 3000).astype(np.int16))
+            lines.append(f"{path}|{SENTENCES[i % len(SENTENCES)]}\n")
+        (Path(tmp) / "list.txt").write_text("".join(lines))
+        ds = TextMelDataset(str(Path(tmp) / "list.txt"), AudioConfig(), seed=None)
+        bb = BucketBatcher(ds, TrainConfig(), shuffle=False)
+        idxs = list(range(COLLATE_ROWS))
+        available = wavio_native.native_available
+        batches = {}
+        for _ in range(COLLATE_REPS):
+            for name in ms:
+                wavio_native.native_available = available if name == "native" else (
+                    lambda: False)
+                try:
+                    t0 = time.perf_counter()
+                    batches[name] = bb.collate(idxs)
+                    ms[name].append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    wavio_native.native_available = available
+    for k in batches["native"]:
+        if not np.array_equal(batches["native"][k], batches["scipy"][k]):
+            raise AssertionError(f"phase 25 collate: {k} differs between the native reader "
+                                 f"and scipy")
+    return {"rows": COLLATE_ROWS, "audio": list(batches["native"]["audio"].shape),
+            "native_ms": ms["native"], "scipy_ms": ms["scipy"],
+            "native_median_ms": statistics.median(ms["native"]),
+            "scipy_median_ms": statistics.median(ms["scipy"])}
+
+
+def export_phase() -> dict:
+    """Phase 25: the packed serving graph exported ahead of time
+    (`inference/export.py`), at full width (`MatchaConfig()`,
+    `HiFiGANConfig()`, random weights from seeds 0 and 1, NFE 10,
+    temperature 0.667, length scale 3, denoiser 0.00025), on frame buckets
+    that are multiples of 256 (so that flash's gate passes at T and T/2):
+
+    (1) `export_bucket_grid` in bf16 over batch buckets EXPORT_BATCHES at the
+    text bucket of the longest of the first eight sentences and the frame
+    bucket `predict_frame_bucket` picks for them, written to a temporary
+    directory and read back by `load_bucket_grid`; each entry replayed on
+    `export.noise(seed)` and held to the live `Synthesizer._synthesize_packed`
+    on the same z (`export_compare`), each replay adding one `mrf` and two
+    `mrf_up` launches and nothing else (the graph's ops are the kernels, not
+    their plain versions); (2) one fp32 artifact at batch 1 (level 1 the
+    cluster kernel), mel within EXPORT_FP32_MAX_ABS; (3) one bf16 artifact at
+    batch 1 with `mrf_kernel="int8"` and `attention_impl="flash"` (the
+    audible generator, as phase 13's int8 mode), its replay one `mrf_int8`,
+    one `mrf_up_int8`, one exact `mrf_up` (C = 32 stays exact in bf16) and
+    60 flash forwards, against the eager forced call; (4) the batch-1
+    artifact of (1) called with a second pair of state dicts (Matcha seed 2,
+    an audible generator) and its denoiser's bias, against the live call of
+    those models.  (1) goes through `.pt2` files; (2) and (3) replay their
+    `ExportedProgram.module()` unsaved (the grid proves save and load, which
+    take about 40 s an artifact at full width), so that the phase does the
+    same work on every run.  Export, save and load times, the `.pt2` sizes
+    and the wall ms of a replayed call against the eager call, with the
+    card's name and power limit; the native host libraries build, the
+    native MAS equals the numpy oracle, and `collate_time`.  Raises on any
+    failure."""
+    import numpy as np
+    import torch
+
+    from matcha_tts_tpu_torch import native
+    from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig
+    from matcha_tts_tpu_torch.inference import export
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tts_tpu_torch.native.mas_native import maximum_path_native
+    from matcha_tts_tpu_torch.ops.mas import maximum_path_numpy
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    batches = EXPORT_BATCHES
+    if not native.native_available():
+        raise AssertionError("phase 25: the native host libraries did not build")
+    rng = np.random.default_rng(25)
+    neg_cent = rng.standard_normal((8, 64, 256)).astype(np.float32)
+    t_xs, t_ys = rng.integers(1, 65, 8), rng.integers(1, 257, 8)
+    t_ys[:2] = np.minimum(t_ys[:2], t_xs[:2])  # two items with t_y <= t_x
+    mask = ((np.arange(64)[None, :, None] < t_xs[:, None, None])
+            & (np.arange(256)[None, None, :] < t_ys[:, None, None])).astype(np.float32)
+    if not np.array_equal(maximum_path_native(neg_cent, mask), maximum_path_numpy(neg_cent, mask)):
+        raise AssertionError("phase 25: native MAS differs from the numpy oracle")
+    print("[export] native libraries built; native MAS equals the numpy oracle on "
+          "(8, 64, 256)", flush=True)
+    col = collate_time()
+    print(f"[export] collate of {col['rows']} rows (audio {col['audio']}, warm page cache): "
+          f"native reader {col['native_median_ms']:.1f} ms, scipy {col['scipy_median_ms']:.1f} "
+          f"ms (medians; all {col}), batches equal; {card}", flush=True)
+
+    cfg, hcfg = MatchaConfig(), HiFiGANConfig()
+    model = MatchaTTS(cfg, seed=0, device="cuda")
+    vocoder = HiFiGANGenerator(hcfg, seed=1, device="cuda")
+    gen = dict(n_timesteps=10, temperature=0.667, length_scale=3.0)
+    buckets256 = (256, 512, 768, 1024, 1280, 1536, 2048)
+    kw = dict(frame_buckets=buckets256, denoise_strength=0.00025, device="cuda")
+    syn = Synthesizer(model, cfg, vocoder, hcfg, compute_dtype="bfloat16", **kw)
+    rows = [syn.tokenize(s) for s in SENTENCES[:max(EXPORT_BATCHES)]]  # the buckets of b8
+    t_x = syn._bucket(max(len(r) for r in rows), syn.text_buckets)
+    x8, xl8, _ = syn._inputs(rows, t_x, len(rows))
+    t_y = syn.predict_frame_bucket(x8, xl8, gen["length_scale"], buckets=buckets256)
+    n_feats = cfg.encoder.n_feats
+    grid_kw = dict(n_timesteps=gen["n_timesteps"], temperature=gen["temperature"],
+                   length_scale=gen["length_scale"], denoise_strength=0.00025, device="cuda")
+
+    def inputs(batch: int):
+        x, xl, _ = syn._inputs(rows[:batch], t_x, batch)
+        return x, xl
+
+    def live(s, x, xl, z):
+        return s._synthesize_packed(x, xl, t_y, gen["n_timesteps"], gen["temperature"],
+                                    gen["length_scale"], None, 0, None, z=z)
+
+    def replay(fn, s, x, xl, z):
+        """One replay with the launch counts zeroed before and read after."""
+        zero_all_counts()
+        out = fn(s.model.state_dict(), s.vocoder.state_dict(), z, x, xl,
+                 s._denoiser.bias_spec)
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in all_counts().items() if v}
+
+    def wall_ms(fn) -> list:
+        ms = []
+        for _ in range(EXPORT_TIMED_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    out = {"export_launches": {}, "artifacts": []}
+
+    def count(launches: dict):
+        for k, v in launches.items():
+            out["export_launches"][k] = out["export_launches"].get(k, 0) + v
+
+    def timed_export(label, s, batch, dtype):
+        """Export one artifact, unsaved: (its module, record)."""
+        t0 = time.perf_counter()
+        program = export.export_program(s.model, s.matcha_cfg, s.vocoder, s.hifi_cfg,
+                                        batch=batch, text_bucket=t_x, frame_bucket=t_y,
+                                        compute_dtype=dtype, **grid_kw)
+        t1 = time.perf_counter()
+        return program.module(), {"label": label, "batch": batch, "dtype": dtype,
+                                  "export_s": t1 - t0, "ops": export.kernel_ops(program)}
+
+    # (1) the default grid, through export_bucket_grid / load_bucket_grid
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        manifest = export.export_bucket_grid(model, cfg, vocoder, hcfg, tmp,
+                                             batch_buckets=batches, text_buckets=(t_x,),
+                                             frame_buckets=(t_y,), compute_dtype="bfloat16",
+                                             **grid_kw)
+        t1 = time.perf_counter()
+        table = export.load_bucket_grid(tmp)
+        t2 = time.perf_counter()
+        sizes = {e["batch"]: (Path(tmp) / e["file"]).stat().st_size for e in manifest["entries"]}
+    if manifest["format"] != export.FORMAT or manifest["device"] != "cuda":
+        raise AssertionError(f"phase 25: manifest {manifest}")
+    print(f"[export] grid: batch {batches} x text {t_x} x frames {t_y} bf16, exported "
+          f"and saved in {t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s, .pt2 bytes {sizes}; "
+          f"{card}", flush=True)
+    for b in batches:
+        fn = table[(b, t_x, t_y)]
+        ops = export.kernel_ops(fn)
+        if ops != {"mrf": 1, "mrf_up": 2}:
+            raise AssertionError(f"phase 25 grid b{b}: graph ops {ops}")
+        x, xl = inputs(b)
+        z = export.noise(b, b, t_y, n_feats, "cuda")
+        got, launches = replay(fn, syn, x, xl, z)
+        if launches != {"mrf": 1, "mrf_up": 2}:
+            raise AssertionError(f"phase 25 grid b{b}: a replay launched {launches}, expected "
+                                 f"one mrf and two mrf_up")
+        count(launches)
+        rec = export_compare(f"grid b{b}", got, live(syn, x, xl, z), fp32=False)
+        sd = (model.state_dict(), vocoder.state_dict())
+        rec.update(batch=b, bytes=sizes[b], replay_ms=wall_ms(
+            lambda: fn(*sd, z, x, xl, syn._denoiser.bias_spec)[0].cpu()),
+            eager_ms=wall_ms(lambda: live(syn, x, xl, z)[0].cpu()))
+        out["artifacts"].append(rec)
+        print(f"[export] grid b{b}: {rec}; launches a replay {launches}; {card}", flush=True)
+
+    # (2) fp32 at batch 1 (the audible generator of (3) and (4) is drawn here)
+    x, xl = inputs(1)
+    z = export.noise(11, 1, t_y, n_feats, "cuda")
+    mel = live(syn, x, xl, z)[1].mel[:, :, :t_y].transpose(1, 2).contiguous()
+    audible = audible_copy(vocoder, hcfg, mel, 7)
+    fsyn = Synthesizer(model, cfg, vocoder, hcfg, compute_dtype="float32", **kw)
+    fn, rec = timed_export("fp32_b1", fsyn, 1, "float32")
+    got, launches = replay(fn, fsyn, x, xl, z)
+    if launches != {"mrf": 1, "mrf_up": 2} or rec["ops"] != {"mrf": 1, "mrf_up": 2}:
+        raise AssertionError(f"phase 25 fp32: launches {launches}, graph ops {rec['ops']}")
+    count(launches)
+    rec.update(export_compare("fp32 b1", got, live(fsyn, x, xl, z), fp32=True))
+    sd = (model.state_dict(), vocoder.state_dict(), z, x, xl, fsyn._denoiser.bias_spec)
+    rec.update(replay_ms=wall_ms(lambda: fn(*sd)[0].cpu()),
+               eager_ms=wall_ms(lambda: live(fsyn, x, xl, z)[0].cpu()))
+    out["artifacts"].append(rec)
+    print(f"[export] fp32 b1: {rec}; launches a replay {launches}; {card}", flush=True)
+    # (3) forced: int8 MRF levels and flash attention, bf16, batch 1
+    fcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder,
+                                                                attention_impl="flash"))
+    fmodel = MatchaTTS(fcfg, seed=0, device="cuda")
+    fmodel.load_state_dict(model.state_dict())
+    forced = Synthesizer(fmodel, fcfg, audible, dataclasses.replace(hcfg, mrf_kernel="int8"),
+                         compute_dtype="bfloat16", **kw)
+    fn, rec = timed_export("forced_b1", forced, 1, "bfloat16")
+    want_launches = {"mrf_int8": 1, "mrf_up_int8": 1, "mrf_up": 1, "flash_mha": 60}
+    z = export.noise(12, 1, t_y, n_feats, "cuda")
+    got, launches = replay(fn, forced, x, xl, z)
+    if launches != want_launches or rec["ops"] != {"mrf": 1, "mrf_up": 2, "attention": 60}:
+        raise AssertionError(f"phase 25 forced: launches {launches} (expected "
+                             f"{want_launches}), graph ops {rec['ops']}")
+    count(launches)
+    rec.update(export_compare("forced b1", got, live(forced, x, xl, z), fp32=False))
+    sd = (fmodel.state_dict(), audible.state_dict(), z, x, xl, forced._denoiser.bias_spec)
+    rec.update(replay_ms=wall_ms(lambda: fn(*sd)[0].cpu()),
+               eager_ms=wall_ms(lambda: live(forced, x, xl, z)[0].cpu()))
+    out["artifacts"].append(rec)
+    print(f"[export] forced (int8 + flash) b1: {rec}; launches a replay {launches}; {card}",
+          flush=True)
+
+    # (4) call-time weights: the grid's batch-1 artifact on a second pair of
+    # state dicts and that vocoder's denoiser bias
+    model2 = MatchaTTS(cfg, seed=2, device="cuda")
+    voc2 = audible_copy(vocoder, hcfg, mel, 2)
+    syn2 = Synthesizer(model2, cfg, voc2, hcfg, compute_dtype="bfloat16", **kw)
+    z = export.noise(13, 1, t_y, n_feats, "cuda")
+    got, launches = replay(table[(1, t_x, t_y)], syn2, x, xl, z)
+    if launches != {"mrf": 1, "mrf_up": 2}:
+        raise AssertionError(f"phase 25 second weights: launches {launches}")
+    count(launches)
+    rec = export_compare("second weights b1", got, live(syn2, x, xl, z), fp32=False)
+    first = live(syn, x, xl, z)[0]
+    if torch.equal(got[0], first):
+        raise AssertionError("phase 25: the second state dicts gave the first models' audio")
+    rec["pcm_peak"] = int(got[0][:-1].abs().max())
+    out["artifacts"].append(dict(rec, label="second_weights_b1"))
+    print(f"[export] batch-1 artifact on seed-2 Matcha + audible generator weights: {rec}; "
+          f"{card}", flush=True)
+    print(f"[export] phase 25 in {time.perf_counter() - t_phase:.1f} s; launches over the "
+          f"replays {out['export_launches']}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3369,11 +3687,13 @@ def main() -> int:
     serving_only = "--serving-only" in sys.argv[1:]
     eval_vocoder_only = "--eval-vocoder-only" in sys.argv[1:]
     parallel_only = "--parallel-only" in sys.argv[1:]
+    export_only = "--export-only" in sys.argv[1:]
     t0 = time.perf_counter()
     paths = cuda_build.build_all(["attention"] if attention_only
                                  else ["mrf"] if mrf_only or serving_only or eval_vocoder_only
                                  else ["unet_blocks"] if blocks_only else ["mas"] if mas_only
                                  else ["mrf", "mas"] if parallel_only
+                                 else ["mrf", "attention", "unet_blocks"] if export_only
                                  else cuda_build.SOURCES)
     print(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s: "
           f"{[p.name for p in paths.values()]}", flush=True)
@@ -3419,6 +3739,10 @@ def main() -> int:
         data_parallel()
         print(card)
         return 0
+    if export_only:  # phase 25 alone: the exported serving graph
+        export_phase()
+        print(card)
+        return 0
     table = check_kernels(T_Y, REPS)
     int8_table = check_int8_kernels(T_Y, REPS)
     attn_rows = check_attention(REPS)
@@ -3441,6 +3765,7 @@ def main() -> int:
     vocos_serving()
     gan_training()
     dp = data_parallel()
+    exported = export_phase()
 
     up = [table["level2"], table["level3"]]
     kernels = [
@@ -3616,8 +3941,10 @@ def main() -> int:
     for k in kernels:
         k["shapes"] = shapes[k["name"]]
         # phase 24's launches, summed over its paths and ranks
-        k["dp_launches"] = dp["dp_launches"].get(
-            "flash_mha_bwd" if k["name"].startswith("flash_mha_bwd") else k["name"], 0)
+        counter = "flash_mha_bwd" if k["name"].startswith("flash_mha_bwd") else k["name"]
+        k["dp_launches"] = dp["dp_launches"].get(counter, 0)
+        # phase 25's replays of the exported graphs
+        k["export_launches"] = exported["export_launches"].get(counter, 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@
   from every row's length, read from the WAV headers, so each rank pads to
   the global batch's buckets.
 
-WAVs are read with `scipy.io.wavfile` (int16 PCM / 32768).  The JAX
-package's native multithreaded WAV reader is not ported (ROADMAP Queue 1,
-"The rest of interop and the host utilities").
+WAVs are read by the native batch reader (`native/wavio_native.py`: a
+header scan picks the frame bucket, then C++ threads decode straight into
+the padded batch) where it builds, else with `scipy.io.wavfile` (int16 PCM
+/ 32768); both give the same batch.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from matcha_tts_tpu_torch.config import AudioConfig, TrainConfig
+from matcha_tts_tpu_torch.native import wavio_native
 from matcha_tts_tpu_torch.ops.masking import fix_len_compatibility
 from matcha_tts_tpu_torch.text.tokenizer import encode_text
 
@@ -242,30 +244,48 @@ class BucketBatcher:
             yield self.collate([int(i) for i in idxs])
 
     def collate(self, idxs: List[int]) -> Dict[str, np.ndarray]:
+        """One batch of the dataset's items `idxs` (this rank's rows under a
+        shard), the WAVs read by the native reader where it builds, else by
+        scipy."""
         ds, cfg = self.ds, self.cfg
+        native = wavio_native.native_available()
         t_x = pick_bucket(max(len(ds.items[i].tokens) for i in idxs), cfg.text_buckets)
         rows = slice(None) if self.shard is None else self.shard.rows(len(idxs))
         mine = idxs[rows]
-        wavs = [ds.load_audio(i) for i in mine]
-        others = [] if self.shard is None else idxs[:rows.start] + idxs[rows.stop:]
-        lens = [len(w) for w in wavs] + [ds.audio_len(i) for i in others]
+        if native:
+            # every row's header (the bucket is the global batch's), then
+            # only this rank's rows decoded, into the padded buffer
+            mine_first = mine + ([] if self.shard is None
+                                 else idxs[:rows.start] + idxs[rows.stop:])
+            n_samples, srs = wavio_native.wav_lengths(
+                [ds.items[i].audio_path for i in mine_first])
+            for i, sr in zip(mine_first, srs):
+                ds._check_rate(i, int(sr))
+            lens = [int(n) for n in n_samples]
+        else:
+            wavs = [ds.load_audio(i) for i in mine]
+            others = [] if self.shard is None else idxs[:rows.start] + idxs[rows.stop:]
+            lens = [len(w) for w in wavs] + [ds.audio_len(i) for i in others]
         t_y = pick_bucket(max(ds.n_frames(n) for n in lens), cfg.frame_buckets)
         wav_len = wav_len_for(ds.audio, t_y)
 
         toks = [ds.items[i].tokens for i in mine]
         spks = [ds.items[i].spk for i in mine]
-        frames = [ds.n_frames(len(w)) for w in wavs]
+        frames = [ds.n_frames(n) for n in lens[:len(mine)]]
         b = len(mine)
         x = np.zeros((b, t_x), np.int32)
         audio = np.zeros((b, wav_len), np.float32)
         x_lengths = np.zeros((b,), np.int32)
         y_lengths = np.zeros((b,), np.int32)
-        for i, (t, w, nf) in enumerate(zip(toks, wavs, frames)):
+        if native:
+            wavio_native.load_wav_batch_into([ds.items[i].audio_path for i in mine], audio)
+        for i, (t, nf) in enumerate(zip(toks, frames)):
             n = min(len(t), t_x)
             x[i, :n] = t[:n]
             x_lengths[i] = n
-            m = min(len(w), wav_len)
-            audio[i, :m] = w[:m]
+            if not native:
+                m = min(len(wavs[i]), wav_len)
+                audio[i, :m] = wavs[i][:m]
             y_lengths[i] = min(nf, t_y)
 
         batch = {"x": x, "x_lengths": x_lengths, "audio": audio, "y_lengths": y_lengths}

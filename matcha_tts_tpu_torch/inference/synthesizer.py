@@ -13,8 +13,9 @@ of traffic (`warmup`, `warmup_grid`), splits long text into sentences
 (`split_text`, `stream`, `synthesize_long`) and streams audio as the vocoder
 produces it (`stream_samples`, through `inference/streaming.py`).  The
 vocoder is either family (`HiFiGANConfig` or `VocosConfig`, dispatched by
-`models/vocoder.py`).  The calls are eager; one CUDA graph per bucket is
-ROADMAP.md work.
+`models/vocoder.py`).  The calls are eager; `inference/export.py` exports the
+packed call per bucket ahead of time (`torch.export`), and one CUDA graph per
+bucket is ROADMAP.md work.
 
 Under a data-parallel mesh (one process per rank), `synthesize_batch_sharded`
 splits each text-bucket group's rows over the ranks: every rank calls it
@@ -116,6 +117,24 @@ class LazySynthesisResult:
     @property
     def attn(self) -> np.ndarray:
         return self._aux().attn[self._row, :, :self.y_length].float().cpu().numpy()
+
+
+def pack_pcm(wav: torch.Tensor, y_lengths: torch.Tensor, denoiser: Optional[DenoiserState],
+             strength: float) -> torch.Tensor:
+    """(B, T_wav) vocoder output -> clip -> denoise (where `strength` > 0 and
+    there is a `denoiser`) -> crop/pad to T_wav -> clip -> round(wav * 32767)
+    as int16, packed with the (B,) frame counts: [pcm16 (B * T_wav) |
+    y_lengths (B)].  The eager call and the exported graph
+    (`inference/export.py`) end in it."""
+    wav = torch.clamp(wav.float(), -1.0, 1.0)
+    if strength > 0.0 and denoiser is not None:
+        n = wav.shape[-1]
+        den = denoise(denoiser, wav, strength=strength)
+        if den.shape[-1] < n:
+            den = torch.nn.functional.pad(den, (0, n - den.shape[-1]))
+        wav = torch.clamp(den[..., :n], -1.0, 1.0)
+    pcm = torch.round(wav * 32767.0).to(torch.int16)
+    return torch.cat([pcm.reshape(-1), y_lengths.to(torch.int16)])
 
 
 class Synthesizer:
@@ -248,15 +267,15 @@ class Synthesizer:
 
     @torch.no_grad()
     def _synthesize_packed(self, x, x_lengths, t_y, n_timesteps, temperature,
-                           length_scale, spks, seed, noise_ids):
+                           length_scale, spks, seed, noise_ids, z=None):
         """Text -> mel -> wav -> clip -> denoise -> crop/pad to the bucket's
         length -> clip -> round(wav * 32767) as int16, packed with the frame
-        counts."""
+        counts.  `z` (B, t_y, n_feats) replaces the noise drawn from `seed`."""
         dtype = as_dtype(self.compute_dtype)
         out = self.model.synthesize(
             x, x_lengths, n_timesteps=n_timesteps, t_y_max=t_y,
             temperature=temperature, length_scale=length_scale, spks=spks,
-            compute_dtype=dtype, seed=seed, noise_ids=noise_ids)
+            compute_dtype=dtype, seed=seed, noise_ids=noise_ids, z=z)
         return self._vocode_packed(out.mel, out.y_lengths), out
 
     @torch.no_grad()
@@ -266,15 +285,7 @@ class Synthesizer:
         mel alone."""
         mel_btc = mel.transpose(1, 2).to(as_dtype(self.compute_dtype))
         wav = vocoder_mod.generate(self.vocoder, mel_btc, self.hifi_cfg)
-        wav = torch.clamp(wav.float(), -1.0, 1.0)
-        if self.denoise_strength > 0.0 and self._denoiser is not None:
-            n = wav.shape[-1]
-            den = denoise(self._denoiser, wav, strength=self.denoise_strength)
-            if den.shape[-1] < n:
-                den = torch.nn.functional.pad(den, (0, n - den.shape[-1]))
-            wav = torch.clamp(den[..., :n], -1.0, 1.0)
-        pcm = torch.round(wav * 32767.0).to(torch.int16)
-        return torch.cat([pcm.reshape(-1), y_lengths.to(torch.int16)])
+        return pack_pcm(wav, y_lengths, self._denoiser, self.denoise_strength)
 
     # -- single utterance ----------------------------------------------------
 

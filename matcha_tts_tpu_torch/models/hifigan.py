@@ -201,6 +201,11 @@ class HiFiGANGenerator(nn.Module):
             post = self.conv_post
             srcs = [(post.weight, post.bias)]
             pack = lambda: mrf_cuda.pack_post(post.weight, post.bias, dtype)  # noqa: E731
+        if torch.compiler.is_compiling():
+            # under torch.export (inference/export.py) the packing is part of
+            # the graph, so that the weights stay call-time arguments; the
+            # cache's stamps read storage that a traced tensor does not have
+            return pack()
         stamp = tuple((t.data_ptr(), t._version) for pair in srcs for t in pair)
         key = (i, what, dtype)
         hit = self._packed.get(key)

@@ -36,8 +36,13 @@ base is not 16-byte aligned cannot be a TMA source (bf16) or a 16-byte
 copy's (fp32): the launch fails and the wrapper raises.
 
 On a CPU tensor each wrapper runs its plain version (the forwards through
-autograd); on a CUDA tensor it launches the kernel or raises.  On the card
-both forwards run in an autograd Function: flash's backward launches the
+autograd); on a CUDA tensor it launches the kernel or raises.  The forward
+kernel is the `torch.library` op `matcha_torch::attention` (its CPU
+implementation the plain version), which a wrapper calls where no input
+needs a gradient, so that `torch.export` keeps each attention as one node
+(`inference/export.py`); in eager mode its implementation runs directly
+(`ops/kernel_op.py`).  Under autograd on the card both forwards run in an
+autograd Function that calls the op: flash's backward launches the
 backward kernels on the residuals the forward saved (q, k, v, the mask, o,
 m, l); vmem's backward raises, since the JAX package's whole-row kernel has
 no gradient either.
@@ -46,11 +51,13 @@ no gradient either.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from matcha_tts_tpu_torch.ops import cuda_build
+from matcha_tts_tpu_torch.ops.kernel_op import KernelOp
 
 VMEM_NEG = -1e30
 FLASH_MASK = -0.7 * float(np.finfo(np.float32).max)
@@ -258,6 +265,43 @@ def _launch_bwd(q, k, v, key_mask, o, m, l, do, heads: int, sm_scale: float):
     return dq, dk, dv
 
 
+# The forward kernel as a `torch.library` op (`matcha_torch::attention`,
+# `KernelOp`): the CUDA implementation launches and counts, the CPU one is the
+# plain version, the fake one gives the shapes, so that `torch.export` keeps
+# each attention as one node; an eager call runs the implementation directly.
+# With `stats` (flash only) it also returns the fp32 row statistics m, l
+# (B, H, T); without, two empty tensors in their place.
+
+
+def _attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      key_mask: torch.Tensor, heads: int, sm_scale: float, flash: bool,
+                      stats: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    out, m, l = _launch(q, k, v, key_mask, heads, sm_scale, flash, stats=stats)
+    if not stats:  # two tensors: an op's outputs may not alias each other
+        m, l = q.new_empty(0, dtype=torch.float32), q.new_empty(0, dtype=torch.float32)
+    return out, m, l
+
+
+def _attention_cpu(q, k, v, key_mask, heads, sm_scale, flash, stats):
+    if flash and stats:
+        out, m, l = flash_mha_plain(q, k, v, key_mask, heads, sm_scale, return_stats=True)
+        return out.contiguous(), m.contiguous(), l.contiguous()
+    plain = flash_mha_plain if flash else vmem_mha_plain
+    return (plain(q, k, v, key_mask, heads, sm_scale).contiguous(),
+            q.new_empty(0, dtype=torch.float32), q.new_empty(0, dtype=torch.float32))
+
+
+def _attention_fake(q, k, v, key_mask, heads, sm_scale, flash, stats):
+    b, t, _ = q.shape
+    shape = (b, heads, t) if stats else (0,)
+    return (q.new_empty(q.shape), q.new_empty(shape, dtype=torch.float32),
+            q.new_empty(shape, dtype=torch.float32))
+
+
+_attention_op = KernelOp("matcha_torch::attention", _attention_launch, _attention_cpu,
+                         _attention_fake)
+
+
 class _Attention(torch.autograd.Function):
     """The forward kernel; for flash, the backward kernels on the residuals
     it saves when an input needs a gradient."""
@@ -266,7 +310,7 @@ class _Attention(torch.autograd.Function):
     def forward(ctx, q, k, v, key_mask, heads, sm_scale, flash):
         ctx.flash, ctx.heads, ctx.sm_scale = flash, heads, sm_scale
         save = flash and any(ctx.needs_input_grad[:3])
-        out, m, l = _launch(q, k, v, key_mask, heads, sm_scale, flash, stats=save)
+        out, m, l = _attention_op(q, k, v, key_mask, heads, sm_scale, flash, save)
         if save:
             ctx.save_for_backward(q, k, v, key_mask, out, m, l)
         return out
@@ -285,25 +329,35 @@ class _Attention(torch.autograd.Function):
 
 
 def _check_device(q: torch.Tensor, name: str) -> None:
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+
+
+def _grad_needed(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _forward(q, k, v, key_mask, heads: int, sm_scale: float, flash: bool, name: str):
+    """Through autograd where an input needs a gradient (the CPU's plain
+    version, the card's `_Attention`), else the op alone."""
+    _check_device(q, name)
+    if _grad_needed(q, k, v):
+        if q.device.type == "cpu":
+            plain = flash_mha_plain if flash else vmem_mha_plain
+            return plain(q, k, v, key_mask, heads, sm_scale)
+        return _Attention.apply(q, k, v, key_mask, heads, sm_scale, flash)
+    return _attention_op(q, k, v, key_mask, heads, float(sm_scale), flash, False)[0]
 
 
 def vmem_mha(q, k, v, key_mask, heads: int, sm_scale: float) -> torch.Tensor:
     """Whole-row attention, (B, T, H * D) -> (B, T, H * D)."""
-    if q.device.type == "cpu":
-        return vmem_mha_plain(q, k, v, key_mask, heads, sm_scale)
-    _check_device(q, "vmem_mha")
-    return _Attention.apply(q, k, v, key_mask, heads, sm_scale, False)
+    return _forward(q, k, v, key_mask, heads, sm_scale, False, "vmem_mha")
 
 
 def flash_mha(q, k, v, key_mask, heads: int, sm_scale: float) -> torch.Tensor:
     """Segment-id online-softmax attention, (B, T, H * D) -> (B, T, H * D);
     differentiable (on the card through `flash_mha_bwd`)."""
-    if q.device.type == "cpu":
-        return flash_mha_plain(q, k, v, key_mask, heads, sm_scale)
-    _check_device(q, "flash_mha")
-    return _Attention.apply(q, k, v, key_mask, heads, sm_scale, True)
+    return _forward(q, k, v, key_mask, heads, sm_scale, True, "flash_mha")
 
 
 def flash_mha_fwd(q, k, v, key_mask, heads: int, sm_scale: float):
@@ -311,7 +365,7 @@ def flash_mha_fwd(q, k, v, key_mask, heads: int, sm_scale: float):
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, key_mask, heads, sm_scale, return_stats=True)
     _check_device(q, "flash_mha_fwd")
-    return _launch(q, k, v, key_mask, heads, sm_scale, True, stats=True)
+    return _attention_op(q, k, v, key_mask, heads, float(sm_scale), True, True)
 
 
 def flash_mha_bwd(q, k, v, key_mask, o, m, l, do, heads: int, sm_scale: float):
@@ -320,5 +374,6 @@ def flash_mha_bwd(q, k, v, key_mask, o, m, l, do, heads: int, sm_scale: float):
     dense; the CPU runs `flash_mha_bwd_plain`."""
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, key_mask, o, m, l, do, heads, sm_scale)
-    _check_device(q, "flash_mha_bwd")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha_bwd runs on cuda or cpu, not {q.device}")
     return _launch_bwd(q, k, v, key_mask, o, m, l, do, heads, sm_scale)

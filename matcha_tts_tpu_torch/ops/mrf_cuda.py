@@ -33,7 +33,13 @@ Rounding follows the TPU kernel: the residual chain and the branch sum stay
 fp32, conv inputs are rounded to the working dtype, and the output is cast
 once.  The plain versions below compute the same function with the same
 rounding points from `F.conv1d`; a wrapper uses them only for tensors on the
-CPU.  For a CUDA tensor it launches the kernel or raises.
+CPU.  For a CUDA tensor it launches the kernel or raises.  Each wrapper calls
+a `torch.library` op (`matcha_torch::mrf`, `mrf_tap`, `mrf_up`) whose CUDA
+implementation is the launch and whose CPU implementation is the plain
+version, so that `torch.export` keeps the level as one node
+(`inference/export.py`) and a replay of the exported graph launches, and
+counts, the kernel; an eager call skips the op's dispatch and runs the same
+implementation directly (`ops/kernel_op.py`).
 
 `mrf_tap` is the fp32 `mrf` kernel (on the tensor cores, three TF32 terms)
 under the name of the TPU kernel it also replaces,
@@ -70,6 +76,7 @@ import torch
 import torch.nn.functional as F
 
 from matcha_tts_tpu_torch.ops import cuda_build
+from matcha_tts_tpu_torch.ops.kernel_op import KernelOp
 
 KERNEL_SIZES = (3, 7, 11)
 DILATIONS = (1, 3, 5)
@@ -557,19 +564,23 @@ def int8_info(x: torch.Tensor, c: int, up: bool = False, post: bool = False) -> 
 
 
 def _device(x: torch.Tensor, name: str) -> None:
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
 
 
-def mrf(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-        ws: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One MRF level, x (B, T, C) -> (B, T, C), C in {32, 64, 128}; with `ws`
-    (and `w`, `b` from `pack_level_int8`) the int8 level, C up to 256."""
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops (namespace `matcha_torch`, `KernelOp`):
+# the CUDA implementation launches the kernel and counts the launch, the CPU
+# one is the plain version, and the fake one gives the output's shape, so
+# that `torch.export` records each level as one op node that a replay
+# launches; an eager call runs the implementation directly
+# ---------------------------------------------------------------------------
+
+
+def _mrf_launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+            ws: Optional[torch.Tensor] = None) -> torch.Tensor:
     bsz, t, c = x.shape
     if ws is not None:
-        if x.device.type == "cpu":
-            return mrf_int8_plain(x, w, b, ws, *int8_window(c, t))
-        _device(x, "mrf")
         if c not in INT8_CHANNELS:
             raise ValueError(f"int8 mrf kernel takes C in {INT8_CHANNELS}, got {c}")
         _check("x", x, x.shape, x.dtype, x.device)
@@ -578,9 +589,6 @@ def mrf(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         _launch_int8(x, t, c, False, False, None, None, w, b, ws, None, None, out, None)
         LAUNCHES["mrf_int8"] += 1
         return out
-    if x.device.type == "cpu":
-        return mrf_plain(x, w, b)
-    _device(x, "mrf")
     if c not in (32, 64, 128):
         raise ValueError(f"mrf kernel takes C in (32, 64, 128), got {c}")
     _check("x", x, x.shape, x.dtype, x.device)
@@ -591,11 +599,20 @@ def mrf(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def mrf_tap(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The fp32 MRF level at C in {32, 64}, for `mrf_kernel="tap"`."""
-    if x.device.type == "cpu":
-        return mrf_plain(x, w, b)
-    _device(x, "mrf_tap")
+def _mrf_cpu(x, w, b, ws=None):
+    if ws is not None:
+        return mrf_int8_plain(x, w, b, ws, *int8_window(x.shape[2], x.shape[1])).contiguous()
+    return mrf_plain(x, w, b).contiguous()
+
+
+def _mrf_fake(x, w, b, ws=None):
+    return x.new_empty(x.shape)
+
+
+_mrf_op = KernelOp("matcha_torch::mrf", _mrf_launch, _mrf_cpu, _mrf_fake)
+
+
+def _mrf_tap_launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c = x.shape[2]
     if x.dtype != torch.float32 or c not in (32, 64):
         raise ValueError(f"mrf_tap takes float32 at C in (32, 64), got {x.dtype}, C={c}")
@@ -607,24 +624,23 @@ def mrf_tap(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def mrf_up(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
-           w: torch.Tensor, b: torch.Tensor,
-           wpost: Optional[torch.Tensor] = None,
-           bpost: Optional[torch.Tensor] = None,
-           ws: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Upsample + MRF level, x (B, T_in, 2C) -> (B, 2 T_in, C), C in {32, 64};
-    with `wpost`/`bpost`, the wav (B, 2 T_in) of the generator tail; with
-    `ws` (and `w`, `b` from `pack_level_int8`) the level's chain in int8."""
-    if (wpost is None) != (bpost is None):
-        raise ValueError("wpost and bpost go together")
+def _mrf_tap_cpu(x, w, b):
+    return mrf_plain(x, w, b).contiguous()
+
+
+def _mrf_tap_fake(x, w, b):
+    return x.new_empty(x.shape)
+
+
+_mrf_tap_op = KernelOp("matcha_torch::mrf_tap", _mrf_tap_launch, _mrf_tap_cpu, _mrf_tap_fake)
+
+
+def _mrf_up_launch(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor, wpost: Optional[torch.Tensor] = None,
+                   bpost: Optional[torch.Tensor] = None,
+                   ws: Optional[torch.Tensor] = None) -> torch.Tensor:
     bsz, t_in, c_in = x.shape
     c = c_in // 2
-    if x.device.type == "cpu":
-        if ws is not None:
-            tile, halo = int8_window(c, 2 * t_in, True, wpost is not None)
-            return mrf_up_int8_plain(x, wup, bup, w, b, ws, wpost, bpost, tile=tile, halo=halo)
-        return mrf_up_plain(x, wup, bup, w, b, wpost, bpost)
-    _device(x, "mrf_up")
     if c not in (32, 64) or c_in != 2 * c:
         raise ValueError(f"mrf_up kernel takes C_in in (64, 128), got {c_in}")
     _check("x", x, x.shape, x.dtype, x.device)
@@ -650,6 +666,53 @@ def mrf_up(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
         _launch_int8(x, t_out, c, True, post, wup, bup, w, b, ws, wpost, bpost, out, wav)
         LAUNCHES["mrf_up_int8"] += 1
     return wav if post else out
+
+
+def _mrf_up_cpu(x, wup, bup, w, b, wpost=None, bpost=None, ws=None):
+    if ws is not None:
+        tile, halo = int8_window(x.shape[2] // 2, 2 * x.shape[1], True, wpost is not None)
+        out = mrf_up_int8_plain(x, wup, bup, w, b, ws, wpost, bpost, tile=tile, halo=halo)
+    else:
+        out = mrf_up_plain(x, wup, bup, w, b, wpost, bpost)
+    return out.contiguous()
+
+
+def _mrf_up_fake(x, wup, bup, w, b, wpost=None, bpost=None, ws=None):
+    bsz, t_in, c_in = x.shape
+    if wpost is not None:
+        return x.new_empty((bsz, 2 * t_in))
+    return x.new_empty((bsz, 2 * t_in, c_in // 2))
+
+
+_mrf_up_op = KernelOp("matcha_torch::mrf_up", _mrf_up_launch, _mrf_up_cpu, _mrf_up_fake)
+
+
+def mrf(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+        ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One MRF level, x (B, T, C) -> (B, T, C), C in {32, 64, 128}; with `ws`
+    (and `w`, `b` from `pack_level_int8`) the int8 level, C up to 256."""
+    _device(x, "mrf")
+    return _mrf_op(x, w, b, ws)
+
+
+def mrf_tap(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The fp32 MRF level at C in {32, 64}, for `mrf_kernel="tap"`."""
+    _device(x, "mrf_tap")
+    return _mrf_tap_op(x, w, b)
+
+
+def mrf_up(x: torch.Tensor, wup: torch.Tensor, bup: torch.Tensor,
+           w: torch.Tensor, b: torch.Tensor,
+           wpost: Optional[torch.Tensor] = None,
+           bpost: Optional[torch.Tensor] = None,
+           ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Upsample + MRF level, x (B, T_in, 2C) -> (B, 2 T_in, C), C in {32, 64};
+    with `wpost`/`bpost`, the wav (B, 2 T_in) of the generator tail; with
+    `ws` (and `w`, `b` from `pack_level_int8`) the level's chain in int8."""
+    if (wpost is None) != (bpost is None):
+        raise ValueError("wpost and bpost go together")
+    _device(x, "mrf_up")
+    return _mrf_up_op(x, wup, bup, w, b, wpost, bpost, ws)
 
 
 def level_convs(resblocks: Sequence) -> List[Tuple[torch.Tensor, torch.Tensor]]:

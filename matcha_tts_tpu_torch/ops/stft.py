@@ -125,8 +125,10 @@ def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int = 1024,
     H100, PyTorch 2.11 with CUDA 12.8; `tools/irfft_dc_check.py`)."""
     mag, phase = magnitude.float(), phase.float()
     n_frames = mag.shape[-1]
-    window, imag_kept, norm = _istft_constants(n_fft, hop_length, win_length, n_frames,
-                                               mag.device)
+    # built afresh while torch.export traces (inference/export.py), so that
+    # no traced tensor is kept in the cache for the eager calls after it
+    constants = _istft_constants.__wrapped__ if torch.compiler.is_compiling() else _istft_constants
+    window, imag_kept, norm = constants(n_fft, hop_length, win_length, n_frames, mag.device)
     spec = torch.complex(mag * torch.cos(phase), mag * torch.sin(phase) * imag_kept)
     frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1) * window
 

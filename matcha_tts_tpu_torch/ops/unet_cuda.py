@@ -30,7 +30,11 @@ rematerialising trade of the JAX package's custom VJPs.  The backward is not
 a kernel in either package.
 
 `block1d` / `resnet1d` run the plain version for CPU tensors; for CUDA
-tensors they launch the kernel or raise.
+tensors they launch the kernel or raise.  Each calls a `torch.library` op
+(`matcha_torch::block1d`, `matcha_torch::resnet1d`; the CPU implementation
+the plain version), inside `_Remat` where an input needs a gradient, so that
+`torch.export` keeps each block as one node (`inference/export.py`); in eager
+mode its implementation runs directly (`ops/kernel_op.py`).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from matcha_tts_tpu_torch.ops import cuda_build
+from matcha_tts_tpu_torch.ops.kernel_op import KernelOp
 
 GROUPS = 8
 EPS = 1e-5
@@ -272,19 +277,71 @@ class _Remat(torch.autograd.Function):
                                            ctx.needs_input_grad[2:], grad_out)
 
 
+# ---------------------------------------------------------------------------
+# the kernels as torch.library ops (`matcha_torch::block1d`, `resnet1d`,
+# `KernelOp`): the CUDA implementation launches and counts, the CPU one is
+# the plain version, the fake one gives the shape, so that `torch.export`
+# keeps each block as one node; an eager call runs the implementation directly
+# ---------------------------------------------------------------------------
+
+
+def _block1d_launch(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    return block1d_kernel(x, mask, weight, bias, gamma, beta)
+
+
+def _block1d_cpu(x, mask, weight, bias, gamma, beta):
+    return block1d_plain(x, mask, weight, bias, gamma, beta).contiguous()
+
+
+def _block1d_fake(x, mask, weight, bias, gamma, beta):
+    return x.new_empty(x.shape[:2] + (weight.shape[0],))
+
+
+_block1d_op = KernelOp("matcha_torch::block1d", _block1d_launch, _block1d_cpu, _block1d_fake)
+
+
+def _resnet1d_launch(x: torch.Tensor, mask: torch.Tensor, temb_row: torch.Tensor,
+                     w1: torch.Tensor, b1: torch.Tensor, g1: torch.Tensor, be1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor, g2: torch.Tensor, be2: torch.Tensor,
+                     wr: torch.Tensor, br: torch.Tensor) -> torch.Tensor:
+    return resnet1d_kernel(x, mask, temb_row, w1, b1, g1, be1, w2, b2, g2, be2, wr, br)
+
+
+def _resnet1d_cpu(*args):
+    return resnet1d_plain(*args).contiguous()
+
+
+def _resnet1d_fake(x, mask, temb_row, w1, *rest):
+    return x.new_empty(x.shape[:2] + (w1.shape[0],))
+
+
+_resnet1d_op = KernelOp("matcha_torch::resnet1d", _resnet1d_launch, _resnet1d_cpu,
+                        _resnet1d_fake)
+
+
+def _run(op, plain, args):
+    """The op alone where no input needs a gradient; else through autograd:
+    the CPU's plain version, the card's `_Remat` around the op."""
+    x = args[0]
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the U-Net block kernels run on cuda or cpu, not {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if x.device.type == "cpu":
+            return plain(*args)
+        return _Remat.apply(op, plain, *args)
+    return op(*args)
+
+
 def block1d(x: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
             bias: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """Block1D: x (B, T, C_in), mask (B, T) -> mish(GN(conv_k3(x * m))) * m."""
-    if x.device.type == "cpu":
-        return block1d_plain(x, mask, weight, bias, gamma, beta)
-    return _Remat.apply(block1d_kernel, block1d_plain, x, mask, weight, bias, gamma, beta)
+    return _run(_block1d_op, block1d_plain, (x, mask, weight, bias, gamma, beta))
 
 
 def resnet1d(x: torch.Tensor, mask: torch.Tensor, temb_row: torch.Tensor,
              w1, b1, g1, be1, w2, b2, g2, be2, wr, br) -> torch.Tensor:
     """ResnetBlock1D: x (B, T, C_in), mask (B, T), temb_row (B, C_out) (the
     time-MLP output) -> (B, T, C_out)."""
-    args = (x, mask, temb_row, w1, b1, g1, be1, w2, b2, g2, be2, wr, br)
-    if x.device.type == "cpu":
-        return resnet1d_plain(*args)
-    return _Remat.apply(resnet1d_kernel, resnet1d_plain, *args)
+    return _run(_resnet1d_op, resnet1d_plain,
+                (x, mask, temb_row, w1, b1, g1, be1, w2, b2, g2, be2, wr, br))

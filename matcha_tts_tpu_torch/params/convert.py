@@ -1,8 +1,10 @@
 """Lightning / PyTorch checkpoints of the reference Matcha-TTS and HiFi-GAN
 -> the JAX package's parameter trees (nested dicts of numpy arrays), which
 `params/from_jax.py::load_jax_tree` then loads into the port's modules, so
-that there is one loader.  A copy of `matcha_tts_tpu/params/convert.py`'s
-import side (the port imports nothing of the JAX package).
+that there is one loader; and back (`export_matcha`, `export_vocos`): the
+port's modules, or such trees, -> state dicts in the reference's names and
+torch layouts.  A copy of `matcha_tts_tpu/params/convert.py` (the port
+imports nothing of the JAX package).
 
 The reference's Lightning checkpoints keep their state dict under `model.`
 (stripped at load) with the module tree `encoder.*` / `decoder.estimator.*`
@@ -97,9 +99,17 @@ def conv_w(w: Array) -> Array:
     return np.ascontiguousarray(np.transpose(w, (2, 1, 0)))  # (O,I,W)->(W,I,O)
 
 
+def conv_w_inv(w: Array) -> Array:
+    return np.ascontiguousarray(np.transpose(w, (2, 1, 0)))  # (W,I,O)->(O,I,W)
+
+
 def convT_w(w: Array) -> Array:
     # torch (I, O, W) -> flipped (W, I, O)
     return np.ascontiguousarray(np.transpose(w, (2, 0, 1))[::-1])
+
+
+def convT_w_inv(w: Array) -> Array:
+    return np.ascontiguousarray(np.transpose(w[::-1], (1, 2, 0)))
 
 
 def lin_w(w: Array) -> Array:
@@ -297,6 +307,122 @@ def convert_matcha(sd: StateDict, cfg: MatchaConfig) -> dict:
     return params
 
 
+def _tree(module_or_tree) -> dict:
+    """A JAX-layout tree: a module's through `params/from_jax.py::to_jax_tree`,
+    a tree as it is."""
+    if isinstance(module_or_tree, dict):
+        return module_or_tree
+    from matcha_tts_tpu_torch.params.from_jax import to_jax_tree
+
+    return to_jax_tree(module_or_tree)
+
+
+def export_matcha(model_or_tree, cfg: MatchaConfig) -> StateDict:
+    """A `MatchaTTS` (or its JAX-layout tree) -> the reference's state dict
+    (numpy, the Lightning names without the `model.` prefix, torch layouts).
+    Inverse of `convert_matcha`."""
+    params = _tree(model_or_tree)
+    sd: StateDict = {}
+
+    def put_conv(prefix, p):
+        sd[f"{prefix}.weight"] = conv_w_inv(np.asarray(p["weight"]))
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+    def put_convT(prefix, p):
+        sd[f"{prefix}.weight"] = convT_w_inv(np.asarray(p["weight"]))
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+    def put_lin(prefix, p):
+        sd[f"{prefix}.weight"] = np.asarray(p["weight"]).T
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+    def put_gb(prefix, p):
+        sd[f"{prefix}.gamma"] = np.asarray(p["gamma"])
+        sd[f"{prefix}.beta"] = np.asarray(p["beta"])
+
+    def put_wb(prefix, p):
+        sd[f"{prefix}.weight"] = np.asarray(p["gamma"])
+        sd[f"{prefix}.bias"] = np.asarray(p["beta"])
+
+    def put_resnet(prefix, p):
+        put_lin(f"{prefix}.mlp.1", p["mlp"])
+        put_conv(f"{prefix}.block1.block.0", p["block1"]["conv"])
+        put_wb(f"{prefix}.block1.block.1", p["block1"]["norm"])
+        put_conv(f"{prefix}.block2.block.0", p["block2"]["conv"])
+        put_wb(f"{prefix}.block2.block.1", p["block2"]["norm"])
+        put_conv(f"{prefix}.res_conv", p["res_conv"])
+
+    def put_tb(prefix, p):
+        put_wb(f"{prefix}.norm1", p["norm1"])
+        put_lin(f"{prefix}.attn1.to_q", p["attn1"]["to_q"])
+        put_lin(f"{prefix}.attn1.to_k", p["attn1"]["to_k"])
+        put_lin(f"{prefix}.attn1.to_v", p["attn1"]["to_v"])
+        put_lin(f"{prefix}.attn1.to_out.0", p["attn1"]["to_out"])
+        put_wb(f"{prefix}.norm3", p["norm3"])
+        put_lin(f"{prefix}.ff.net.0.proj", p["ff"]["act"]["proj"])
+        sd[f"{prefix}.ff.net.0.alpha"] = np.asarray(p["ff"]["act"]["alpha"])
+        sd[f"{prefix}.ff.net.0.beta"] = np.asarray(p["ff"]["act"]["beta"])
+        put_lin(f"{prefix}.ff.net.2", p["ff"]["out"])
+
+    e = params["encoder"]
+    sd["encoder.emb.weight"] = np.asarray(e["emb"]["weight"])
+    if "prenet" in e:
+        for i, (c, n) in enumerate(zip(e["prenet"]["conv_layers"],
+                                       e["prenet"]["norm_layers"])):
+            put_conv(f"encoder.prenet.conv_layers.{i}", c)
+            put_gb(f"encoder.prenet.norm_layers.{i}", n)
+        put_conv("encoder.prenet.proj", e["prenet"]["proj"])
+    for i, layer in enumerate(e["encoder"]["layers"]):
+        for name in ("conv_q", "conv_k", "conv_v", "conv_o"):
+            put_conv(f"encoder.encoder.attn_layers.{i}.{name}", layer["attn"][name])
+        put_gb(f"encoder.encoder.norm_layers_1.{i}", layer["norm_1"])
+        put_conv(f"encoder.encoder.ffn_layers.{i}.conv_1", layer["ffn"]["conv_1"])
+        put_conv(f"encoder.encoder.ffn_layers.{i}.conv_2", layer["ffn"]["conv_2"])
+        put_gb(f"encoder.encoder.norm_layers_2.{i}", layer["norm_2"])
+    put_conv("encoder.proj_m", e["proj_m"])
+    for name in ("conv_1", "conv_2", "proj"):
+        put_conv(f"encoder.proj_w.{name}", e["proj_w"][name])
+    put_gb("encoder.proj_w.norm_1", e["proj_w"]["norm_1"])
+    put_gb("encoder.proj_w.norm_2", e["proj_w"]["norm_2"])
+
+    est = params["decoder"]["estimator"]
+    put_lin("decoder.estimator.time_mlp.linear_1", est["time_mlp"]["linear_1"])
+    put_lin("decoder.estimator.time_mlp.linear_2", est["time_mlp"]["linear_2"])
+    n_levels = len(est["down_blocks"])
+    for i, level in enumerate(est["down_blocks"]):
+        put_resnet(f"decoder.estimator.down_blocks.{i}.0", level["resnet"])
+        for j, tb in enumerate(level["transformer_blocks"]):
+            put_tb(f"decoder.estimator.down_blocks.{i}.1.{j}", tb)
+        if i < n_levels - 1:
+            put_conv(f"decoder.estimator.down_blocks.{i}.2.conv", level["downsample"])
+        else:
+            put_conv(f"decoder.estimator.down_blocks.{i}.2", level["downsample"])
+    for i, block in enumerate(est["mid_blocks"]):
+        put_resnet(f"decoder.estimator.mid_blocks.{i}.0", block["resnet"])
+        for j, tb in enumerate(block["transformer_blocks"]):
+            put_tb(f"decoder.estimator.mid_blocks.{i}.1.{j}", tb)
+    for i, level in enumerate(est["up_blocks"]):
+        put_resnet(f"decoder.estimator.up_blocks.{i}.0", level["resnet"])
+        for j, tb in enumerate(level["transformer_blocks"]):
+            put_tb(f"decoder.estimator.up_blocks.{i}.1.{j}", tb)
+        if i < n_levels - 1:
+            put_convT(f"decoder.estimator.up_blocks.{i}.2.conv", level["upsample"])
+        else:
+            put_conv(f"decoder.estimator.up_blocks.{i}.2", level["upsample"])
+    put_conv("decoder.estimator.final_block.block.0", est["final_block"]["conv"])
+    put_wb("decoder.estimator.final_block.block.1", est["final_block"]["norm"])
+    put_conv("decoder.estimator.final_proj", est["final_proj"])
+
+    sd["mel_mean"] = np.asarray(params["mel_mean"])
+    sd["mel_std"] = np.asarray(params["mel_std"])
+    if "spk_emb" in params:
+        sd["spk_emb.weight"] = np.asarray(params["spk_emb"]["weight"])
+    return sd
+
+
 # ---------------------------------------------------------------------------
 # HiFi-GAN tree
 # ---------------------------------------------------------------------------
@@ -367,3 +493,32 @@ def convert_vocos(sd: StateDict, cfg: VocosConfig) -> dict:
                                "pw2": _lin(sd, f"{p}.pwconv2"),
                                "gamma": sd[f"{p}.gamma"]})
     return tree
+
+
+def export_vocos(model_or_tree) -> StateDict:
+    """A `Vocos` (or its JAX-layout tree) -> the official Vocos state dict's
+    names and torch layouts (numpy).  Inverse of `convert_vocos`."""
+    params = _tree(model_or_tree)
+    np_ = np.asarray
+    sd = {
+        "backbone.embed.weight": conv_w_inv(np_(params["embed"]["weight"])),
+        "backbone.embed.bias": np_(params["embed"]["bias"]),
+        "backbone.norm.weight": np_(params["norm_pre"]["gamma"]),
+        "backbone.norm.bias": np_(params["norm_pre"]["beta"]),
+        "backbone.final_layer_norm.weight": np_(params["norm_post"]["gamma"]),
+        "backbone.final_layer_norm.bias": np_(params["norm_post"]["beta"]),
+        "head.out.weight": np_(params["head"]["weight"]).T.copy(),
+        "head.out.bias": np_(params["head"]["bias"]),
+    }
+    for i, blk in enumerate(params["blocks"]):
+        p = f"backbone.convnext.{i}"
+        sd[f"{p}.dwconv.weight"] = conv_w_inv(np_(blk["dwconv"]["weight"]))
+        sd[f"{p}.dwconv.bias"] = np_(blk["dwconv"]["bias"])
+        sd[f"{p}.norm.weight"] = np_(blk["norm"]["gamma"])
+        sd[f"{p}.norm.bias"] = np_(blk["norm"]["beta"])
+        sd[f"{p}.pwconv1.weight"] = np_(blk["pw1"]["weight"]).T.copy()
+        sd[f"{p}.pwconv1.bias"] = np_(blk["pw1"]["bias"])
+        sd[f"{p}.pwconv2.weight"] = np_(blk["pw2"]["weight"]).T.copy()
+        sd[f"{p}.pwconv2.bias"] = np_(blk["pw2"]["bias"])
+        sd[f"{p}.gamma"] = np_(blk["gamma"])
+    return sd

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from matcha_tts_tpu_torch.ops import mrf_cuda
+from torch_op_samples import SAMPLE_NAMES, kernel_op_sample
 
 pytestmark = pytest.mark.gpu
 
@@ -885,3 +886,13 @@ def test_streaming_vocoder_replays_the_full_pass(cuda):
                 assert float((got - full).abs().max()) <= 2e-4
             else:
                 assert float((got - full).norm() / full.norm()) <= 1e-2
+
+
+@pytest.mark.parametrize("name", SAMPLE_NAMES)
+def test_kernel_ops_pass_opcheck_on_the_card(cuda, name):
+    """Each kernel op (`matcha_torch::*`, the launches behind the wrappers and
+    behind an exported graph's nodes) passes `torch.library.opcheck` on CUDA
+    tensors: its schema, its fake implementation against the kernel's
+    output, no output aliasing an input or another output, tracing."""
+    op, args = kernel_op_sample(name, cuda)
+    torch.library.opcheck(op, args)
