@@ -9,7 +9,7 @@
     python3 chip_smoke.py --serving-only    # phases 1, 2 (mrf only) and 20
     python3 chip_smoke.py --eval-vocoder-only  # phases 1, 2 (mrf only), 21, 22 and 23
     python3 chip_smoke.py --parallel-only   # phases 1, 2 (mrf and mas) and 24
-    python3 chip_smoke.py --export-only     # phases 1, 2 (mrf, attention, unet_blocks) and 25
+    python3 chip_smoke.py --export-only     # phases 1, 2 (mrf, attention, unet_blocks), 25 and 26
 
 Phases, each of which raises on failure (no phase catches and carries on):
 
@@ -176,10 +176,20 @@ Phases, each of which raises on failure (no phase catches and carries on):
    native host libraries, the native MAS against the numpy oracle, and one
    training batch collated with the native WAV reader against scipy (equal
    batches, host ms); the kernels line gains `export_launches`, each
-   kernel's launches over the replays.
+   kernel's launches over the replays;
+26. a JAX Orbax run (`tests/golden/orbax_small/`, committed, written by
+   `tools/make_orbax_fixture.py`) read by `params/io.py::load_orbax_matcha`
+   without JAX, orbax or tensorstore (see `orbax_phase`): at its latest step
+   and at `step=1`, each state dict bit for bit equal to `load_jax_tree` of
+   the step's `.npz` sidecar and the config equal to its `config.json`; the
+   model on the card synthesises one sentence through
+   `Synthesizer.synthesize` in bf16 with `HiFiGANConfig()` (seed-1 weights),
+   batch 1, NFE 10: one `mrf` and two `mrf_up` launches, a finite wav of 256
+   samples a frame; the read times with the card's name and power limit; the
+   kernels line gains `orbax_launches`.
 
 Phases 10-12 and 16 run right after phase 3, 13-14 after phase 6, 17 with
-phase 9 and 18 after it, 19 and 20 after phase 5, 21-25 after 18; the numbers
+phase 9 and 18 after it, 19 and 20 after phase 5, 21-26 after 18; the numbers
 follow the order in which the phases were added, and the kernel table and the
 last two lines come last.
 """
@@ -3667,6 +3677,71 @@ def export_phase() -> dict:
     return out
 
 
+ORBAX_FIXTURE = REPO / "tests" / "golden" / "orbax_small"
+
+
+def orbax_phase() -> dict:
+    """Phase 26: the committed JAX Orbax run read without JAX (see the
+    module docstring), then one bf16 `synthesize` call of the loaded model
+    on the card with its launches counted.  Raises on any failure."""
+    import numpy as np
+    import torch
+
+    from matcha_tts_tpu_torch.config import HiFiGANConfig, config_to_dict
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from matcha_tts_tpu_torch.models.hifigan import HiFiGANGenerator
+    from matcha_tts_tpu_torch.native import zstd
+    from matcha_tts_tpu_torch.params.from_jax import load_jax_tree, read_npz
+    from matcha_tts_tpu_torch.params.io import load_orbax_matcha
+    from matcha_tts_tpu_torch.params.orbax import read_orbax_tree
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    config = json.loads((ORBAX_FIXTURE / "config.json").read_text())
+    print(f"[orbax] libzstd: {zstd.library_name()}", flush=True)
+    out, models = {}, {}
+    for step, sidecar in ((None, 2), (1, 1)):
+        t0 = time.perf_counter()
+        read_orbax_tree(ORBAX_FIXTURE, step)
+        t1 = time.perf_counter()
+        model, cfg = load_orbax_matcha(ORBAX_FIXTURE, step, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if config_to_dict(cfg) != config:
+            raise AssertionError(f"phase 26 step {step}: config {config_to_dict(cfg)}")
+        want, _ = load_jax_tree({"matcha": read_npz(ORBAX_FIXTURE / f"params_step{sidecar}.npz")},
+                                cfg, device="cuda")
+        got, ref = model.state_dict(), want.state_dict()
+        if got.keys() != ref.keys() or not all(torch.equal(got[k], ref[k]) for k in ref):
+            raise AssertionError(f"phase 26 step {step}: the state dict differs from "
+                                 f"params_step{sidecar}.npz")
+        models[step] = model
+        out[f"step_{step or 'latest'}"] = {"read_tree_ms": (t1 - t0) * 1e3,
+                                           "load_to_card_ms": (t2 - t1) * 1e3}
+        print(f"[orbax] step {step or 'latest'} ({sidecar}): whole state read in "
+              f"{(t1 - t0) * 1e3:.1f} ms, params read + model on the card in "
+              f"{(t2 - t1) * 1e3:.1f} ms (warm page cache), {len(ref)} tensors bit for bit equal to "
+              f"params_step{sidecar}.npz; {card}", flush=True)
+    hcfg = HiFiGANConfig()
+    vocoder = HiFiGANGenerator(hcfg, seed=1, device="cuda")
+    syn = Synthesizer(models[None], cfg, vocoder, hcfg, compute_dtype="bfloat16",
+                      denoise_strength=0.00025, device="cuda")
+    zero_all_counts()
+    r = syn.synthesize(SENTENCES[0], n_timesteps=10, temperature=0.667, length_scale=3.0)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_counts().items() if v}
+    if launches != {"mrf": 1, "mrf_up": 2}:
+        raise AssertionError(f"phase 26: the synthesis launched {launches}, expected one "
+                             f"mrf and two mrf_up")
+    if not np.isfinite(r.wav).all() or r.y_length < 1 or len(r.wav) != r.y_length * 256:
+        raise AssertionError(f"phase 26: {len(r.wav)} samples for {r.y_length} frames")
+    out.update(orbax_launches=launches, y_length=r.y_length)
+    print(f"[orbax] synthesis of the loaded model, bf16, batch 1: {r.y_length} frames, "
+          f"launches {launches}; phase 26 in {time.perf_counter() - t_phase:.1f} s; {card}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3739,8 +3814,9 @@ def main() -> int:
         data_parallel()
         print(card)
         return 0
-    if export_only:  # phase 25 alone: the exported serving graph
+    if export_only:  # phases 25 and 26: the exported serving graph, a JAX Orbax run
         export_phase()
+        orbax_phase()
         print(card)
         return 0
     table = check_kernels(T_Y, REPS)
@@ -3766,6 +3842,7 @@ def main() -> int:
     gan_training()
     dp = data_parallel()
     exported = export_phase()
+    orbax_run = orbax_phase()
 
     up = [table["level2"], table["level3"]]
     kernels = [
@@ -3945,6 +4022,8 @@ def main() -> int:
         k["dp_launches"] = dp["dp_launches"].get(counter, 0)
         # phase 25's replays of the exported graphs
         k["export_launches"] = exported["export_launches"].get(counter, 0)
+        # phase 26's synthesis of the model read from a JAX Orbax run
+        k["orbax_launches"] = orbax_run["orbax_launches"].get(counter, 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

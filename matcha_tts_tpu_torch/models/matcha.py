@@ -124,6 +124,34 @@ class MatchaTTS(nn.Module):
 
     forward = synthesize
 
+    def forward_simplified(self, x: torch.Tensor, x_lengths: torch.Tensor, y: torch.Tensor,
+                           y_lengths: torch.Tensor, spks: Optional[torch.Tensor] = None, *,
+                           generator: Optional[torch.Generator] = None,
+                           t: Optional[torch.Tensor] = None, z: Optional[torch.Tensor] = None):
+        """The reference's simplified `MatchaTTS.forward`, kept for API
+        parity with the JAX package's `forward_simplified`: the CFM loss on
+        the TEXT mask and the UNALIGNED mu, so `y` (B, T_x, n_feats) must
+        have as many frames as `x` has tokens (`y_lengths` is not used).
+        No dropout.  `t` (B,) and `z` (B, T_x, n_feats) may be given, else
+        `cfm.compute_loss` draws them from `generator`.  The canonical
+        training loss, with MAS, is `train/losses.py`.
+
+        Returns (cfm_loss, logw (B, T_x, 1), y_lengths_pred (B,) int32)."""
+        if y.shape[1] != x.shape[1]:
+            raise ValueError(f"forward_simplified needs y with T_x = {x.shape[1]} frames, "
+                             f"got {tuple(y.shape)}")
+        spk_emb = self._speaker(spks)
+        mu, logw, x_mask = self.encoder(x, x_lengths, spk_emb)
+        w_ceil = torch.ceil(torch.exp(logw[..., 0]) * x_mask)
+        y_lengths_pred = torch.clamp(w_ceil.sum(dim=1), min=1.0).to(torch.int32)
+
+        def estimator(zz, mask, mu_, tt):
+            return self.decoder.estimator(zz, mask, mu_, tt, spk_emb)
+
+        cfm_loss = cfm.compute_loss(estimator, y, x_mask, mu, self.cfg.cfm.sigma_min,
+                                    generator=generator, t=t, z=z)[0]
+        return cfm_loss, logw, y_lengths_pred
+
     @torch.no_grad()
     def encode_only(self, x: torch.Tensor, x_lengths: torch.Tensor,
                     length_scale: float = 1.0,

@@ -1,6 +1,6 @@
 """Parameter interop: reference checkpoints into the JAX package's trees and
 back, those trees into the port's modules, and the loaders of a training run
-or a checkpoint file."""
+(the port's or the JAX package's Orbax run) or a checkpoint file."""
 
 from matcha_tts_tpu_torch.params.convert import (  # noqa: F401
     convert_hifigan,
@@ -12,4 +12,9 @@ from matcha_tts_tpu_torch.params.convert import (  # noqa: F401
     load_torch_state_dict,
     vocos_config_from_state_dict,
 )
-from matcha_tts_tpu_torch.params.io import load_matcha_any, load_run_matcha  # noqa: F401
+from matcha_tts_tpu_torch.params.io import (  # noqa: F401
+    load_matcha_any,
+    load_orbax_matcha,
+    load_run_matcha,
+)
+from matcha_tts_tpu_torch.params.orbax import read_orbax_tree  # noqa: F401

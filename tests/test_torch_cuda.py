@@ -10,7 +10,9 @@ statistics and a misaligned bf16 or fp32 base), the flash backward (dq, dk/dv,
 with a misaligned fp32 base: fp32 max |diff| <=
 1e-5 of each gradient's max |value|, bf16 relative L2 <= 1e-2 against the
 fp32 plain backward on the same rounded operands, bitwise repeatable), the
-MRF levels at batch 32 and the streaming vocoder against the full pass.  Run
+MRF levels at batch 32, the streaming vocoder against the full pass, and an
+exported `use_pallas=True` serving graph (the fused-block ops) replayed
+against the live call.  Run
 on a machine with one (`--noconftest`: tests/conftest.py imports JAX, which
 the port does not need):
 
@@ -896,3 +898,60 @@ def test_kernel_ops_pass_opcheck_on_the_card(cuda, name):
     output, no output aliasing an input or another output, tracing."""
     op, args = kernel_op_sample(name, cuda)
     torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_exported_fused_blocks_replay_the_live_call(cuda, dtype):
+    """A `use_pallas=True` decoder in an exported serving graph
+    (`inference/export.py`) at a small config, replayed on the card: the
+    graph holds the `block1d` and `resnet1d` ops (one resnet a transformer
+    level, one final block an Euler step) with `mrf` and two `mrf_up`; a
+    replay launches each of those kernels as often, and equals the live
+    `_synthesize_packed` on the same z bit for bit: the same kernels on the
+    same inputs."""
+    from matcha_tts_tpu_torch import config as C
+    from matcha_tts_tpu_torch.inference import export
+    from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
+    from matcha_tts_tpu_torch.models.matcha import MatchaTTS
+    from matcha_tts_tpu_torch.ops import unet_cuda
+
+    nfe, t_x, t_y, batch = 2, 32, 128, 2
+    cfg = C.MatchaConfig(
+        encoder=C.EncoderConfig(n_channels=64, filter_channels=128, n_heads=2, n_layers=1),
+        duration_predictor=C.DurationPredictorConfig(filter_channels_dp=64),
+        decoder=C.DecoderConfig(channels=(64, 64), attention_head_dim=32, num_heads=2,
+                                n_blocks=1, num_mid_blocks=1, use_pallas=True))
+    model = MatchaTTS(cfg, seed=4, device=cuda)
+    voc, hcfg = _unit_gain_generator(cuda)
+    syn = Synthesizer(model, cfg, voc, hcfg, compute_dtype=dtype, denoise_strength=0.00025,
+                      device=cuda)
+    program = export.export_program(model, cfg, voc, hcfg, batch=batch, text_bucket=t_x,
+                                    frame_bucket=t_y, n_timesteps=nfe, compute_dtype=dtype,
+                                    denoise_strength=0.00025)
+    want_ops = {"resnet1d": nfe * 5, "block1d": nfe, "mrf": 1, "mrf_up": 2}
+    assert export.kernel_ops(program) == want_ops
+    g = torch.Generator().manual_seed(6)
+    x = torch.randint(1, cfg.n_vocab, (batch, t_x), generator=g)
+    xl = torch.tensor([t_x, 19])
+    x[1, 19:] = 0
+    x, xl = x.to(cuda), xl.to(cuda)
+    z = export.noise(7, batch, t_y, cfg.encoder.n_feats, cuda)
+
+    def counted(fn):
+        for counts in (mrf_cuda.LAUNCHES, unet_cuda.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in {**mrf_cuda.LAUNCHES, **unet_cuda.LAUNCHES}.items() if v}
+
+    (packed, mel, _, dur, y_lengths), replayed = counted(lambda: program.module()(
+        model.state_dict(), voc.state_dict(), z, x, xl, syn._denoiser.bias_spec))
+    (want_packed, want), live = counted(lambda: syn._synthesize_packed(
+        x, xl, t_y, nfe, 0.667, 1.0, None, 0, None, z=z))
+    assert replayed == live == want_ops
+    assert torch.equal(y_lengths, want.y_lengths) and torch.equal(dur, want.durations)
+    diffs = (int((packed.int() - want_packed.int()).abs().max()),
+             float((mel.float() - want.mel.float()).abs().max()))
+    assert torch.equal(packed, want_packed) and torch.equal(mel, want.mel), diffs
+    assert float(want.mel.abs().max()) > 0
