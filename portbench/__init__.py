@@ -1,0 +1,4 @@
+"""The benchmark of the PyTorch and CUDA port (`matcha_tts_tpu_torch`).
+
+`python3 portbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>` runs one cell of `BENCHMARK.json` once.  See `PERF.md`."""
