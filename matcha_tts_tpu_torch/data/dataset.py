@@ -31,6 +31,7 @@ from matcha_tts_tpu_torch.config import AudioConfig, TrainConfig
 from matcha_tts_tpu_torch.native import wavio_native
 from matcha_tts_tpu_torch.ops.masking import fix_len_compatibility
 from matcha_tts_tpu_torch.text.tokenizer import encode_text
+from matcha_tts_tpu_torch.utils import tracing
 
 
 def parse_filelist(filelist_path, split_char: str = "|") -> List[List[str]]:
@@ -176,7 +177,9 @@ def pick_bucket(n: int, buckets: Sequence[int]) -> int:
 
 class PrefetchIterator:
     """A background thread reads host batches ahead of the consumer (a small
-    queue); an exception in the producer re-raises in the consumer."""
+    queue); an exception in the producer re-raises in the consumer.  Under
+    a profiler the worker's assembly of each item is a span
+    `matcha.data.load`, the consumer's block on the queue `matcha.data.wait`."""
 
     def __init__(self, iterable, depth: int = 2):
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -185,7 +188,12 @@ class PrefetchIterator:
 
         def worker():
             try:
-                for item in iterable:
+                items = iter(iterable)
+                while True:
+                    with tracing.span("matcha.data.load"):
+                        item = next(items, self._sentinel)
+                    if item is self._sentinel:
+                        break
                     self._q.put(item)
             except BaseException as e:  # noqa: BLE001 - re-raised in __next__
                 self._err = e
@@ -199,7 +207,8 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with tracing.span("matcha.data.wait"):
+            item = self._q.get()
         if item is self._sentinel:
             if self._err is not None:
                 raise self._err

@@ -26,10 +26,24 @@ Endpoints:
                       "stream": false}            -> audio/wav
   GET  /healthz                                    -> {"status": "ok", ...}
   GET  /stats                                      -> batching counters
+
+`/stats` counts `requests` submitted to the batcher, `batches` (groups
+synthesised), `batched_requests`, `max_batch_seen`, `audio_seconds` and
+`synth_seconds` (host clock around a group; `rtf` is their ratio), and
+`queue_wait_seconds` and `queue_wait_max_seconds`: the sum and the largest
+of each request's time from `submit` to the batcher taking it into a batch.
+
+Under `torch.profiler` (of every thread: the handlers and the batcher run
+on threads of their own), each POST is a span `matcha.serve.request` from
+receipt to the response written, and each group a span
+`matcha.serve.batch`.  Their `request_id` / `request_ids` arguments join a
+request to its batch where the profiler keeps span arguments
+(`utils/tracing.py`).
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import queue
 import threading
@@ -43,6 +57,7 @@ import torch
 
 from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
 from matcha_tts_tpu_torch.parallel.mesh import broadcast_json
+from matcha_tts_tpu_torch.utils import tracing
 from matcha_tts_tpu_torch.utils.wav import pcm16_bytes, wav_bytes
 
 
@@ -55,6 +70,8 @@ class _Request:
     seed: int
     spk: Optional[int]
     future: Future = field(default_factory=Future)
+    rid: int = 0             # the request's id in the spans
+    t_submit: float = 0.0
 
     @property
     def group_key(self):
@@ -80,7 +97,8 @@ class DynamicBatcher:
         self.window_s = float(batch_window_ms) / 1000.0
         self.q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self.stats = {"requests": 0, "batches": 0, "batched_requests": 0,
-                      "audio_seconds": 0.0, "synth_seconds": 0.0, "max_batch_seen": 0}
+                      "audio_seconds": 0.0, "synth_seconds": 0.0, "max_batch_seen": 0,
+                      "queue_wait_seconds": 0.0, "queue_wait_max_seconds": 0.0}
         # serialises all device work: batches here, streams on handler threads
         self.device_lock = threading.Lock()
         self._closing = False
@@ -92,6 +110,7 @@ class DynamicBatcher:
             req.future.set_exception(RuntimeError("server is shutting down"))
             return req.future
         self.stats["requests"] += 1
+        req.t_submit = time.monotonic()
         self.q.put(req)
         return req.future
 
@@ -122,12 +141,19 @@ class DynamicBatcher:
             except queue.Empty:
                 broadcast_json({"op": "ping"})
 
+    def _taken(self, req: _Request) -> _Request:
+        """Count `req`'s wait in the queue, as the batcher takes it."""
+        wait = time.monotonic() - req.t_submit
+        self.stats["queue_wait_seconds"] += wait
+        self.stats["queue_wait_max_seconds"] = max(self.stats["queue_wait_max_seconds"], wait)
+        return req
+
     def _collect(self):
         """Block for the first request, then take more for the batch window."""
         first = self._first()
         if first is None:
             return None
-        batch = [first]
+        batch = [self._taken(first)]
         deadline = time.monotonic() + self.window_s
         while len(batch) < self.max_batch:
             timeout = deadline - time.monotonic()
@@ -140,7 +166,7 @@ class DynamicBatcher:
             if nxt is None:
                 self.q.put(None)  # the outer loop stops on it
                 break
-            batch.append(nxt)
+            batch.append(self._taken(nxt))
         return batch
 
     def _run(self):
@@ -154,27 +180,32 @@ class DynamicBatcher:
             for r in batch:
                 groups.setdefault(r.group_key, []).append(r)
             for key, reqs in groups.items():
-                t0 = time.monotonic()
-                texts = [r.text for r in reqs]
-                try:
-                    with self.device_lock, torch.no_grad():
-                        if self.mesh is not None:
-                            broadcast_json({"op": "batch", "texts": texts, "key": list(key)})
-                        results = _synthesize_group(self.synth, texts, key, self.mesh)
-                        pcms = [res.pcm16 for res in results]
-                except Exception as e:  # every waiter gets the failure
-                    for r in reqs:
-                        r.future.set_exception(e)
-                    continue
-                sr = self.synth.matcha_cfg.audio.sample_rate
-                self.stats["batches"] += 1
-                self.stats["batched_requests"] += len(reqs)
-                self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], len(reqs))
-                self.stats["synth_seconds"] += time.monotonic() - t0
-                for r, pcm in zip(reqs, pcms):
-                    # int16 PCM straight off the packed copy, no float round trip
-                    self.stats["audio_seconds"] += len(pcm) / sr
-                    r.future.set_result(pcm)
+                self._serve_group(key, reqs)
+
+    def _serve_group(self, key, reqs):
+        with tracing.span("matcha.serve.batch",
+                          {"request_ids": ",".join(str(r.rid) for r in reqs)}):
+            t0 = time.monotonic()
+            texts = [r.text for r in reqs]
+            try:
+                with self.device_lock, torch.no_grad():
+                    if self.mesh is not None:
+                        broadcast_json({"op": "batch", "texts": texts, "key": list(key)})
+                    results = _synthesize_group(self.synth, texts, key, self.mesh)
+                    pcms = [res.pcm16 for res in results]
+            except Exception as e:  # every waiter gets the failure
+                for r in reqs:
+                    r.future.set_exception(e)
+                return
+            sr = self.synth.matcha_cfg.audio.sample_rate
+            self.stats["batches"] += 1
+            self.stats["batched_requests"] += len(reqs)
+            self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], len(reqs))
+            self.stats["synth_seconds"] += time.monotonic() - t0
+            for r, pcm in zip(reqs, pcms):
+                # int16 PCM straight off the packed copy, no float round trip
+                self.stats["audio_seconds"] += len(pcm) / sr
+                r.future.set_result(pcm)
 
 
 def _synthesize_group(synth: Synthesizer, texts, key, mesh):
@@ -219,6 +250,9 @@ class TTSServer:
                  max_batch: int = 16, batch_window_ms: float = 10.0, mesh=None):
         self.synth = synth
         self.batcher = DynamicBatcher(synth, max_batch, batch_window_ms, mesh=mesh)
+        # request ids for the spans (`next` on a count is one C call: atomic
+        # across the handler threads)
+        self._request_ids = itertools.count(1)
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -249,6 +283,11 @@ class TTSServer:
                     self._json(404, {"error": f"no route {self.path}"})
 
             def do_POST(self):  # noqa: N802
+                rid = next(server._request_ids)
+                with tracing.span("matcha.serve.request", {"request_id": rid}):
+                    self._post(rid)
+
+            def _post(self, rid: int):
                 if self.path != "/synthesize":
                     self._json(404, {"error": f"no route {self.path}"})
                     return
@@ -269,7 +308,8 @@ class TTSServer:
                         temperature=float(payload.get("temperature", 0.667)),
                         length_scale=float(payload.get("length_scale", 1.0)),
                         seed=int(payload.get("seed", 0)),
-                        spk=(int(payload["spk"]) if payload.get("spk") is not None else None))
+                        spk=(int(payload["spk"]) if payload.get("spk") is not None else None),
+                        rid=rid)
                 except (TypeError, ValueError) as e:
                     self._json(400, {"error": f"bad parameter: {e}"})
                     return

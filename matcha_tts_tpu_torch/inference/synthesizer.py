@@ -42,6 +42,7 @@ from matcha_tts_tpu_torch.models.denoiser import DenoiserState, denoise, make_de
 from matcha_tts_tpu_torch.models.matcha import MatchaTTS, SynthesisOutput, as_dtype
 from matcha_tts_tpu_torch.parallel.mesh import all_reduce_max, batch_sharding, gather_rows
 from matcha_tts_tpu_torch.text.tokenizer import encode_text
+from matcha_tts_tpu_torch.utils import tracing
 
 DEFAULT_TEXT_BUCKETS = (64, 128, 192, 256, 384, 512)
 # batched synthesis pads the batch to these sizes and snaps the frame count to
@@ -61,7 +62,6 @@ class SynthesisResult:
     wav: np.ndarray          # (n_samples,) float32
     mel: np.ndarray          # (n_mels, T_valid)
     attn: np.ndarray         # (T_x, T_y_valid)
-    rtf_breakdown: dict
 
     @property
     def pcm16(self) -> np.ndarray:
@@ -74,10 +74,13 @@ class LazySynthesisResult:
     and then shared by `.wav`, `.pcm16` and `.y_length`; `.mel` and `.attn`
     are copied only when read.  The rows of one batch pass one
     `shared_cache` (a one-element list), so that the packed buffer crosses
-    to the host once per batch, not once per row."""
+    to the host once per batch, not once per row.  With `stats`, that copy
+    adds the frames of the batch's first `real_rows` rows (the rest are pad
+    rows) to `stats["frames"]`."""
 
     def __init__(self, packed: torch.Tensor, out: Optional[SynthesisOutput], row: int,
-                 batch: int, t_wav: int, hop: int, shared_cache: Optional[list] = None):
+                 batch: int, t_wav: int, hop: int, shared_cache: Optional[list] = None,
+                 stats: Optional[dict] = None, real_rows: int = 0):
         self._packed = packed
         self._out = out
         self._row = row
@@ -85,10 +88,18 @@ class LazySynthesisResult:
         self._t_wav = t_wav
         self._hop = hop
         self._host = shared_cache if shared_cache is not None else [None]
+        self._stats = stats
+        self._real_rows = real_rows
 
     def _fetch(self) -> np.ndarray:
         if self._host[0] is None:
-            self._host[0] = self._packed.cpu().numpy()
+            with tracing.span("matcha.synth.fetch"):
+                host = self._packed.cpu().numpy()
+            if self._stats is not None:
+                lengths = self._b * self._t_wav
+                self._stats["frames"] += int(
+                    host[lengths:lengths + self._real_rows].sum(dtype=np.int64))
+            self._host[0] = host
         return self._host[0]
 
     @property
@@ -169,8 +180,11 @@ class Synthesizer:
         self.batch_frame_buckets = tuple(batch_frame_buckets)
         self.compute_dtype = compute_dtype
         self.denoise_strength = float(denoise_strength)
-        # device calls (bucket retries included) and retries alone
-        self.stats = {"calls": 0, "bucket_retries": 0}
+        # device calls (bucket retries included) and retries alone; the
+        # frame-rows the calls computed (batch bucket x frame bucket) and the
+        # true frames of the real rows delivered to the host: 1 - frames /
+        # frame_rows is the padding share
+        self.stats = {"calls": 0, "bucket_retries": 0, "frame_rows": 0, "frames": 0}
         self._fpt_obs_max: Optional[float] = None
         self._denoiser: Optional[DenoiserState] = None
         if self.denoise_strength > 0.0 and self.vocoder is not None:
@@ -250,9 +264,10 @@ class Synthesizer:
                              length_scale: float, spks=None, buckets=None) -> int:
         """Run the encoder alone for the exact predicted frame count, then
         snap it to the smallest bucket."""
-        y_lengths = self.model.encode_only(x, x_lengths, length_scale, spks)
-        return self._bucket(int(y_lengths.max()),
-                            buckets if buckets is not None else self.frame_buckets)
+        with tracing.span("matcha.synth.frame_bucket"):
+            y_lengths = self.model.encode_only(x, x_lengths, length_scale, spks)
+            longest = int(y_lengths.max())
+        return self._bucket(longest, buckets if buckets is not None else self.frame_buckets)
 
     def _frames_per_token(self) -> float:
         if self._fpt_obs_max is None:
@@ -272,10 +287,11 @@ class Synthesizer:
         length -> clip -> round(wav * 32767) as int16, packed with the frame
         counts.  `z` (B, t_y, n_feats) replaces the noise drawn from `seed`."""
         dtype = as_dtype(self.compute_dtype)
-        out = self.model.synthesize(
-            x, x_lengths, n_timesteps=n_timesteps, t_y_max=t_y,
-            temperature=temperature, length_scale=length_scale, spks=spks,
-            compute_dtype=dtype, seed=seed, noise_ids=noise_ids, z=z)
+        with tracing.span("matcha.synth.acoustic"):
+            out = self.model.synthesize(
+                x, x_lengths, n_timesteps=n_timesteps, t_y_max=t_y,
+                temperature=temperature, length_scale=length_scale, spks=spks,
+                compute_dtype=dtype, seed=seed, noise_ids=noise_ids, z=z)
         return self._vocode_packed(out.mel, out.y_lengths), out
 
     @torch.no_grad()
@@ -283,9 +299,22 @@ class Synthesizer:
         """The packed call's vocoder half: (B, n_mels, t_y) mels and (B,)
         frame counts -> the packed buffer.  A row's samples depend on its
         mel alone."""
-        mel_btc = mel.transpose(1, 2).to(as_dtype(self.compute_dtype))
-        wav = vocoder_mod.generate(self.vocoder, mel_btc, self.hifi_cfg)
-        return pack_pcm(wav, y_lengths, self._denoiser, self.denoise_strength)
+        with tracing.span("matcha.synth.vocode"):
+            mel_btc = mel.transpose(1, 2).to(as_dtype(self.compute_dtype))
+            wav = vocoder_mod.generate(self.vocoder, mel_btc, self.hifi_cfg)
+            return pack_pcm(wav, y_lengths, self._denoiser, self.denoise_strength)
+
+    def _device_call(self, x, x_lengths, t_y, n_timesteps, temperature, length_scale, spks,
+                     seed, noise_ids, rows: int, frame_rows: int):
+        """`_synthesize_packed` as one counted device call: `rows` real rows,
+        `frame_rows` frame-rows computed (batch bucket x frame bucket)."""
+        self.stats["calls"] += 1
+        self.stats["frame_rows"] += frame_rows
+        args = {"rows": rows, "batch_bucket": x.shape[0], "text_bucket": x.shape[1],
+                "frame_bucket": t_y}
+        with tracing.span("matcha.synth.call", args):
+            return self._synthesize_packed(x, x_lengths, t_y, n_timesteps, temperature,
+                                           length_scale, spks, seed, noise_ids)
 
     # -- single utterance ----------------------------------------------------
 
@@ -305,35 +334,35 @@ class Synthesizer:
         `exact_bucket=True` runs the encoder first to pick the bucket."""
         if self.vocoder is None:
             raise ValueError("synthesis to audio needs a vocoder")
-        t_x = self._bucket(len(ids), self.text_buckets)
-        ids = ids[:t_x]  # truncate past the largest bucket
-        x, x_lengths, spks = self._inputs([ids], t_x, 1, spk)
-        if exact_bucket:
-            t_y = self.predict_frame_bucket(x, x_lengths, length_scale, spks)
-        else:
-            t_y = self._bucket(int(len(ids) * self._frames_per_token() * length_scale),
-                               self.frame_buckets)
+        with tracing.span("matcha.synth.batch"):
+            t_x = self._bucket(len(ids), self.text_buckets)
+            ids = ids[:t_x]  # truncate past the largest bucket
+            x, x_lengths, spks = self._inputs([ids], t_x, 1, spk)
+            if exact_bucket:
+                t_y = self.predict_frame_bucket(x, x_lengths, length_scale, spks)
+            else:
+                t_y = self._bucket(int(len(ids) * self._frames_per_token() * length_scale),
+                                   self.frame_buckets)
 
-        hop = self.matcha_cfg.audio.hop_length
-        if self.hifi_cfg.total_upsample != hop:
-            raise ValueError(
-                f"vocoder upsampling x{self.hifi_cfg.total_upsample} must "
-                f"equal the mel hop length {hop} (wav samples per frame)")
-        noise_ids = [self._noise_id(ids)]
-        while True:
-            self.stats["calls"] += 1
-            packed, out = self._synthesize_packed(
-                x, x_lengths, t_y, n_timesteps, temperature, length_scale,
-                spks, seed, noise_ids)
-            result = LazySynthesisResult(packed, out, row=0, batch=1,
-                                         t_wav=t_y * hop, hop=hop)
-            # the predicted length was clipped: retry one bucket up
-            if result.y_length >= t_y and t_y != self.frame_buckets[-1]:
-                t_y = [b for b in self.frame_buckets if b > t_y][0]
-                self.stats["bucket_retries"] += 1
-                continue
-            self._observe_ratio(result.y_length, len(ids), length_scale)
-            return result
+            hop = self.matcha_cfg.audio.hop_length
+            if self.hifi_cfg.total_upsample != hop:
+                raise ValueError(
+                    f"vocoder upsampling x{self.hifi_cfg.total_upsample} must "
+                    f"equal the mel hop length {hop} (wav samples per frame)")
+            noise_ids = [self._noise_id(ids)]
+            while True:
+                packed, out = self._device_call(x, x_lengths, t_y, n_timesteps, temperature,
+                                                length_scale, spks, seed, noise_ids, 1, t_y)
+                result = LazySynthesisResult(packed, out, row=0, batch=1,
+                                             t_wav=t_y * hop, hop=hop)
+                # the predicted length was clipped: retry one bucket up
+                if result.y_length >= t_y and t_y != self.frame_buckets[-1]:
+                    t_y = [b for b in self.frame_buckets if b > t_y][0]
+                    self.stats["bucket_retries"] += 1
+                    continue
+                self.stats["frames"] += result.y_length
+                self._observe_ratio(result.y_length, len(ids), length_scale)
+                return result
 
     # -- batches ---------------------------------------------------------------
 
@@ -352,33 +381,33 @@ class Synthesizer:
         `spk` applies to the whole batch (the server's batcher groups
         requests by speaker).  The results come back in the order of `texts`;
         the rows of one call share one packed device-to-host copy."""
-        encoded = [self.tokenize(t) for t in texts]
-        order = sorted(range(len(texts)), key=lambda i: len(encoded[i]))
-        results: List[Optional[LazySynthesisResult]] = [None] * len(texts)
-        groups: dict = {}
-        for i in order:
-            groups.setdefault(self._bucket(len(encoded[i]), self.text_buckets), []).append(i)
-        hop = self.hifi_cfg.total_upsample
-        max_b = self.batch_buckets[-1]
-        for t_x, all_idxs in groups.items():
-            for start in range(0, len(all_idxs), max_b):
-                idxs = all_idxs[start:start + max_b]
-                b = self._bucket(len(idxs), self.batch_buckets)
-                rows = [encoded[i][:t_x] for i in idxs]
-                x, x_lengths, spks = self._inputs(rows, t_x, b, spk)
-                noise_ids = [self._noise_id(r) for r in rows] + [0] * (b - len(rows))
-                t_y = self.predict_frame_bucket(x, x_lengths, length_scale, spks,
-                                                buckets=self.batch_frame_buckets)
-                self._check_vocoder_memory(b, t_y)
-                self.stats["calls"] += 1
-                packed, out = self._synthesize_packed(
-                    x, x_lengths, t_y, n_timesteps, temperature, length_scale,
-                    spks, seed, noise_ids)
-                cache: list = [None]
-                for row, i in enumerate(idxs):
-                    results[i] = LazySynthesisResult(packed, out, row=row, batch=b,
-                                                     t_wav=t_y * hop, hop=hop,
-                                                     shared_cache=cache)
+        with tracing.span("matcha.synth.batch"):
+            encoded = [self.tokenize(t) for t in texts]
+            order = sorted(range(len(texts)), key=lambda i: len(encoded[i]))
+            results: List[Optional[LazySynthesisResult]] = [None] * len(texts)
+            groups: dict = {}
+            for i in order:
+                groups.setdefault(self._bucket(len(encoded[i]), self.text_buckets), []).append(i)
+            hop = self.hifi_cfg.total_upsample
+            max_b = self.batch_buckets[-1]
+            for t_x, all_idxs in groups.items():
+                for start in range(0, len(all_idxs), max_b):
+                    idxs = all_idxs[start:start + max_b]
+                    b = self._bucket(len(idxs), self.batch_buckets)
+                    rows = [encoded[i][:t_x] for i in idxs]
+                    x, x_lengths, spks = self._inputs(rows, t_x, b, spk)
+                    noise_ids = [self._noise_id(r) for r in rows] + [0] * (b - len(rows))
+                    t_y = self.predict_frame_bucket(x, x_lengths, length_scale, spks,
+                                                    buckets=self.batch_frame_buckets)
+                    self._check_vocoder_memory(b, t_y)
+                    packed, out = self._device_call(x, x_lengths, t_y, n_timesteps,
+                                                    temperature, length_scale, spks, seed,
+                                                    noise_ids, len(rows), b * t_y)
+                    cache: list = [None]
+                    for row, i in enumerate(idxs):
+                        results[i] = LazySynthesisResult(
+                            packed, out, row=row, batch=b, t_wav=t_y * hop, hop=hop,
+                            shared_cache=cache, stats=self.stats, real_rows=len(rows))
         return results  # type: ignore[return-value]
 
     def synthesize_batch_sharded(self, texts: Sequence[str], mesh, n_timesteps: int = 10,
@@ -399,36 +428,40 @@ class Synthesizer:
         The packed buffers (and, with `keep_aux`, the mels and alignments)
         are gathered on every rank, so a row equals the same text in
         `synthesize_batch` at the same frame bucket.  `spk` applies to the
-        whole batch."""
+        whole batch.  The frame counters count the whole group (every
+        rank's rows), so that each rank reads the group's padding share."""
         sh = batch_sharding(mesh)
-        encoded = [self.tokenize(t) for t in texts]
-        results: List[Optional[LazySynthesisResult]] = [None] * len(texts)
-        groups: dict = {}
-        for i in range(len(texts)):
-            groups.setdefault(self._bucket(len(encoded[i]), self.text_buckets), []).append(i)
-        hop = self.hifi_cfg.total_upsample
-        for t_x, idxs in groups.items():
-            b = -(-len(idxs) // sh.world) * sh.world
-            share = sh.rows(b)
-            nb = b // sh.world
-            rows = [encoded[i][:t_x] for i in idxs[share]]
-            x, x_lengths, spks = self._inputs(rows, t_x, nb, spk)
-            noise_ids = [self._noise_id(r) for r in rows] + [0] * (nb - len(rows))
-            frames = self.model.encode_only(x, x_lengths, length_scale, spks).max()
-            t_y = self._bucket(int(all_reduce_max(frames.to(torch.int32), sh.group)),
-                               self.batch_frame_buckets)
-            self._check_vocoder_memory(nb, t_y)
-            self.stats["calls"] += 1
-            packed, out = self._synthesize_packed(x, x_lengths, t_y, n_timesteps, temperature,
-                                                  length_scale, spks, seed, noise_ids)
-            t_wav = t_y * hop
-            pcm = gather_rows(packed[:nb * t_wav].view(nb, t_wav), sh)
-            packed = torch.cat([pcm.reshape(-1), gather_rows(packed[nb * t_wav:], sh)])
-            aux = SynthesisOutput(*(gather_rows(t, sh) for t in out)) if keep_aux else None
-            cache: list = [None]
-            for row, i in enumerate(idxs):
-                results[i] = LazySynthesisResult(packed, aux, row=row, batch=b, t_wav=t_wav,
-                                                 hop=hop, shared_cache=cache)
+        with tracing.span("matcha.synth.batch"):
+            encoded = [self.tokenize(t) for t in texts]
+            results: List[Optional[LazySynthesisResult]] = [None] * len(texts)
+            groups: dict = {}
+            for i in range(len(texts)):
+                groups.setdefault(self._bucket(len(encoded[i]), self.text_buckets), []).append(i)
+            hop = self.hifi_cfg.total_upsample
+            for t_x, idxs in groups.items():
+                b = -(-len(idxs) // sh.world) * sh.world
+                share = sh.rows(b)
+                nb = b // sh.world
+                rows = [encoded[i][:t_x] for i in idxs[share]]
+                x, x_lengths, spks = self._inputs(rows, t_x, nb, spk)
+                noise_ids = [self._noise_id(r) for r in rows] + [0] * (nb - len(rows))
+                with tracing.span("matcha.synth.frame_bucket"):
+                    frames = self.model.encode_only(x, x_lengths, length_scale, spks).max()
+                    longest = int(all_reduce_max(frames.to(torch.int32), sh.group))
+                t_y = self._bucket(longest, self.batch_frame_buckets)
+                self._check_vocoder_memory(nb, t_y)
+                packed, out = self._device_call(x, x_lengths, t_y, n_timesteps, temperature,
+                                                length_scale, spks, seed, noise_ids,
+                                                len(rows), b * t_y)
+                t_wav = t_y * hop
+                pcm = gather_rows(packed[:nb * t_wav].view(nb, t_wav), sh)
+                packed = torch.cat([pcm.reshape(-1), gather_rows(packed[nb * t_wav:], sh)])
+                aux = SynthesisOutput(*(gather_rows(t, sh) for t in out)) if keep_aux else None
+                cache: list = [None]
+                for row, i in enumerate(idxs):
+                    results[i] = LazySynthesisResult(
+                        packed, aux, row=row, batch=b, t_wav=t_wav, hop=hop,
+                        shared_cache=cache, stats=self.stats, real_rows=len(idxs))
         return results  # type: ignore[return-value]
 
     def warmup(self, texts: Optional[Sequence[str]] = None,
@@ -664,5 +697,4 @@ class Synthesizer:
         return SynthesisResult(
             wav=wav,
             mel=np.concatenate(mels, axis=1) if mels else np.zeros((0, 0)),
-            attn=attns[0] if attns else np.zeros((0, 0)),
-            rtf_breakdown={})
+            attn=attns[0] if attns else np.zeros((0, 0)))

@@ -37,6 +37,7 @@ from matcha_tts_tpu_torch.parallel.mesh import (all_reduce_sum, any_rank, batch_
                                                 is_main, replicate, resume_together)
 from matcha_tts_tpu_torch.train.train_state import (TrainState, create_train_state,
                                                     eval_step, train_step)
+from matcha_tts_tpu_torch.utils import tracing
 
 
 def featurize_batch(batch: Dict[str, np.ndarray], cfg: MatchaConfig,
@@ -44,16 +45,17 @@ def featurize_batch(batch: Dict[str, np.ndarray], cfg: MatchaConfig,
     """Host batch (tokens, padded audio, lengths) -> device batch with the
     normalised log-mel `y` (B, T, n_mels)."""
     a = cfg.audio
-    audio = torch.from_numpy(batch["audio"]).to(device)
-    mel = log_mel_spectrogram(audio, a.sample_rate, a.n_fft, a.n_mels, a.hop_length,
-                              a.win_length, a.f_min, a.f_max)  # (B, n_mels, T)
-    mel = normalize_mel(mel, a.mel_mean, a.mel_std)
-    out = {"x": torch.from_numpy(batch["x"]).long().to(device),
-           "x_lengths": torch.from_numpy(batch["x_lengths"]).long().to(device),
-           "y": mel.transpose(1, 2).contiguous(),
-           "y_lengths": torch.from_numpy(batch["y_lengths"]).long().to(device)}
-    if "spks" in batch:
-        out["spks"] = torch.from_numpy(batch["spks"]).long().to(device)
+    with tracing.span("matcha.train.featurize"):
+        audio = torch.from_numpy(batch["audio"]).to(device)
+        mel = log_mel_spectrogram(audio, a.sample_rate, a.n_fft, a.n_mels, a.hop_length,
+                                  a.win_length, a.f_min, a.f_max)  # (B, n_mels, T)
+        mel = normalize_mel(mel, a.mel_mean, a.mel_std)
+        out = {"x": torch.from_numpy(batch["x"]).long().to(device),
+               "x_lengths": torch.from_numpy(batch["x_lengths"]).long().to(device),
+               "y": mel.transpose(1, 2).contiguous(),
+               "y_lengths": torch.from_numpy(batch["y_lengths"]).long().to(device)}
+        if "spks" in batch:
+            out["spks"] = torch.from_numpy(batch["spks"]).long().to(device)
     return out
 
 

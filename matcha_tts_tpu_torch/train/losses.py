@@ -19,6 +19,7 @@ from matcha_tts_tpu_torch.models import cfm, nn
 from matcha_tts_tpu_torch.models.matcha import DType, MatchaTTS, as_dtype
 from matcha_tts_tpu_torch.ops.mas import maximum_path
 from matcha_tts_tpu_torch.ops.masking import sequence_mask
+from matcha_tts_tpu_torch.utils import tracing
 
 
 class LossOutput(NamedTuple):
@@ -73,7 +74,8 @@ def matcha_losses(model: MatchaTTS, x: torch.Tensor, x_lengths: torch.Tensor,
 
     with torch.no_grad():
         log_prior = log_gaussian_prior(mu_x.detach(), y, cfg.encoder.n_feats)
-        attn = maximum_path(log_prior, attn_mask)  # (B, T_x, T_y)
+        with tracing.span("matcha.train.mas"):
+            attn = maximum_path(log_prior, attn_mask)  # (B, T_x, T_y)
 
     logw_ = torch.log(1e-8 + torch.sum(attn, dim=-1, keepdim=True)) * x_mask[..., None]
     dur_loss = duration_loss(logw, logw_, x_lengths, generator)

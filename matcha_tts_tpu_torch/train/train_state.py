@@ -22,6 +22,7 @@ from matcha_tts_tpu_torch.models.matcha import MatchaTTS
 from matcha_tts_tpu_torch.parallel.mesh import (BatchRows, all_reduce_grads, all_reduce_sum,
                                                 batch_sharding)
 from matcha_tts_tpu_torch.train.losses import matcha_losses
+from matcha_tts_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -93,17 +94,20 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     draws, sh = step_draws(row_seed(train_cfg.seed, state.step), model.device,
                            batch["x"].shape[0], mesh)
     cd = torch.bfloat16 if train_cfg.mixed_precision else torch.float32
-    out = _batch_losses(model, batch, model_cfg, draws, True, train_cfg.prior_loss, cd)
+    with tracing.span("matcha.train.forward"):
+        out = _batch_losses(model, batch, model_cfg, draws, True, train_cfg.prior_loss, cd)
     state.optimizer.zero_grad(set_to_none=True)
-    out.total.backward()
+    with tracing.span("matcha.train.backward"):
+        out.total.backward()
     if sh is not None:
         all_reduce_grads(model.parameters(), sh.group)
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    norm = global_norm(grads)
-    clip_by_global_norm_(grads, norm, train_cfg.grad_clip_norm)
-    for group in state.optimizer.param_groups:
-        group["lr"] = train_cfg.learning_rate
-    state.optimizer.step()
+    with tracing.span("matcha.train.optimizer"):
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        norm = global_norm(grads)
+        clip_by_global_norm_(grads, norm, train_cfg.grad_clip_norm)
+        for group in state.optimizer.param_groups:
+            group["lr"] = train_cfg.learning_rate
+        state.optimizer.step()
     state.step += 1
     return {**_metrics(out, sh), "grad_norm": norm}
 
