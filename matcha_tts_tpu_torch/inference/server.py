@@ -24,6 +24,7 @@ Endpoints:
   POST /synthesize   {"text": ..., "n_timesteps": 10, "temperature": 0.667,
                       "length_scale": 1.0, "seed": 0, "spk": null,
                       "stream": false}            -> audio/wav
+                     (n_timesteps 1 to MAX_TIMESTEPS, else 400)
   GET  /healthz                                    -> {"status": "ok", ...}
   GET  /stats                                      -> batching counters
 
@@ -59,6 +60,11 @@ from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
 from matcha_tts_tpu_torch.parallel.mesh import broadcast_json
 from matcha_tts_tpu_torch.utils import tracing
 from matcha_tts_tpu_torch.utils.wav import pcm16_bytes, wav_bytes
+
+# the most solver steps a request may ask for: the flow is solved in a few
+# (Matcha-TTS is evaluated at 2 to 10), and each step adds about a tenth of a
+# call's device time to the batch that carries it
+MAX_TIMESTEPS = 100
 
 
 @dataclass
@@ -310,6 +316,9 @@ class TTSServer:
                         seed=int(payload.get("seed", 0)),
                         spk=(int(payload["spk"]) if payload.get("spk") is not None else None),
                         rid=rid)
+                    if not 1 <= req.n_timesteps <= MAX_TIMESTEPS:
+                        raise ValueError(f"n_timesteps {req.n_timesteps} is outside "
+                                         f"1..{MAX_TIMESTEPS}")
                 except (TypeError, ValueError) as e:
                     self._json(400, {"error": f"bad parameter: {e}"})
                     return

@@ -13,9 +13,13 @@ of traffic (`warmup`, `warmup_grid`), splits long text into sentences
 (`split_text`, `stream`, `synthesize_long`) and streams audio as the vocoder
 produces it (`stream_samples`, through `inference/streaming.py`).  The
 vocoder is either family (`HiFiGANConfig` or `VocosConfig`, dispatched by
-`models/vocoder.py`).  The calls are eager; `inference/export.py` exports the
-packed call per bucket ahead of time (`torch.export`), and one CUDA graph per
-bucket is ROADMAP.md work.
+`models/vocoder.py`).  On a CUDA device each step of the acoustic stage's
+CFM solve is replayed from a CUDA graph per (batch, frame) key
+(`inference/graphs.py`), captured at the key's first call (so `warmup` and
+`warmup_grid` capture what they run); the rest of a call is eager, as is
+everything on the CPU, and gives the same numbers either way.
+`inference/export.py` exports the packed call per bucket ahead of time
+(`torch.export`).
 
 Under a data-parallel mesh (one process per rank), `synthesize_batch_sharded`
 splits each text-bucket group's rows over the ranks: every rank calls it
@@ -36,7 +40,9 @@ import numpy as np
 import torch
 
 from matcha_tts_tpu_torch.config import HiFiGANConfig, MatchaConfig, VocosConfig
+from matcha_tts_tpu_torch.inference import graphs
 from matcha_tts_tpu_torch.inference.streaming import StreamingVocoder
+from matcha_tts_tpu_torch.models import cfm
 from matcha_tts_tpu_torch.models import vocoder as vocoder_mod
 from matcha_tts_tpu_torch.models.denoiser import DenoiserState, denoise, make_denoiser
 from matcha_tts_tpu_torch.models.matcha import MatchaTTS, SynthesisOutput, as_dtype
@@ -183,8 +189,12 @@ class Synthesizer:
         # device calls (bucket retries included) and retries alone; the
         # frame-rows the calls computed (batch bucket x frame bucket) and the
         # true frames of the real rows delivered to the host: 1 - frames /
-        # frame_rows is the padding share
-        self.stats = {"calls": 0, "bucket_retries": 0, "frame_rows": 0, "frames": 0}
+        # frame_rows is the padding share; the solver-step graphs captured,
+        # the steps replayed from them and the steps run eagerly: replays /
+        # (replays + eager_steps) is the replayed share of the steps
+        self.stats = {"calls": 0, "bucket_retries": 0, "frame_rows": 0, "frames": 0,
+                      "graph_captures": 0, "graph_replays": 0, "eager_steps": 0}
+        self._graphs = graphs.StepGraphs(self.model.decoder.estimator)
         self._fpt_obs_max: Optional[float] = None
         self._denoiser: Optional[DenoiserState] = None
         if self.denoise_strength > 0.0 and self.vocoder is not None:
@@ -238,7 +248,8 @@ class Synthesizer:
     # charges, so that it bounds the measured peak: a whole fp32 call at
     # (32, 2048) peaked 6.60 GB above the weights (`torch.cuda.
     # max_memory_allocated`), 3.07 such buffers, on an H100 80GB HBM3 at
-    # 700 W (chip_smoke.py phase 20, PERF.md §5).
+    # 700 W (chip_smoke.py phase 20, PERF.md §5); 6.74 GB, 3.14 buffers, with
+    # the first call's graph capture of its solver step.
     HBM_BUDGET_BYTES = 60e9
     _VOCODER_LIVE_BUFFERS = 4
 
@@ -288,10 +299,20 @@ class Synthesizer:
         counts.  `z` (B, t_y, n_feats) replaces the noise drawn from `seed`."""
         dtype = as_dtype(self.compute_dtype)
         with tracing.span("matcha.synth.acoustic"):
-            out = self.model.synthesize(
-                x, x_lengths, n_timesteps=n_timesteps, t_y_max=t_y,
-                temperature=temperature, length_scale=length_scale, spks=spks,
-                compute_dtype=dtype, seed=seed, noise_ids=noise_ids, z=z)
+            if not graphs.engages(self.model.device):
+                self.stats["eager_steps"] += n_timesteps
+                out = self.model.synthesize(
+                    x, x_lengths, n_timesteps=n_timesteps, t_y_max=t_y,
+                    temperature=temperature, length_scale=length_scale, spks=spks,
+                    compute_dtype=dtype, seed=seed, noise_ids=noise_ids, z=z)
+            else:  # `model.synthesize` with each solver step a graph's replay
+                prep = self.model.prepare(x, x_lengths, t_y_max=t_y,
+                                          length_scale=length_scale, spks=spks,
+                                          compute_dtype=dtype)
+                z0 = cfm.initial_state(prep.mu_y, temperature, seed, noise_ids, z)
+                mel = self._graphs.solve(z0, prep, n_timesteps, self.model.cfg.cfm.solver,
+                                         self.stats)
+                out = self.model.finish(mel, prep)
         return self._vocode_packed(out.mel, out.y_lengths), out
 
     @torch.no_grad()

@@ -12,7 +12,7 @@ batch.  Temperature 0 makes z exactly zero, in both packages.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -23,6 +23,32 @@ def row_seed(seed: int, noise_id: int) -> int:
     return ((int(seed) & 0xFFFFFFFF) << 32) | (int(noise_id) & 0xFFFFFFFF)
 
 
+SOLVERS = ("euler", "midpoint")
+
+
+def step(estimator: Callable, z: torch.Tensor, mask: torch.Tensor, mu: torch.Tensor,
+         t: torch.Tensor, dt: Union[float, torch.Tensor], solver: str = "euler",
+         t_mid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One fixed step of `solve` from flow time `t` (B,) in mu's dtype: the
+    fp32 state after it.  Euler makes one estimator pass, midpoint two, the
+    second at `t_mid`, by default `t + dt * 0.5`.  `solve` and the serving
+    layer's CUDA graphs (`inference/graphs.py`) both run it, so the step is
+    defined once.  A graph gives `dt` as a 0-dim fp32 tensor, which the fp32
+    update multiplies to the same bits as the float, and fills `t_mid` itself:
+    a tensor added to a bf16 `t` is not rounded as a float is."""
+    cdtype = mu.dtype
+    if solver == "euler":
+        v = estimator(z.to(cdtype), mask, mu, t)
+        return z + v.float() * dt
+    if solver == "midpoint":
+        pred = estimator(z.to(cdtype), mask, mu, t)
+        z_mid = z + pred.float() * (dt * 0.5)
+        pred_mid = estimator(z_mid.to(cdtype), mask, mu,
+                             t + dt * 0.5 if t_mid is None else t_mid)
+        return z + pred_mid.float() * dt
+    raise NotImplementedError(f"Solver {solver} not implemented")
+
+
 def solve(estimator: Callable, z: torch.Tensor, mask: torch.Tensor,
           mu: torch.Tensor, n_timesteps: int, solver: str = "euler") -> torch.Tensor:
     """Integrate dz/dt = v(z, t) from t=0 to 1 in fixed steps.
@@ -30,24 +56,14 @@ def solve(estimator: Callable, z: torch.Tensor, mask: torch.Tensor,
     estimator(z, mask, mu, t) -> v; z, mu: (B, T, C); mask: (B, T); t: (B,)
     in mu's dtype (the compute dtype).  The state z stays fp32 even under
     bf16 compute, so the step accumulation does not lose precision."""
+    if solver not in SOLVERS:
+        raise NotImplementedError(f"Solver {solver} not implemented")
     b = z.shape[0]
     dt = 1.0 / n_timesteps
-    cdtype = mu.dtype
     z = z.float()
-    if solver == "euler":
-        for i in range(n_timesteps):
-            t = torch.full((b,), i / n_timesteps, dtype=cdtype, device=z.device)
-            v = estimator(z.to(cdtype), mask, mu, t)
-            z = z + v.float() * dt
-    elif solver == "midpoint":
-        for i in range(n_timesteps):
-            t = torch.full((b,), i / n_timesteps, dtype=cdtype, device=z.device)
-            pred = estimator(z.to(cdtype), mask, mu, t)
-            z_mid = z + pred.float() * (dt * 0.5)
-            pred_mid = estimator(z_mid.to(cdtype), mask, mu, t + dt * 0.5)
-            z = z + pred_mid.float() * dt
-    else:
-        raise NotImplementedError(f"Solver {solver} not implemented")
+    for i in range(n_timesteps):
+        t = torch.full((b,), i / n_timesteps, dtype=mu.dtype, device=z.device)
+        z = step(estimator, z, mask, mu, t, dt, solver)
     return z
 
 
@@ -71,9 +87,18 @@ def sample(estimator: Callable, mu: torch.Tensor, mask: torch.Tensor,
            z: Optional[torch.Tensor] = None) -> torch.Tensor:
     """z * temperature, then the ODE solve.  `z` (B, T, C) may be given;
     otherwise it is drawn by `draw_noise`."""
+    return solve(estimator, initial_state(mu, temperature, seed, noise_ids, z), mask, mu,
+                 n_timesteps, solver)
+
+
+def initial_state(mu: torch.Tensor, temperature: float, seed: int = 0,
+                  noise_ids: Optional[Sequence[int]] = None,
+                  z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The solve's fp32 starting state: `z` (drawn by `draw_noise` where not
+    given) times `temperature`."""
     if z is None:
         z = draw_noise(mu.shape, mu.device, seed, noise_ids)
-    return solve(estimator, z.float() * temperature, mask, mu, n_timesteps, solver)
+    return z.float() * temperature
 
 
 def compute_loss(estimator: Callable, x1: torch.Tensor, mask: torch.Tensor,

@@ -38,6 +38,18 @@ class SynthesisOutput(NamedTuple):
     durations: torch.Tensor  # (B, T_x) integer per-token durations
 
 
+class Prepared(NamedTuple):
+    """The CFM solve's inputs, and what `MatchaTTS.finish` needs after it."""
+
+    mu_y: torch.Tensor                # (B, T_y, n_feats) in the compute dtype
+    mask: torch.Tensor                # (B, T_y) frame mask in the compute dtype
+    y_mask: torch.Tensor              # the same in fp32
+    y_lengths: torch.Tensor           # (B,) int32 frame counts
+    attn: torch.Tensor                # (B, T_x, T_y)
+    durations: torch.Tensor           # (B, T_x) fp32 ceil durations
+    spk_emb: Optional[torch.Tensor]   # (B, spk_emb_dim), or None
+
+
 class CFM(nn.Module):
     """Holds the U-Net estimator (the `decoder` of the parameter tree)."""
 
@@ -92,7 +104,25 @@ class MatchaTTS(nn.Module):
         """Text -> mel.  x: (B, T_x) token ids padded to a bucket; x_lengths:
         (B,); `t_y_max` is the frame bucket (a multiple of
         2**num_downsamples).  `z` injects the CFM noise (B, t_y_max, n_feats);
-        otherwise it is drawn as `models/cfm.py` says."""
+        otherwise it is drawn as `models/cfm.py` says.  It is `prepare`, the
+        CFM solve and `finish`."""
+        prep = self.prepare(x, x_lengths, t_y_max=t_y_max, length_scale=length_scale,
+                            spks=spks, compute_dtype=compute_dtype)
+
+        def estimator(zz, mask, mu_, t):
+            return self.decoder.estimator(zz, mask, mu_, t, prep.spk_emb)
+
+        mel = cfm.sample(estimator, prep.mu_y, prep.mask, n_timesteps,
+                         temperature=temperature,
+                         solver=solver or self.cfg.cfm.solver,
+                         seed=seed, noise_ids=noise_ids, z=z)
+        return self.finish(mel, prep)
+
+    def prepare(self, x: torch.Tensor, x_lengths: torch.Tensor, *, t_y_max: int,
+                length_scale: float = 1.0, spks: Optional[torch.Tensor] = None,
+                compute_dtype: DType = "float32") -> Prepared:
+        """`synthesize` up to the CFM solve: encoder, durations, the
+        alignment path and the aligned `mu_y`."""
         dtype = as_dtype(compute_dtype)
         spk_emb = self._speaker(spks)
         mu, logw, x_mask = self.encoder(x, x_lengths, spk_emb, dtype)
@@ -109,18 +139,16 @@ class MatchaTTS(nn.Module):
         # mu_y[b, y, c] = sum_x attn[b, x, y] * mu[b, x, c], fp32 accumulation
         mu_y = torch.bmm(attn.transpose(1, 2).to(dtype).float(),
                          mu.to(dtype).float()).to(dtype)
+        return Prepared(mu_y=mu_y, mask=y_mask.to(dtype), y_mask=y_mask, y_lengths=y_lengths,
+                        attn=attn, durations=w_ceil, spk_emb=spk_emb)
 
-        def estimator(zz, mask, mu_, t):
-            return self.decoder.estimator(zz, mask, mu_, t, spk_emb)
-
-        mel = cfm.sample(estimator, mu_y, y_mask.to(dtype), n_timesteps,
-                         temperature=temperature,
-                         solver=solver or self.cfg.cfm.solver,
-                         seed=seed, noise_ids=noise_ids, z=z)
+    def finish(self, mel: torch.Tensor, prep: Prepared) -> SynthesisOutput:
+        """`synthesize` after the CFM solve: the solved state (B, T_y,
+        n_feats) denormalised and masked, as (B, n_feats, T_y)."""
         mel = denormalize_mel(mel.float(), self.mel_mean, self.mel_std)
-        mel = mel * y_mask[..., None]
-        return SynthesisOutput(mel=mel.transpose(1, 2), y_lengths=y_lengths,
-                               attn=attn, durations=w_ceil.to(torch.int32))
+        mel = mel * prep.y_mask[..., None]
+        return SynthesisOutput(mel=mel.transpose(1, 2), y_lengths=prep.y_lengths,
+                               attn=prep.attn, durations=prep.durations.to(torch.int32))
 
     forward = synthesize
 

@@ -12,7 +12,8 @@ with a misaligned fp32 base: fp32 max |diff| <=
 fp32 plain backward on the same rounded operands, bitwise repeatable), the
 MRF levels at batch 32, the streaming vocoder against the full pass, and an
 exported `use_pallas=True` serving graph (the fused-block ops) replayed
-against the live call.  Run
+against the eager call and the live one, whose solver steps are CUDA graph
+replays.  Run
 on a machine with one (`--noconftest`: tests/conftest.py imports JAX, which
 the port does not need):
 
@@ -906,9 +907,12 @@ def test_exported_fused_blocks_replay_the_live_call(cuda, dtype):
     (`inference/export.py`) at a small config, replayed on the card: the
     graph holds the `block1d` and `resnet1d` ops (one resnet a transformer
     level, one final block an Euler step) with `mrf` and two `mrf_up`; a
-    replay launches each of those kernels as often, and equals the live
+    replay launches each of those kernels as often as the eager call
+    (`model.synthesize` and `_vocode_packed`), and equals it and the live
     `_synthesize_packed` on the same z bit for bit: the same kernels on the
-    same inputs."""
+    same inputs.  The live call replays its solver steps from CUDA graphs
+    (`inference/graphs.py`), which the wrappers' launch counters do not
+    see, so it is held to the eager call by its output."""
     from matcha_tts_tpu_torch import config as C
     from matcha_tts_tpu_torch.inference import export
     from matcha_tts_tpu_torch.inference.synthesizer import Synthesizer
@@ -947,9 +951,17 @@ def test_exported_fused_blocks_replay_the_live_call(cuda, dtype):
 
     (packed, mel, _, dur, y_lengths), replayed = counted(lambda: program.module()(
         model.state_dict(), voc.state_dict(), z, x, xl, syn._denoiser.bias_spec))
-    (want_packed, want), live = counted(lambda: syn._synthesize_packed(
-        x, xl, t_y, nfe, 0.667, 1.0, None, 0, None, z=z))
+    def eager():
+        out = model.synthesize(x, xl, n_timesteps=nfe, t_y_max=t_y, temperature=0.667,
+                               compute_dtype=dtype, z=z)
+        return syn._vocode_packed(out.mel, out.y_lengths), out
+
+    (want_packed, want), live = counted(eager)
     assert replayed == live == want_ops
+    graphed_packed, graphed = syn._synthesize_packed(x, xl, t_y, nfe, 0.667, 1.0, None, 0,
+                                                     None, z=z)
+    assert syn.stats["graph_replays"] == nfe and syn.stats["eager_steps"] == 0
+    assert torch.equal(graphed_packed, want_packed) and torch.equal(graphed.mel, want.mel)
     assert torch.equal(y_lengths, want.y_lengths) and torch.equal(dur, want.durations)
     diffs = (int((packed.int() - want_packed.int()).abs().max()),
              float((mel.float() - want.mel.float()).abs().max()))

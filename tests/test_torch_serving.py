@@ -362,6 +362,18 @@ def test_error_paths(server):
     assert e.value.code == 404
 
 
+def test_n_timesteps_out_of_range_is_refused(server):
+    """A request for fewer than one solver step or more than
+    `MAX_TIMESTEPS` is answered 400 and never reaches the batcher."""
+    before = json.loads(_get(server, "/stats").read())["requests"]
+    for nfe in (0, -3, srv_mod.MAX_TIMESTEPS + 1, 10 ** 9):
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(server, {"text": "x", "n_timesteps": nfe})
+        assert e.value.code == 400
+        assert "n_timesteps" in json.loads(e.value.read())["error"]
+    assert json.loads(_get(server, "/stats").read())["requests"] == before
+
+
 def test_listen_backlog_sized_for_bursts(server):
     assert server.httpd.request_queue_size >= 64
 
