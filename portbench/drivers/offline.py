@@ -7,7 +7,9 @@ Set-up builds the port at the configuration's sizes with weights drawn
 from the seed and runs `warm_jobs` jobs of the same traffic.  The window
 starts with the first timed job and ends when the job running at the
 `--seconds` mark finishes; under `--trace 1` the profiler records the
-window's second job.
+window's second job.  The synthesizer's counters (every numeric key of
+`Synthesizer.stats`) are read before and after the window, and before and
+after the profiled job, and their differences kept (`counters`).
 
 Of every job the window finishes, two utterances are kept for the
 comparison: the longest text's and one drawn from the seed (their host
@@ -41,6 +43,14 @@ def _job(synth, texts, s, seed):
     return results, pcms
 
 
+def _counters(stats: dict) -> dict:
+    return {k: v for k, v in stats.items() if isinstance(v, (int, float))}
+
+
+def _since(before: dict, stats: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in _counters(stats).items()}
+
+
 def run(ctx: Context) -> dict:
     cfg, mix = ctx.cell.config, ctx.cell.traffic
     s = cfg["serving"]
@@ -57,7 +67,7 @@ def run(ctx: Context) -> dict:
     keep_rng = ctx.rng(1)
     jobs, kept = [], []
     prof = None
-    calls0 = synth.stats["calls"]
+    stats0 = _counters(synth.stats)
     gc.collect()
     gc.freeze()
     t_start = ctx.start_window()
@@ -66,13 +76,13 @@ def run(ctx: Context) -> dict:
         profiling = ctx.trace and len(jobs) == 1
         if profiling:
             prof = Profiler().__enter__()
-            pcalls0 = synth.stats["calls"]
+            pstats0 = _counters(synth.stats)
         t_job = time.perf_counter()
         results, pcms = _job(synth, texts, s, seed)
         t_end = time.perf_counter()
         if profiling:
             prof.__exit__(None, None, None)
-            prof_calls = synth.stats["calls"] - pcalls0
+            prof_counters = _since(pstats0, synth.stats)
         jobs.append({"t0": t_job, "t1": t_end, "texts": texts,
                      "frames": [len(p) // hop for p in pcms]})
         longest = max(range(len(texts)), key=lambda i: len(texts[i]))
@@ -84,7 +94,7 @@ def run(ctx: Context) -> dict:
         if t_end - t_start >= ctx.seconds and (prof is not None or not ctx.trace):
             break
     gc.unfreeze()
-    calls = synth.stats["calls"] - calls0
+    counters = _since(stats0, synth.stats)
 
     n = sum(len(j["texts"]) for j in jobs)
     for j in jobs:
@@ -95,12 +105,14 @@ def run(ctx: Context) -> dict:
     out = {"setup_s": t_start - ctx.t0, "window_s": jobs[-1]["t1"] - t_start,
            "audio_s": frames * hop / sr, "utterances": n, "frames": frames,
            "tokens": sum(w[0] for j in jobs for w in j["work"]),
-           "attempted": n, "failed": 0, "calls": calls, "config": cfg,
+           "attempted": n, "failed": 0, "calls": counters["calls"], "counters": counters,
+           "config": cfg,
            "kept": [synth_check.sample_from_host(*k) for k in kept], "params": built.params,
            "untraced": {"work": [w for j in plain for w in j["work"]],
                         "seconds": sum(j["t1"] - j["t0"] for j in plain)}}
     if prof is not None:
-        out["profile"] = {"trace": prof.trace, "calls": prof_calls, "work": jobs[1]["work"]}
+        out["profile"] = {"trace": prof.trace, "calls": prof_counters["calls"],
+                          "counters": prof_counters, "work": jobs[1]["work"]}
     ctx.release.append(lambda: built.__dict__.clear())
     return out
 

@@ -207,7 +207,7 @@ def run(ctx: Context) -> dict:
            "train": cfg["train"],
            "untraced": {"work": plain_work, "seconds": t_end - t_start - prof_s}}
     if prof is not None:
-        out["profile"] = {"trace": prof.trace, "work": prof_work}
+        out["profile"] = {"trace": prof.trace, "work": prof_work, "steps": mix["trace_steps"]}
     ctx.release.append(lambda: built.__dict__.clear())
     ctx.release.append(lambda: state.__dict__.clear())
     return out

@@ -25,3 +25,18 @@ def idle_share(run):
     if t.busy_s <= 0:
         return None
     return 100.0 * max(0.0, 1.0 - t.busy_s / t.wall_s)
+
+
+def span_ms(run, span: str, per: str):
+    """The device's busy plus idle time credited to the program's `span` in
+    the profiled job or steps (`Trace.spans`), in ms per the profile's
+    `per` ("calls": device calls; "steps": training steps).  None where the
+    trace saw no device work, the program recorded no such span, or there
+    is nothing to divide by."""
+    prof = run.get("profile")
+    if not prof or not prof.get(per) or prof["trace"].busy_s <= 0:
+        return None
+    s = prof["trace"].spans.get(span)
+    if s is None:
+        return None
+    return 1e3 * (s["busy_s"] + s["idle_s"]) / prof[per]

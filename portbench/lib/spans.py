@@ -25,8 +25,8 @@ credited to the spans open then on the thread that called it.
 `busy_s + idle_s` is a stage's share of the timeline: a stage that keeps the
 card busy reads mostly busy, one that leaves it waiting for the host mostly
 idle.  The profiler stretches the idle part, so the numbers compare only
-between traced runs.  `lib/trace.py` keeps no events past its own reduction,
-so no metric reads this yet.
+between traced runs.  `lib/trace.py::reduce_events` keeps this table as
+`Trace.spans`, which the per-stage metrics (`metrics/*_ms.*.py`) read.
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ it:
   every thread where the profiler can record them all;
 * runtime launches: `cudaLaunchKernel`, `cudaLaunchKernelExC`,
   `cuLaunchKernel` and `cuLaunchKernelEx` calls, with graph launches
-  counted apart.
+  counted apart;
+* the program's own spans (`matcha.*`): each one's count and the device's
+  busy and idle seconds credited to it (`lib/spans.py::span_times`).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ class Trace:
     idle_gaps: List[Tuple[str, float]]        # (host activity, seconds), longest first
     launches: int
     graph_launches: int
+    spans: Dict[str, Dict[str, float]]        # {span name: {"count", "busy_s", "idle_s"}}
 
     def kernel_seconds(self, pattern: str) -> float:
         rx = re.compile(pattern)
@@ -64,6 +67,8 @@ def _union(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
 
 
 def reduce_events(events: List[dict], wall_s: float) -> Trace:
+    from portbench.lib.spans import span_times  # spans.py imports this module
+
     dev, host = [], []
     kernels: Dict[str, float] = {}
     launches = graphs = 0
@@ -107,7 +112,7 @@ def reduce_events(events: List[dict], wall_s: float) -> Trace:
     busy_s = sum(b - a for a, b in busy) * 1e-6
     return Trace(wall_s=wall_s, busy_s=busy_s, kernels=kernels,
                  idle_gaps=sorted(gaps.items(), key=lambda kv: -kv[1]),
-                 launches=launches, graph_launches=graphs)
+                 launches=launches, graph_launches=graphs, spans=span_times(events))
 
 
 def _config():

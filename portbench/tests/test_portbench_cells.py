@@ -15,6 +15,7 @@ from portbench.lib.context import Context
 from portbench.tests.conftest import ROOT
 
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
+DRIVERS = {c: spec.find_cell(c).traffic["driver"] for c in CELLS}  # what runs each cell
 SEED = 3_000_000_123
 
 

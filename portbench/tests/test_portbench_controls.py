@@ -10,7 +10,14 @@
   only after the warm-up) and a loss taken over half of the batch.  Each
   run reads `correct` false.
 
-At the tiny size of `tests/tiny.py`, on the CPU."""
+At the tiny size of `tests/tiny.py`, on the CPU.
+
+The cells are picked by the driver that runs them (their traffic's
+`driver`), not by name: the planted faults are the Matcha synthesis path's
+(`offline`, `serve`) and the training step's (`train`).  A cell of another
+driver, such as a model of another family, is rehearsed by
+`test_portbench_cells.py` and by the controls and faults that its own PR
+adds in a test file of its own."""
 
 import time
 
@@ -20,10 +27,10 @@ import torch
 
 from portbench.lib import harness, spec, synth_check, train_check
 from portbench.lib.context import Context
-from portbench.tests.test_portbench_cells import CELLS
+from portbench.tests.test_portbench_cells import CELLS, DRIVERS
 
-SYNTH_CELLS = [c for c in CELLS if not c.endswith("train_b64")]
-TRAIN_CELLS = [c for c in CELLS if c.endswith("train_b64")]
+SYNTH_CELLS = [c for c in CELLS if DRIVERS[c] in ("offline", "serve")]
+TRAIN_CELLS = [c for c in CELLS if DRIVERS[c] == "train"]
 
 
 def _ctx(tiny, name, seed=11):
@@ -35,7 +42,7 @@ def _fails(numbers, limits):
     return any(not numbers[k] <= limits[k] for k in limits)
 
 
-@pytest.mark.parametrize("name", [c for c in SYNTH_CELLS if "offline" in c])
+@pytest.mark.parametrize("name", [c for c in SYNTH_CELLS if DRIVERS[c] == "offline"])
 def test_synthesis_control_fails(tiny, name):
     ctx = _ctx(tiny, name)
     drv = spec.driver(ctx.cell.traffic)

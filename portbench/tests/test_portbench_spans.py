@@ -1,9 +1,16 @@
 """`lib/spans.py`'s split of the device's timeline by the program's spans,
-on synthetic events."""
+on synthetic events; the per-stage readers that take it from `Trace.spans`,
+and the counter readers, on synthetic traces and on tiny traced runs."""
+
+import time
 
 import pytest
 
+from portbench.lib import spec
+from portbench.lib.context import Context
 from portbench.lib.spans import span_times
+from portbench.lib.trace import reduce_events
+from portbench.tests.test_portbench_cells import CELLS, DRIVERS
 
 
 def _x(cat, name, ts, dur, tid=1, corr=None):
@@ -102,3 +109,94 @@ def test_no_program_span_no_entry():
                                                      corr=1),
               _x("kernel", "add", 2, 3, tid=99, corr=1)]
     assert span_times(events) == {}
+
+
+# -- the readers ----------------------------------------------------------------
+
+SYNTH_STAGES = {"frame_bucket_ms.synth": "matcha.synth.frame_bucket",
+                "acoustic_ms.synth": "matcha.synth.acoustic",
+                "vocode_ms.synth": "matcha.synth.vocode"}
+TRAIN_STAGES = {"featurize_ms.train": "matcha.train.featurize",
+                "forward_ms.train": "matcha.train.forward",
+                "backward_ms.train": "matcha.train.backward",
+                "optimizer_ms.train": "matcha.train.optimizer"}
+STAGES = {**SYNTH_STAGES, **TRAIN_STAGES}
+COUNTERS = ("padding_share.synth", "replayed_share.synth")
+
+
+def _per(metric):
+    return "calls" if metric.endswith(".synth") else "steps"
+
+
+@pytest.mark.parametrize("metric", sorted(STAGES))
+def test_stage_reader_reads_its_span(metric):
+    span, read = STAGES[metric], spec.reader(metric)
+    events = [
+        _x("user_annotation", span, 0, 100),
+        _x("cuda_runtime", "cudaLaunchKernel", 10, 1, corr=1),
+        _x("kernel", "k1", 20, 30, tid=99, corr=1),
+        _x("user_annotation", "matcha.other", 100, 50),
+    ]
+    # busy 20-50; the idle 0-20 and 50-150 (to the last host event) open
+    # under the span on the launching thread: 150 us over two calls or steps
+    run = {"profile": {"trace": reduce_events(events, wall_s=150e-6), _per(metric): 2}}
+    assert read(run) == pytest.approx(0.075)
+    # nothing to read: no such span, no device work, no profile
+    others = [dict(e, name="matcha.other2") if e["name"] == span else e for e in events]
+    assert read({"profile": {"trace": reduce_events(others, 150e-6), _per(metric): 2}}) is None
+    idle = reduce_events(events[:1], wall_s=100e-6)
+    assert idle.spans[span]["count"] == 1 and idle.busy_s == 0
+    assert read({"profile": {"trace": idle, _per(metric): 2}}) is None
+    assert read({}) is None
+
+
+@pytest.mark.parametrize("metric", COUNTERS)
+def test_counter_reader_without_its_counters_reads_nothing(metric):
+    read = spec.reader(metric)
+    assert read({}) is None
+    assert read({"counters": {"calls": 3}}) is None
+    assert read({"counters": {"frame_rows": 0, "frames": 0, "graph_replays": 0,
+                              "eager_steps": 0}}) is None
+
+
+@pytest.fixture(scope="module")
+def traced(tiny):
+    """Each cell's tiny run with `--trace 1`, once: the driver's run dict."""
+    runs = {}
+
+    def get(name):
+        if name not in runs:
+            cell = spec.find_cell(name, *tiny)
+            ctx = Context(cell, 41, 1.0, True, time.perf_counter(), device="cpu")
+            runs[name] = spec.driver(cell.traffic).run(ctx)
+        return runs[name]
+    return get
+
+
+@pytest.mark.parametrize("name", [c for c in CELLS if DRIVERS[c] in ("offline", "train")])
+def test_tiny_traced_run_keeps_the_port_spans(traced, name):
+    run = traced(name)
+    prof, spans = run["profile"], run["profile"]["trace"].spans
+    stages = SYNTH_STAGES if DRIVERS[name] == "offline" else TRAIN_STAGES
+    for metric, span in stages.items():
+        assert set(spans[span]) == {"count", "busy_s", "idle_s"}
+        assert spans[span]["count"] == prof[_per(metric)] > 0
+        # the CPU has no device timeline: a stage reads nothing
+        assert spans[span]["busy_s"] == spans[span]["idle_s"] == 0.0
+        assert spec.reader(metric)(run) is None
+
+
+@pytest.mark.parametrize("name", [c for c in CELLS if DRIVERS[c] == "offline"])
+def test_counter_readers_on_a_tiny_run(traced, name):
+    run = traced(name)
+    c, n_timesteps = run["counters"], run["config"]["serving"]["n_timesteps"]
+    # the frames the synthesizer counted are the window's delivered frames,
+    # which the driver counts from the PCM
+    assert c["frames"] == run["frames"] > 0 and c["frame_rows"] >= c["frames"]
+    assert spec.reader("padding_share.synth")(run) == pytest.approx(
+        100.0 * (1.0 - run["frames"] / c["frame_rows"]))
+    # on the CPU every solver step is eager
+    assert c["graph_replays"] == 0 and c["eager_steps"] == c["calls"] * n_timesteps
+    assert spec.reader("replayed_share.synth")(run) == 0.0
+    p = run["profile"]["counters"]
+    assert p["calls"] == run["profile"]["calls"] > 0 and p["frames"] <= c["frames"]

@@ -2,6 +2,7 @@
 
 import pytest
 
+from portbench.lib.spans import span_times
 from portbench.lib.trace import reduce_events
 
 
@@ -45,3 +46,15 @@ def test_breakdown_keeps_ten_of_each():
     b = reduce_events(events, wall_s=400e-6).breakdown()
     assert len(b["device_ops"]) == 10 and len(b["idle_gaps"]) <= 10
     assert all(isinstance(s, float) for _, s in b["device_ops"])
+
+
+def test_trace_keeps_the_program_spans():
+    events = EVENTS + [
+        {**_x("user_annotation", "matcha.synth.acoustic", 5, 30), "tid": 1},
+        {**_x("cuda_runtime", "cudaLaunchKernel", 11, 1), "tid": 1, "args": {"correlation": 4}},
+        {**_x("kernel", "conv_kernel", 12, 6), "tid": 99, "args": {"correlation": 4}},
+    ]
+    t = reduce_events(events, wall_s=100e-6)
+    assert t.spans == span_times(events)
+    assert t.spans["matcha.synth.acoustic"]["busy_s"] == pytest.approx(6e-6)
+    assert reduce_events(EVENTS, wall_s=100e-6).spans == {}

@@ -1,6 +1,12 @@
 """A copy of the benchmark's data at a size a CPU test can run: the same
 files with every configuration narrowed, every mix shortened and the
-compute in float32 (the CPU has no bf16 kernels worth testing)."""
+compute in float32 (the CPU has no bf16 kernels worth testing).
+
+Every file narrows by its own `tiny` section, deep-merged into it: dicts
+key by key, lists and scalars replaced.  So a configuration of another
+family, a traffic mix or a workload comes with its tiny sizes and no file
+here changes.  A configuration without a `tiny` section is a Matcha one
+from before the rule and keeps the narrowing `_shrink_matcha` gives it."""
 
 from __future__ import annotations
 
@@ -8,10 +14,18 @@ import json
 import shutil
 from pathlib import Path
 
-from portbench.lib.spec import PORTBENCH, ROOT
+from portbench.lib.spec import PORTBENCH
 
 
-def _shrink(cfg: dict) -> None:
+def _merge(dst: dict, src: dict) -> None:
+    for key, value in src.items():
+        if isinstance(value, dict) and isinstance(dst.get(key), dict):
+            _merge(dst[key], value)
+        else:
+            dst[key] = value
+
+
+def _shrink_matcha(cfg: dict) -> None:
     m = cfg["matcha"]
     m["encoder"].update(n_channels=32, filter_channels=64, n_heads=2, n_layers=1)
     m["duration_predictor"].update(filter_channels_dp=32)
@@ -33,23 +47,28 @@ def _shrink(cfg: dict) -> None:
         t.update(batch_size=2, mixed_precision=False)
 
 
-def tiny_tree(tmp: Path) -> Path:
-    """Copy `portbench/` and `BENCHMARK.json` under `tmp`, shrunk; returns
-    the copy of `portbench/`."""
+def _shrink(cfg: dict) -> None:
+    if "tiny" in cfg:
+        _merge(cfg, cfg["tiny"])
+    else:
+        _shrink_matcha(cfg)
+
+
+def _rewrite(path: Path, narrow) -> None:
+    data = json.loads(path.read_text())
+    narrow(data)
+    path.write_text(json.dumps(data))
+
+
+def tiny_tree(tmp: Path, src: Path = PORTBENCH) -> Path:
+    """Copy `src` (a `portbench/` directory) and the `BENCHMARK.json` beside
+    it under `tmp`, shrunk; returns the copy of `portbench/`."""
     dst = tmp / "portbench"
-    shutil.copytree(PORTBENCH, dst, ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    shutil.copy(ROOT / "BENCHMARK.json", tmp / "BENCHMARK.json")
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copy(src.parent / "BENCHMARK.json", tmp / "BENCHMARK.json")
     for f in (dst / "configs").glob("*.json"):
-        cfg = json.loads(f.read_text())
-        _shrink(cfg)
-        f.write_text(json.dumps(cfg))
-    for f in (dst / "traffic").glob("*.json"):
-        mix = json.loads(f.read_text())
-        for key, value in mix.get("tiny", {}).items():
-            mix[key] = value
-        f.write_text(json.dumps(mix))
-    for f in (dst / "workloads").glob("*.json"):
-        wl = json.loads(f.read_text())
-        wl.update(wl.get("tiny", {}))
-        f.write_text(json.dumps(wl))
+        _rewrite(f, _shrink)
+    for kind in ("traffic", "workloads"):
+        for f in (dst / kind).glob("*.json"):
+            _rewrite(f, lambda d: _merge(d, d.get("tiny", {})))
     return dst
